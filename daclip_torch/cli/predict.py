@@ -1,0 +1,87 @@
+"""Single-image / folder restoration CLI on the port — predict.py parity.
+
+Usage:
+  python -m daclip_torch.cli.predict -i image.png -o out/ \
+      --unet pretrained/universal-ir.pth --daclip pretrained/daclip_ViT-B-32.pt
+
+The flags are those of `daclip_tpu.cli.predict`, plus `--device` (default
+CUDA). Flags for what is not ported yet (orbax train dirs: --checkpoint,
+--no-ema, --step; --classify) are accepted and refused with an error.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="DA-CLIP universal image restoration")
+    p.add_argument("-i", "--input", required=True, help="image file or folder")
+    p.add_argument("-o", "--output", default="results", help="output folder")
+    p.add_argument("--unet", default=None, help="UNet weights: reference torch .pth")
+    p.add_argument("--checkpoint", default=None,
+                   help="orbax train dir (not ported yet)")
+    p.add_argument("--daclip", default=None,
+                   help="DA-CLIP weights: reference torch .pt; omit for "
+                        "context-free UNets")
+    p.add_argument("--no-ema", action="store_true",
+                   help="raw params from a train dir (not ported yet)")
+    p.add_argument("--step", type=int, default=None,
+                   help="step of a train dir (not ported yet)")
+    p.add_argument("--model-name", default="daclip_ViT-B-32")
+    p.add_argument("--sampling-mode", default="posterior",
+                   choices=["posterior", "sde", "ode"])
+    p.add_argument("--T", type=int, default=100)
+    p.add_argument("--sample-T", type=int, default=-1)
+    p.add_argument("--max-sigma", type=float, default=50)
+    p.add_argument("--tile-size", type=int, default=512)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--wild-ir", action="store_true",
+                   help="wild-ir variant (ViT-L-14 contexts, scale 0.5 UNet)")
+    p.add_argument("--classify", action="store_true",
+                   help="zero-shot degradation classification (not ported yet)")
+    p.add_argument("--device", default=None, help="torch device (default cuda)")
+    args = p.parse_args(argv)
+
+    if args.checkpoint or args.no_ema or args.step is not None:
+        p.error("orbax train dirs are not ported yet; pass --unet <torch .pth>")
+    if args.classify:
+        p.error("--classify needs the text tower, which is not ported yet")
+    if not args.unet:
+        p.error("--unet is required")
+
+    import cv2
+    from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
+
+    cfg = RestorerConfig(model_name=args.model_name, sampling_mode=args.sampling_mode,
+                         T=args.T, sample_T=args.sample_T, max_sigma=args.max_sigma,
+                         tile_size=args.tile_size)
+    if args.wild_ir:
+        cfg = RestorerConfig(model_name="daclip_ViT-L-14", context_dim=768,
+                             scale=0.5, spatial_attn_min_level=3,
+                             sampling_mode=args.sampling_mode, T=args.T,
+                             sample_T=args.sample_T, max_sigma=args.max_sigma,
+                             tile_size=args.tile_size)
+    restorer = DACLIPRestorer.load(args.unet, args.daclip, cfg, device=args.device)
+
+    paths = ([os.path.join(args.input, f) for f in sorted(os.listdir(args.input))]
+             if os.path.isdir(args.input) else [args.input])
+    os.makedirs(args.output, exist_ok=True)
+    for path in paths:
+        img = cv2.imread(path)
+        if img is None:
+            continue
+        rgb = img[:, :, ::-1].astype(np.float32) / 255.0
+        t0 = time.perf_counter()
+        out_bgr = restorer.restore(rgb, seed=args.seed)
+        dt = time.perf_counter() - t0
+        out_path = os.path.join(args.output, os.path.basename(path))
+        cv2.imwrite(out_path, out_bgr)
+        print(f"{path} -> {out_path} ({dt:.2f}s)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,245 @@
+"""CLIP and DaCLIP image towers, in PyTorch, plus the model-config registry.
+
+Counterpart of `daclip_tpu/models/clip.py` (open_clip model.py:187-264,
+daclip_model.py:17-76). The port serves the restore path, so it computes
+`DaCLIP.encode_image(control=True)` only. The text tower's modules
+(`transformer`, `token_embedding`, `positional_embedding`, `ln_final`,
+`text_projection`) are defined so a released `daclip_ViT-B-32.pt` loads with
+`load_state_dict(strict=True)`; text encoding is not ported yet.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import math
+import pathlib
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from daclip_torch.models.layers import LayerNorm
+from daclip_torch.models.transformer import Transformer, VisionTransformer
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionCfg:
+    image_size: int = 224
+    patch_size: int = 32
+    width: int = 768
+    layers: Any = 12            # int → ViT depth; tuple → ModifiedResNet stages
+    head_width: int = 64
+    mlp_ratio: float = 4.0
+    global_average_pool: bool = False
+    attentional_pool: bool = False
+    n_queries: int = 256
+    attn_pooler_heads: int = 8
+    output_tokens: bool = False
+    patch_dropout: float = 0.0
+    ls_init_value: Optional[float] = None
+    timm_model_name: Optional[str] = None
+    timm_model_pretrained: bool = False
+    timm_pool: str = "avg"
+    timm_proj: str = "linear"
+    timm_drop: float = 0.0
+    timm_drop_path: Optional[float] = None
+
+    @property
+    def is_resnet(self) -> bool:
+        return isinstance(self.layers, (tuple, list))
+
+    @property
+    def heads(self) -> int:
+        if self.is_resnet:
+            return self.width * 32 // self.head_width
+        return self.width // self.head_width
+
+
+@dataclasses.dataclass(frozen=True)
+class TextCfg:
+    context_length: int = 77
+    vocab_size: int = 49408
+    width: int = 512
+    heads: int = 8
+    layers: int = 12
+    mlp_ratio: float = 4.0
+    embed_cls: bool = False
+    pad_id: int = 0
+    output_tokens: bool = False
+    hf_model_name: Optional[str] = None
+    hf_tokenizer_name: Optional[str] = None
+    proj: str = "linear"
+    pooler_type: str = "mean_pooler"
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPCfg:
+    embed_dim: int = 512
+    vision: VisionCfg = dataclasses.field(default_factory=VisionCfg)
+    text: TextCfg = dataclasses.field(default_factory=TextCfg)
+    quick_gelu: bool = False
+    custom_text: bool = False
+
+    @staticmethod
+    def from_dict(d: Dict) -> "CLIPCfg":
+        v = {k: v for k, v in d.get("vision_cfg", {}).items()
+             if k in {f.name for f in dataclasses.fields(VisionCfg)}}
+        t = {k: v for k, v in d.get("text_cfg", {}).items()
+             if k in {f.name for f in dataclasses.fields(TextCfg)}}
+        return CLIPCfg(embed_dim=d["embed_dim"], vision=VisionCfg(**v),
+                       text=TextCfg(**t), quick_gelu=bool(d.get("quick_gelu", False)),
+                       custom_text=bool(d.get("custom_text", False)))
+
+
+# -- model config registry: the JAX package's literals (they take precedence),
+# then the vendored open_clip JSONs, read by path ------------------------------
+_TEXT_B = {"context_length": 77, "vocab_size": 49408, "width": 512, "heads": 8,
+           "layers": 12}
+_MODEL_CONFIGS: Dict[str, Dict] = {
+    "ViT-B-32": {"embed_dim": 512,
+                 "vision_cfg": {"image_size": 224, "layers": 12, "width": 768,
+                                "patch_size": 32},
+                 "text_cfg": dict(_TEXT_B)},
+    "ViT-B-16": {"embed_dim": 512,
+                 "vision_cfg": {"image_size": 224, "layers": 12, "width": 768,
+                                "patch_size": 16},
+                 "text_cfg": dict(_TEXT_B)},
+    "ViT-L-14": {"embed_dim": 768,
+                 "vision_cfg": {"image_size": 224, "layers": 24, "width": 1024,
+                                "patch_size": 14},
+                 "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 768,
+                              "heads": 12, "layers": 12}},
+    "RN50": {"embed_dim": 1024,
+             "vision_cfg": {"image_size": 224, "layers": [3, 4, 6, 3], "width": 64},
+             "text_cfg": dict(_TEXT_B)},
+    "RN101": {"embed_dim": 512,
+              "vision_cfg": {"image_size": 224, "layers": [3, 4, 23, 3], "width": 64},
+              "text_cfg": dict(_TEXT_B)},
+    "coca_ViT-B-32": {
+        "embed_dim": 512,
+        "vision_cfg": {"image_size": 224, "layers": 12, "width": 768, "patch_size": 32,
+                       "attentional_pool": True, "attn_pooler_heads": 8,
+                       "output_tokens": True},
+        "text_cfg": {"context_length": 76, "vocab_size": 49408, "width": 512,
+                     "heads": 8, "layers": 12, "embed_cls": True, "output_tokens": True},
+        "multimodal_cfg": {"context_length": 76, "vocab_size": 49408, "width": 512,
+                           "heads": 8, "layers": 12, "attn_pooler_heads": 8}},
+    "coca_ViT-L-14": {
+        "embed_dim": 768,
+        "vision_cfg": {"image_size": 224, "layers": 24, "width": 1024, "patch_size": 14,
+                       "attentional_pool": True, "attn_pooler_heads": 8,
+                       "output_tokens": True},
+        "text_cfg": {"context_length": 76, "vocab_size": 49408, "width": 768,
+                     "heads": 12, "layers": 12, "embed_cls": True, "output_tokens": True},
+        "multimodal_cfg": {"context_length": 76, "vocab_size": 49408, "width": 768,
+                           "heads": 12, "layers": 12, "attn_pooler_heads": 12}},
+    # tiny config for tests (not part of reference parity)
+    "test-tiny": {"embed_dim": 32,
+                  "vision_cfg": {"image_size": 32, "layers": 2, "width": 64,
+                                 "patch_size": 16, "head_width": 32},
+                  "text_cfg": {"context_length": 16, "vocab_size": 49408, "width": 32,
+                               "heads": 2, "layers": 2}},
+    "coca_test-tiny": {
+        "embed_dim": 32,
+        "vision_cfg": {"image_size": 32, "layers": 2, "width": 64, "patch_size": 16,
+                       "head_width": 32, "attentional_pool": True,
+                       "attn_pooler_heads": 4, "n_queries": 9, "output_tokens": True},
+        "text_cfg": {"context_length": 15, "vocab_size": 49408, "width": 32,
+                     "heads": 2, "layers": 2, "embed_cls": True, "output_tokens": True},
+        "multimodal_cfg": {"context_length": 15, "vocab_size": 49408, "width": 32,
+                           "heads": 2, "layers": 2}},
+}
+for _name in ["ViT-B-32", "ViT-B-16", "ViT-L-14", "test-tiny"]:
+    _MODEL_CONFIGS[f"daclip_{_name}"] = _MODEL_CONFIGS[_name]
+
+# the reference's open_clip/model_configs/*.json, vendored in the repo
+ASSET_CONFIG_DIR = (pathlib.Path(__file__).resolve().parents[2]
+                    / "daclip_tpu" / "assets" / "model_configs")
+
+
+def _asset_configs() -> Dict[str, Dict]:
+    if not ASSET_CONFIG_DIR.is_dir():
+        return {}
+    return {f.stem: json.loads(f.read_text())
+            for f in sorted(ASSET_CONFIG_DIR.glob("*.json"))}
+
+
+def list_models():
+    return sorted(set(_MODEL_CONFIGS) | set(_asset_configs()))
+
+
+def get_model_config(name: str) -> Dict:
+    name = name.replace("/", "-")
+    if name in _MODEL_CONFIGS:
+        return copy.deepcopy(_MODEL_CONFIGS[name])
+    assets = _asset_configs()
+    if name not in assets:
+        raise KeyError(f"unknown model {name!r}; available: {list_models()}")
+    return assets[name]
+
+
+def _check_vit(cfg: CLIPCfg) -> None:
+    v = cfg.vision
+    if v.is_resnet or v.timm_model_name or v.attentional_pool:
+        raise NotImplementedError(
+            "daclip_torch builds plain ViT towers only; ResNet, timm and CoCa "
+            "towers are not ported yet")
+
+
+class CLIP(nn.Module):
+    """Dual-tower CLIP with the reference's (model.py:187-264) parameter names."""
+
+    def __init__(self, cfg: CLIPCfg):
+        super().__init__()
+        _check_vit(cfg)
+        v, t = cfg.vision, cfg.text
+        self.cfg = cfg
+        self.visual = VisionTransformer(
+            image_size=v.image_size, patch_size=v.patch_size, width=v.width,
+            layers=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
+            output_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu,
+            global_average_pool=v.global_average_pool)
+        self.transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
+                                       cfg.quick_gelu)
+        self.token_embedding = nn.Embedding(t.vocab_size, t.width)
+        self.positional_embedding = nn.Parameter(0.01 * torch.randn(t.context_length, t.width))
+        self.ln_final = LayerNorm(t.width)
+        self.text_projection = nn.Parameter(t.width ** -0.5 * torch.randn(t.width, cfg.embed_dim))
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+
+def _normalize(x, normalize: bool):
+    if not normalize:
+        return x
+    return x / torch.linalg.vector_norm(x.float(), dim=-1, keepdim=True).to(x.dtype)
+
+
+class DaCLIP(nn.Module):
+    """Frozen CLIP plus the controller vision tower (daclip_model.py:17-76).
+    `visual` is the same module as `clip.visual`, as in the reference."""
+
+    def __init__(self, cfg: CLIPCfg, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.clip = CLIP(cfg)
+        self.visual = self.clip.visual
+        v = cfg.vision
+        self.visual_control = VisionTransformer(
+            image_size=v.image_size, patch_size=v.patch_size, width=v.width,
+            layers=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
+            output_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu, controller=True,
+            global_average_pool=v.global_average_pool)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+    def encode_image(self, image, control: bool = False, normalize: bool = False):
+        """image (B, 3, H, W), CLIP-normalised. With `control`, returns
+        (image_features, degra_features): the controller runs first and its
+        per-block hiddens enter the frozen tower in reversed block order."""
+        if control:
+            degra, hiddens = self.visual_control(image, output_hiddens=True,
+                                                 dtype=self.dtype)
+            feats = self.clip.visual(image, control=hiddens, dtype=self.dtype)
+            return _normalize(feats, normalize), _normalize(degra, normalize)
+        return _normalize(self.clip.visual(image, dtype=self.dtype), normalize)
