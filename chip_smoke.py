@@ -17,12 +17,31 @@ Phases, each printing JSON lines:
              the kernels' launch counts per request
   5 profile  one sampler step (a UNet forward at 256²): wall time, device
              kernel time by name (torch.profiler)
+  6 kernels_bwd  at every shape of the training step (B=16, 256²; the wrap
+             also on balanced inputs), one f32 case each with TF32 off, the
+             ragged wrap: the forward as training calls it (keeping the
+             backward's statistics) against the plain forward, then each
+             backward kernel against its plain backward, every gradient
+             relative to its own max (dW_qkv per q/k/v block); times,
+             bounds, and for flash the backward of
+             scaled_dot_product_attention as the yardstick (timed here only)
+  7 train_check  a small UNet (a wrap and a SpatialTransformer) in f32: the
+             loss and every parameter gradient through the kernels against
+             the same through the plain versions, then 8 AdamW steps on one
+             fixed batch and (t, noise) draw must lower the loss
+  8 train    the production training step at full width (B=16, 256², nf 64,
+             ch_mult 1,2,4,8, context 512, bf16, remat, AdamW + cosine + EMA)
+             on seeded weights with the frozen DaCLIP's contexts: 2 warm-up
+             and 5 timed steps, kernel calls per step; then a checkpoint
+             whose EMA UNet restores a 256² image through DACLIPRestorer
+  9 profile_train  torch.profiler over one full-width training step
 Then the per-kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
 without a CUDA device it exits non-zero before printing any result.
 """
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -47,6 +66,25 @@ FLASH_SHAPES = [  # (B, N, H, D, dtype): down3 and mid/up3 at 256², the fixture
     (1, 256, 2, 32, torch.float32)]
 LIMITS = {("wrap", torch.bfloat16): 0.1, ("wrap", torch.float32): 1e-3,
           ("flash", torch.bfloat16): 2e-2, ("flash", torch.float32): 1e-4}
+# the backward kernels at the training step's shapes: (B, n, C) of the six
+# wrap sites at 256² and B=16 (down0/up0 share a shape), the ragged case, an
+# f32 case, and C=512 (the context-free UNet's level 3, the kernel's 32-row
+# tiles); flash at down3 and mid/up3, an f32 case, and dim_head 64 with a
+# ragged N
+WRAP_BWD_SHAPES = [
+    (16, 65536, 64, torch.bfloat16), (16, 16384, 64, torch.bfloat16),
+    (16, 16384, 128, torch.bfloat16), (16, 4096, 128, torch.bfloat16),
+    (16, 4096, 256, torch.bfloat16), (2, 3001, 96, torch.bfloat16),
+    (2, 4096, 64, torch.float32), (2, 1024, 512, torch.bfloat16)]
+FLASH_BWD_SHAPES = [(16, 1024, 8, 32, torch.bfloat16), (16, 1024, 16, 32, torch.bfloat16),
+                    (2, 1024, 4, 32, torch.float32), (2, 1000, 4, 64, torch.bfloat16)]
+# each gradient's max |kernel − plain| over its own max |plain|, the plain
+# backward in f32 on the same inputs; set at about 3× (bf16) and 5× (f32) the
+# worst reading of the first H100 runs (0.0063 wrap, 0.0044 flash in bf16,
+# balanced inputs included; 1.8e-6 and 9e-7 in f32 with TF32 off)
+BWD_LIMITS = {("wrap", torch.bfloat16): 2e-2, ("wrap", torch.float32): 1e-5,
+              ("flash", torch.bfloat16): 2e-2, ("flash", torch.float32): 1e-5}
+TRAIN_CHECK_LIMIT = 1e-4  # worst per-tensor relative gradient error, f32 (read: 2e-6)
 WRAP_MEAN_LIMIT_BF16 = 1e-2
 # on balanced wrap inputs the attention's share of the output (the plain
 # output minus the plain output with no attention) must be of order 1
@@ -82,6 +120,34 @@ def time_ms(fn, iters=20, warmup=3):
 def bound_ms(nbytes, flops, dtype):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_summary(log):
+    """One line per compiled kernel of an `nvcc -Xptxas -v` log: its name
+    (namespace::function<type,D>, read off the mangled symbol), registers,
+    stack, spills and shared memory."""
+    out, name, props = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (_ZN\w+)", ln)
+        if m:
+            sym = m.group(1)
+            parts, i = [], 3
+            while i < len(sym) and sym[i].isdigit():
+                j = i
+                while sym[j].isdigit():
+                    j += 1
+                n = int(sym[i:j])
+                parts.append(sym[j:j + n])
+                i = j + n
+            t = "bf16" if "__nv_bfloat16" in sym[i:i + 20] else "f32"
+            d = re.match(r"I(?:13__nv_bfloat16|f)Li(\d+)E", sym[i:])
+            name = "::".join(parts[1:]) + f"<{t}" + (f",{d.group(1)}>" if d else ">")
+        elif name and "stack frame" in ln:
+            props = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            out.append(f"{name}: {ln.split('Used', 1)[1].strip()}; {props}")
+            name, props = None, ""
+    return out
 
 
 def psnr(a, b):
@@ -352,6 +418,310 @@ def run_profile(restorer, forwards=5):
          top=[dict(name=k[:90], ms_per_forward=v / forwards / 1e3) for k, v in top])
 
 
+# -- phase 6 -------------------------------------------------------------------
+def rel_err(got, want):
+    """max |got − want| over max |want|, in f32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def wrap_grads(grads):
+    """The wrap's six gradients by name, dW_qkv split into its q, k, v blocks
+    so that a wrong dk cannot hide behind a large dq."""
+    dx, dg_pre, dw_qkv, dw_out, db_out, dg_out = grads
+    return dict(dx=dx, dg_pre=dg_pre, dw_q=dw_qkv[:, :128], dw_k=dw_qkv[:, 128:256],
+                dw_v=dw_qkv[:, 256:], dw_out=dw_out, db_out=db_out, dg_out=dg_out)
+
+
+def run_kernels_bwd():
+    from daclip_torch.ops import flash_attention as fa
+    from daclip_torch.ops import linear_attention as la
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {"wrap_bwd": [], "flash_bwd": []}
+    for (B, n, C, dtype), balanced in [(s, b) for s in WRAP_BWD_SHAPES for b in (False, True)]:
+        args = wrap_case(B, n, C, dtype, gen, balanced)
+        dout = torch.randn(B, n, C, generator=gen, device="cuda").to(dtype)
+        out, stats = la._forward_kernel(*args, keep_stats=True)
+        got = wrap_grads(la.attn_wrap_bwd(*args, dout, stats=stats))
+        torch.cuda.synchronize()
+        fargs = [a.float() for a in args]
+        want_out = la.attn_wrap_reference(*fargs)
+        fwd_err = (out.float() - want_out).abs()
+        share = attention_share(want_out, fargs[0], fargs[4], fargs[5])
+        fwd = dict(max_abs_err=float(fwd_err.max()), mean_abs_err=float(fwd_err.mean()),
+                   limit=LIMITS[("wrap", dtype)])
+        del out, want_out, fwd_err
+        want = wrap_grads(la.attn_wrap_bwd_reference(*fargs, dout.float()))
+        errs = {k: rel_err(got[k], want[k]) for k in got}
+        abs_err = max(float((got[k].float() - want[k]).abs().max()) for k in got)
+        finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+        del want, fargs
+        limit = BWD_LIMITS[("wrap", dtype)]
+        row = dict(phase="kernels_bwd", kernel="attn_wrap_bwd", shape=[B, n, C],
+                   dtype=str(dtype).split(".")[-1], balanced=balanced, forward=fwd,
+                   rel_err=errs, max_rel_err=max(errs.values()), max_abs_err=abs_err,
+                   limit=limit, attention_share=share)
+        if not balanced:
+            esize = args[0].element_size()
+            nbytes = (3 * B * n * C + 2 * (C * 384 + 128 * C + 3 * C)) * esize
+            bms, by = bound_ms(nbytes, 2 * B * n * (1536 * C + 20480), dtype)
+            row.update(kernel_ms=time_ms(lambda: la.attn_wrap_bwd(*args, dout, stats=stats),
+                                         iters=10),
+                       plain_ms=time_ms(lambda: la.attn_wrap_bwd_reference(*args, dout),
+                                        iters=5, warmup=1),
+                       bound_ms=bms, bound_by=by, library_ms=None)
+        emit(**row)
+        rows["wrap_bwd"].append(row)
+        what = f"wrap bwd {B, n, C, dtype}" + (" balanced" if balanced else "")
+        check(fwd["max_abs_err"] <= fwd["limit"], f"{what}: forward max err {fwd}")
+        if dtype == torch.bfloat16:
+            check(fwd["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16, f"{what}: forward mean err {fwd}")
+        check(finite, f"{what} not finite")
+        check(row["max_rel_err"] <= limit, f"{what} rel err {errs}")
+        if balanced:
+            check(share >= SIGNAL_MIN, f"{what}: the attention's share {share} is too small")
+        del got, args, dout, stats
+        torch.cuda.empty_cache()
+
+    for B, N, H, D, dtype in FLASH_BWD_SHAPES:
+        q, k, v, dout = [torch.randn(B, N, H * D, generator=gen, device="cuda").to(dtype)
+                         for _ in range(4)]
+        out, lse = fa._forward_kernel(q, k, v, H, D, True)
+        got = dict(zip(("dq", "dk", "dv"), fa.flash_self_attention_bwd(q, k, v, out, dout, H,
+                                                                       D, lse=lse)))
+        torch.cuda.synchronize()
+        want_out = fa.attention_reference(q.float(), k.float(), v.float(), H, D)
+        fwd = dict(max_abs_err=float((out.float() - want_out).abs().max()),
+                   limit=LIMITS[("flash", dtype)])
+        want = fa.attention_bwd_reference(q.float(), k.float(), v.float(), want_out,
+                                          dout.float(), H, D)
+        errs = {kk: rel_err(got[kk], w) for kk, w in zip(got, want)}
+        abs_err = max(float((got[kk].float() - w).abs().max()) for kk, w in zip(got, want))
+        del want, want_out
+        limit = BWD_LIMITS[("flash", dtype)]
+        heads = lambda t: t.view(B, N, H, D).transpose(1, 2)
+        qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k, v))
+        oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
+        doh = heads(dout)
+        lib = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+        bms, by = bound_ms(8 * B * N * H * D * q.element_size(), 10 * B * H * N * N * D, dtype)
+        row = dict(phase="kernels_bwd", kernel="flash_self_attention_bwd",
+                   shape=[B, N, H, D], dtype=str(dtype).split(".")[-1], forward=fwd,
+                   rel_err=errs, max_rel_err=max(errs.values()), max_abs_err=abs_err,
+                   limit=limit,
+                   kernel_ms=time_ms(lambda: fa.flash_self_attention_bwd(
+                       q, k, v, out, dout, H, D, lse=lse), iters=10),
+                   plain_ms=time_ms(lambda: fa.attention_bwd_reference(
+                       q, k, v, out, dout, H, D), iters=5, warmup=1),
+                   bound_ms=bms, bound_by=by, library_ms=time_ms(lib, iters=10))
+        emit(**row)
+        rows["flash_bwd"].append(row)
+        check(fwd["max_abs_err"] <= fwd["limit"],
+              f"flash {B, N, H, D, dtype}: forward max err {fwd}")
+        check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+              f"flash bwd {B, N, H, D, dtype} not finite")
+        check(row["max_rel_err"] <= limit, f"flash bwd {B, N, H, D, dtype} rel err {errs}")
+        del q, k, v, dout, out, lse, got, qh, kh, vh, oh, doh
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 7 -------------------------------------------------------------------
+def run_train_check():
+    """A small UNet in f32 (TF32 off) whose level 0 runs the wrap and whose
+    level 1 and middle run SpatialTransformers: the loss and every gradient
+    through the kernels against the plain versions, swapped into the UNet
+    module here only; then 8 AdamW steps on one fixed draw."""
+    from daclip_torch.models import unet as unet_mod
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.ops import flash_attention as fa
+    from daclip_torch.ops import linear_attention as la
+    from daclip_torch.sde import IRSDE
+    from daclip_torch.train.restoration import (RestorationTrainConfig, init_state, loss_fn,
+                                                make_train_step)
+
+    kw = dict(nf=32, ch_mult=(1, 2), context_dim=64, use_degra_context=True,
+              use_image_context=True, spatial_attn_min_level=1)
+    net = ConditionalUNet(**kw)
+    net.load_state_dict(seeded_state_dict(lambda: ConditionalUNet(**kw), seed=5))
+    net.train()
+    sde = IRSDE(max_sigma=50, T=100)
+    cfg = RestorationTrainConfig(niter=50, lr_G=1e-3, warmup_iter=5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    gt = torch.rand(2, 3, 64, 64, generator=gen, device="cuda")
+    lq = (gt + 0.1 * torch.randn(gt.shape, generator=gen, device="cuda")).clamp(0, 1)
+    tctx, ictx = (torch.randn(2, 64, generator=gen, device="cuda") for _ in range(2))
+    t, xt = sde.generate_random_states(gt, lq, torch.Generator(device="cuda").manual_seed(7))
+    state = init_state(net, cfg, device="cuda")
+    step = make_train_step(net, sde, cfg, device="cuda")
+
+    def grads():
+        net.zero_grad(set_to_none=True)
+        loss = loss_fn(net, sde, cfg, xt, lq, gt, t, tctx, ictx)
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()
+                             if p.grad is not None}
+
+    counters = (la.attn_wrap, la.attn_wrap_bwd, fa.flash_self_attention,
+                fa.flash_self_attention_bwd)
+    for c in counters:
+        c.launches = 0
+    loss_k, g_k = grads()
+    calls = [c.launches for c in counters]
+    saved = unet_mod.attn_wrap, unet_mod.flash_self_attention
+    unet_mod.attn_wrap, unet_mod.flash_self_attention = (la.attn_wrap_reference,
+                                                         fa.attention_reference)
+    try:
+        loss_p, g_p = grads()
+    finally:
+        unet_mod.attn_wrap, unet_mod.flash_self_attention = saved
+    check(set(g_k) == set(g_p), "kernel and plain runs give gradients to different tensors")
+    errs = {k: rel_err(g_k[k], g_p[k]) for k in g_p if float(g_p[k].abs().max()) > 0}
+    worst = max(errs, key=errs.get)
+
+    losses = []
+    for _ in range(8):  # the same (t, noise) draw each step
+        state, m = step(state, dict(LQ=lq, GT=gt, text_context=tctx, image_context=ictx),
+                        torch.Generator(device="cuda").manual_seed(7))
+        losses.append(float(m["loss"]))
+    row = dict(phase="train_check", unet=kw, loss_kernels=loss_k, loss_plain=loss_p,
+               tensors=len(errs), worst_tensor=worst, worst_rel_err=errs[worst],
+               limit=TRAIN_CHECK_LIMIT,
+               calls=dict(zip(("wrap", "wrap_bwd", "flash", "flash_bwd"), calls)),
+               adamw_losses=losses)
+    emit(**row)
+    check(all(c > 0 for c in calls), f"train_check did not run every kernel: {calls}")
+    check(abs(loss_k - loss_p) <= TRAIN_CHECK_LIMIT * abs(loss_p), "train_check loss differs")
+    check(errs[worst] <= TRAIN_CHECK_LIMIT, f"train_check gradient of {worst}: {errs[worst]}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"8 AdamW steps did not lower the loss: {losses}")
+
+
+# -- phase 8 -------------------------------------------------------------------
+def run_train(steps=5, warmup=2):
+    """The production training step at full width, as the JAX CLI composes it
+    (cli/train_restoration.py:156-260): seeded UNet and DaCLIP weights,
+    seeded 16 × 256² LQ/GT batches and their 224² CLIP views."""
+    import gc
+    import tempfile
+
+    from daclip_torch.convert import load_torch_state_dict
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.ops import flash_attention as fa
+    from daclip_torch.ops import linear_attention as la
+    from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
+    from daclip_torch.sde import IRSDE
+    from daclip_torch.train.restoration import (RestorationTrainConfig, init_state,
+                                                make_train_step)
+    from daclip_torch.transforms import clip_transform
+    from daclip_torch.utils.checkpoint import save_checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, P = 16, 256
+    kw = dict(nf=64, ch_mult=(1, 2, 4, 8), context_dim=512, use_degra_context=True,
+              use_image_context=True)
+    unet = ConditionalUNet(dtype=torch.bfloat16, remat=P >= 256, **kw)
+    unet.load_state_dict(seeded_state_dict(lambda: ConditionalUNet(**kw), seed=11))
+    unet.train()
+    clip_cfg = CLIPCfg.from_dict(get_model_config("daclip_ViT-B-32"))
+    daclip_sd = seeded_state_dict(lambda: DaCLIP(clip_cfg), seed=12)
+    daclip = DaCLIP(clip_cfg, dtype=torch.bfloat16)
+    daclip.load_state_dict(daclip_sd, strict=True)
+    daclip.cuda().eval().requires_grad_(False)
+    sde = IRSDE(max_sigma=50, T=100, schedule="cosine", eps=0.005)
+    cfg = RestorationTrainConfig()  # AdamW 2e-4, cosine, betas (0.9, 0.99), EMA 0.995/10
+    state = init_state(unet, cfg, device="cuda")
+    train_step = make_train_step(unet, sde, cfg, device="cuda")
+
+    rng = np.random.RandomState(0)
+    gt_np = rng.rand(B, P, P, 3).astype(np.float32)
+    lq_np = np.clip(gt_np + 0.1 * rng.randn(B, P, P, 3), 0, 1).astype(np.float32)
+    views_np = np.stack([clip_transform(im, clip_cfg.vision.image_size) for im in lq_np])
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2))).cuda()
+    gt, lq, views = dev(gt_np), dev(lq_np), dev(views_np)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def full_step():
+        with torch.no_grad():
+            img_f, degra_f = daclip.encode_image(views, control=True, normalize=True)
+        batch = dict(LQ=lq, GT=gt, text_context=degra_f.float(), image_context=img_f.float())
+        return train_step(state, batch, gen)
+
+    counters = (la.attn_wrap, la.attn_wrap_bwd, fa.flash_self_attention,
+                fa.flash_self_attention_bwd)
+    want_calls = [12, 6, 6, 3] if unet.remat else [6, 6, 3, 3]
+    for _ in range(warmup):
+        full_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records, totals = [], [0, 0, 0, 0]
+    for i in range(steps):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        _, m = full_step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        calls = [c.launches for c in counters]
+        totals = [a + b for a, b in zip(totals, calls)]
+        rec = dict(step=state.step, ms=ms, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]), lr=m["lr"], calls=calls)
+        records.append(rec)
+        emit(phase="train_step", **rec)
+        check(np.isfinite([rec["loss"], rec["grad_norm"]]).all(), f"step {i} not finite")
+        check(calls == want_calls, f"step {i}: kernel calls {calls} (wrap, wrap_bwd, flash, "
+              f"flash_bwd), expected {want_calls} with remat={unet.remat}")
+    step_ms = float(np.median([r["ms"] for r in records]))
+    row = dict(phase="train", config=dict(B=B, patch=P, remat=unet.remat, dtype="bfloat16",
+                                          optimizer=cfg.optimizer, lr=cfg.lr_G, **kw),
+               unet_params=sum(p.numel() for p in unet.parameters()),
+               ms_per_step=[r["ms"] for r in records], median_ms_per_step=step_ms,
+               samples_per_s=B * 1e3 / step_ms,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               calls_per_step=dict(zip(("wrap", "wrap_bwd", "flash", "flash_bwd"), want_calls)),
+               ema_step=state.ema.step)
+
+    with tempfile.TemporaryDirectory() as d:
+        path = save_checkpoint(d, unet, state)
+        restorer = DACLIPRestorer(RestorerConfig(), load_torch_state_dict(path), daclip_sd,
+                                  device="cuda")
+    out = restorer.restore(np.random.RandomState(1).rand(P, P, 3).astype(np.float32), seed=0,
+                           return_uint8=False)
+    row.update(restore_shape=list(out.shape), restore_finite=bool(np.isfinite(out).all()))
+    emit(**row)
+    check(row["restore_shape"] == [P, P, 3] and row["restore_finite"],
+          "the saved EMA UNet did not restore a finite 256² image")
+    del restorer
+    return full_step, step_ms, totals
+
+
+# -- phase 9 -------------------------------------------------------------------
+def run_profile_train(full_step, step_ms):
+    """Where one full-width training step's device time goes (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        full_step()
+        torch.cuda.synchronize()
+    by_name, launches = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            launches += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    kernel_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    emit(phase="profile_train", what="one training step, B=16, 256x256, bf16, remat",
+         wall_ms_per_step_unprofiled=step_ms,
+         device_kernel_ms_per_step=kernel_ms if launches else None,
+         device_busy_share=kernel_ms / step_ms if launches else None,
+         kernels_per_step=launches,
+         top=[dict(name=k[:90], ms=v / 1e3) for k, v in top])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -359,6 +729,8 @@ def main():
     import daclip_torch  # noqa: F401  fails outside a checkout of the repo
     from daclip_torch.ops import _build
 
+    if len(sys.argv) != 1:
+        sys.exit(f"usage: {sys.argv[0]} (no arguments: every phase runs)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -371,29 +743,52 @@ def main():
     t0 = time.perf_counter()
     lib = _build.library()
     log = pathlib.Path(lib._name).with_suffix(".log")  # this library's build
-    ptxas = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
-             if "registers" in ln or "spill" in ln]
     emit(phase="build", seconds=time.perf_counter() - t0, library=str(lib._name),
-         ptxas=ptxas[:16])
+         ptxas=ptxas_summary(log.read_text() if log.exists() else ""))
 
     rows = run_kernels()
     run_fixture()
-    restorer, totals = run_serve()
+    restorer, serve_totals = run_serve()
     run_profile(restorer)
+    del restorer
+    rows.update(run_kernels_bwd())
+    run_train_check()
+    full_step, step_ms, train_totals = run_train()
+    run_profile_train(full_step, step_ms)
+    del full_step
 
+    # launches on each main path: serve (the four requests) and train (the
+    # five timed steps), each counted from 0 just before its run
+    by_path = {"wrap": dict(serve=serve_totals["wrap"], train=train_totals[0]),
+               "flash": dict(serve=serve_totals["flash"], train=train_totals[2]),
+               "wrap_bwd": dict(train=train_totals[1]),
+               "flash_bwd": dict(train=train_totals[3])}
+    bf16 = lambda key: [x for x in rows[key] if x["dtype"] == "bfloat16"]
+    abs_err = {key: max(x["max_abs_err"] for x in bf16(key)) for key in rows}
+    for fwd, bwd in (("wrap", "wrap_bwd"), ("flash", "flash_bwd")):
+        # the forward also as training calls it, checked in kernels_bwd
+        abs_err[fwd] = max(abs_err[fwd], *(x["forward"]["max_abs_err"] for x in bf16(bwd)))
     summary = []
-    for key, name_, src, replaces in (
+    for key, name_, src, replaces, pick in (
             ("wrap", "attn_wrap", "daclip_torch/csrc/linear_attention.cu",
-             "daclip_tpu/ops/linear_attention.py:491"),
+             "daclip_tpu/ops/linear_attention.py:491", 0),
             ("flash", "flash_self_attention", "daclip_torch/csrc/flash_attention.cu",
-             "daclip_tpu/ops/flash_attention.py:68")):
-        r = rows[key][0] if key == "wrap" else rows[key][1]  # the largest 256² site
-        err = max(x["max_abs_err"] for x in rows[key] if x["dtype"] == "bfloat16")
-        summary.append(dict(name=name_, route="cuda", source=src, replaces=replaces,
-                            launches=totals[key], shape=r["shape"],
-                            max_abs_err=err, ms=r["kernel_ms"],
-                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+             "daclip_tpu/ops/flash_attention.py:68", 1),
+            ("wrap_bwd", "attn_wrap_bwd", "daclip_torch/csrc/linear_attention_bwd.cu",
+             "daclip_tpu/ops/linear_attention.py:885", 0),
+            ("flash_bwd", "flash_self_attention_bwd",
+             "daclip_torch/csrc/flash_attention_bwd.cu",
+             "daclip_tpu/ops/flash_attention.py:199", 1)):
+        r = rows[key][pick]  # the largest site of its path
+        entry = dict(name=name_, route="cuda", source=src, replaces=replaces,
+                     launches=sum(by_path[key].values()), launches_by_path=by_path[key],
+                     shape=r["shape"], max_abs_err=abs_err[key])
+        if "bwd" in key:
+            entry.update(max_rel_err=max(x["max_rel_err"] for x in bf16(key)),
+                         rel_err_is="max over gradients of max |kernel - plain| / max |plain|")
+        summary.append(dict(entry, ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

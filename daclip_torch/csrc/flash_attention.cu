@@ -19,7 +19,9 @@
 // shared memory; each of a query's 4 threads takes every 4th key of a tile
 // and keeps its own running max, sum and f32 output row. At the end the 4
 // partial softmaxes merge exactly through warp shuffles. The N×N logits never
-// leave registers.
+// leave registers. When a backward will follow, the kernel also writes each
+// query's log-sum-exp (B, H, N) f32, so flash_attention_bwd.cu rebuilds P
+// without another pass for the row max and sum.
 #include "common.cuh"
 
 namespace daclip {
@@ -32,7 +34,7 @@ constexpr int NT = 256;  // 4 threads per query
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ out, int N, int H, float scale) {
+           T* __restrict__ out, float* __restrict__ lse, int N, int H, float scale) {
   constexpr int LD = D + 1;  // padded rows: the 4 key phases hit distinct banks
   __shared__ float ks[BK * LD];
   __shared__ float vs[BK * LD];
@@ -99,6 +101,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
   const float inv = 1.f / l;
+  if (lse != nullptr && ph == 0 && qrow < N) lse[((size_t)b * H + h) * N + qrow] = M + logf(l);
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     float od = o[d] * a;
@@ -109,11 +112,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int N, int H,
-           float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int N,
+           int H, float scale, cudaStream_t st) {
   dim3 grid((N + BQ - 1) / BQ, H, B);
-  fwd_kernel<T, D><<<grid, NT, 0, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)out, N,
-                                        H, scale);
+  fwd_kernel<T, D><<<grid, NT, 0, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)out,
+                                        (float*)lse, N, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -121,16 +124,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int N,
 }  // namespace daclip
 
 extern "C" int daclip_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                                int B, int N, int H, int D, float scale, int is_bf16,
-                                void* stream) {
+                                void* lse, int B, int N, int H, int D, float scale,
+                                int is_bf16, void* stream) {
   using namespace daclip::flash;
   auto st = (cudaStream_t)stream;
   if (N < 1 || H < 1 || B < 1 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   if (D == 32)
-    return is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, out, B, N, H, scale, st)
-                   : launch<float, 32>(q, k, v, out, B, N, H, scale, st);
+    return is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, out, lse, B, N, H, scale, st)
+                   : launch<float, 32>(q, k, v, out, lse, B, N, H, scale, st);
   if (D == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, B, N, H, scale, st)
-                   : launch<float, 64>(q, k, v, out, B, N, H, scale, st);
+    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, lse, B, N, H, scale, st)
+                   : launch<float, 64>(q, k, v, out, lse, B, N, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }

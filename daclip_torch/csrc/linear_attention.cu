@@ -26,7 +26,9 @@
 //           keeps running (m, s) and only the 4 diagonal 32×32 ctx blocks
 //           (the TPU computed 128×128 and masked 3/4 away), writes partials;
 //   combine grid (128, B): rescales partials to the global max, folds in
-//           32^-½/(s·n), rounds W;
+//           32^-½/(s·n), rounds W; when a backward will follow it also
+//           writes the combined diagonal ctx blocks, s and the max m that
+//           ctx was taken against (linear_attention_bwd.cu needs all three);
 //   apply   grid (⌈n/64⌉, B): LN again, q, per-pixel per-head softmax (the
 //           reference's softmax; the TPU's block-global max at :469 can
 //           underflow a head), ·W, ·W_out + b_out, LN, + x.
@@ -207,11 +209,13 @@ stats_kernel(const T* __restrict__ x, const T* __restrict__ g_pre,
 }
 
 // One warp per (ctx row c, batch b): lane = column within the head block.
+// ctx_out/s_out/m_out are null when no backward will follow.
 template <typename T>
 __global__ void __launch_bounds__(32)
 combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_s,
                const float* __restrict__ part_ctx, float* __restrict__ w_attn,
-               int nparts, int n) {
+               float* __restrict__ ctx_out, float* __restrict__ s_out,
+               float* __restrict__ m_out, int nparts, int n) {
   const int c = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
   const int hh = c / DH, i = c % DH;
   const float* pm = part_m + (size_t)b * nparts * HID;
@@ -227,7 +231,15 @@ combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_
   for (int p = 0; p < nparts; ++p)
     acc += pc[(size_t)p * 4 * DH * DH + hh * DH * DH + i * DH + lane] * expf(pm[p * HID + c] - M);
   const float rowscale = 0.17677669529663687f / (s * (float)n);  // 32^-½ / (s·n)
-  w_attn[(size_t)b * 4 * DH * DH + hh * DH * DH + i * DH + lane] = round_t<T>(acc * rowscale);
+  const size_t at = (size_t)b * 4 * DH * DH + hh * DH * DH + i * DH + lane;
+  w_attn[at] = round_t<T>(acc * rowscale);
+  if (ctx_out != nullptr) {
+    ctx_out[at] = acc;
+    if (lane == 0) {
+      s_out[(size_t)b * HID + c] = s;
+      m_out[(size_t)b * HID + c] = M;
+    }
+  }
 }
 
 template <typename T>
@@ -373,18 +385,21 @@ extern "C" int daclip_wrap_stats(const void* x, const void* g_pre, const void* w
 }
 
 extern "C" int daclip_wrap_combine(const void* part_m, const void* part_s,
-                                   const void* part_ctx, void* w_attn, int B, int nparts,
-                                   int n, int is_bf16, void* stream) {
+                                   const void* part_ctx, void* w_attn, void* ctx_out,
+                                   void* s_out, void* m_out, int B, int nparts, int n,
+                                   int is_bf16, void* stream) {
+  if ((ctx_out == nullptr) != (s_out == nullptr) || (s_out == nullptr) != (m_out == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   dim3 grid(HID, B);
+  auto pm = (const float*)part_m, ps = (const float*)part_s, pc = (const float*)part_ctx;
   if (is_bf16)
-    combine_kernel<__nv_bfloat16><<<grid, 32, 0, st>>>(
-        (const float*)part_m, (const float*)part_s, (const float*)part_ctx, (float*)w_attn,
-        nparts, n);
+    combine_kernel<__nv_bfloat16><<<grid, 32, 0, st>>>(pm, ps, pc, (float*)w_attn,
+                                                       (float*)ctx_out, (float*)s_out,
+                                                       (float*)m_out, nparts, n);
   else
-    combine_kernel<float><<<grid, 32, 0, st>>>((const float*)part_m, (const float*)part_s,
-                                               (const float*)part_ctx, (float*)w_attn,
-                                               nparts, n);
+    combine_kernel<float><<<grid, 32, 0, st>>>(pm, ps, pc, (float*)w_attn, (float*)ctx_out,
+                                               (float*)s_out, (float*)m_out, nparts, n);
   return (int)cudaGetLastError();
 }
 

@@ -15,8 +15,12 @@ statistics; the output is float32.
 The two attention sites go through the port's kernel wrappers:
 `ops.linear_attention.attn_wrap` for every Residual(PreNorm(LinearAttention))
 and `ops.flash_attention.flash_self_attention` for the SpatialTransformer's
-self-attention. The single-token image-context cross-attention reduces
-exactly to `to_out(v)` (softmax over one key is 1).
+self-attention; both are differentiable (kernel backwards on the card). The
+single-token image-context cross-attention reduces exactly to `to_out(v)`
+(softmax over one key is 1), so its `to_q`/`to_k` get no gradient.
+
+`remat=True` recomputes each ResBlock's and AttnWrap's activations in the
+backward pass (`torch.utils.checkpoint`, as the JAX UNet's `nn.remat`).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from daclip_torch.models.layers import Conv2d, GroupNorm, LayerNorm, Linear
 from daclip_torch.ops.flash_attention import attention_reference, flash_self_attention
@@ -231,22 +236,31 @@ class AttnWrap(nn.Module):
         self.fn = PreNorm(dim, fn)
         self._wrap_weights = (None, None)  # (key, weights) of _kernel_weights
 
-    @torch.no_grad()
     def _kernel_weights(self, dtype: torch.dtype):
         """g_pre, w_qkv (C, 384), w_out (128, C), b_out, g_out in the kernel's
-        layout and `dtype`. Made once per set of parameter values: a load, an
-        in-place update or a move of the parameters makes them anew."""
+        layout and `dtype`. When grad is on and a parameter requires it, they
+        are made under autograd on every call, so the gradients flow back to
+        the f32 parameters. Otherwise (serving) they are made once per set of
+        parameter values: a load, an in-place update or a move of the
+        parameters makes them anew."""
         attn = self.fn.fn
         out_conv, out_norm = attn.to_out[0], attn.to_out[1]
         params = (self.fn.norm.g, attn.to_qkv.weight, out_conv.weight, out_conv.bias,
                   out_norm.g)
-        key = (dtype,) + tuple((p.data_ptr(), p._version, p.device, p.dtype) for p in params)
-        if self._wrap_weights[0] != key:
+
+        def layout():
             g_pre, w_qkv, w_out, b_out, g_out = params
             C = g_pre.numel()
             weights = (g_pre.reshape(C), w_qkv.reshape(-1, C).t(),
                        w_out.reshape(C, -1).t(), b_out, g_out.reshape(C))
-            self._wrap_weights = (key, tuple(w.to(dtype).contiguous() for w in weights))
+            return tuple(w.to(dtype).contiguous() for w in weights)
+
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return layout()
+        key = (dtype,) + tuple((p.data_ptr(), p._version, p.device, p.dtype) for p in params)
+        if self._wrap_weights[0] != key:
+            with torch.no_grad():
+                self._wrap_weights = (key, layout())
         return self._wrap_weights[1]
 
     def forward(self, x, context=None):
@@ -283,11 +297,12 @@ class ConditionalUNet(nn.Module):
                  ch_mult: Sequence[int] = (1, 2, 4, 8), context_dim: Optional[int] = 512,
                  use_degra_context: bool = True, use_image_context: bool = False,
                  scale: float = 1.0, spatial_attn_min_level: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.depth = depth = len(ch_mult)
         self.scale = scale
         self.dtype = dtype
+        self.remat = remat
         self.use_degra_context = use_degra_context
         self.use_image_context = use_image_context
         cdim = -1 if context_dim is None else context_dim
@@ -334,8 +349,16 @@ class ConditionalUNet(nn.Module):
         self.final_res_block = ResBlock(nf * 2, nf, time_dim)
         self.final_conv = Conv2d(nf, out_nc, 3, padding=1)
 
+    def _call(self, block, *args, **kwargs):
+        """block(*args, **kwargs), its activations recomputed in the backward
+        pass when remat is on."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, **kwargs)
+        return block(*args, **kwargs)
+
     def forward(self, xt, cond, time, text_context=None, image_context=None):
         dt = self.dtype
+        call = self._call
         if not torch.is_tensor(time) or time.dim() == 0:
             time = torch.full((xt.shape[0],), float(time), dtype=torch.float32,
                               device=xt.device)
@@ -368,25 +391,25 @@ class ConditionalUNet(nn.Module):
 
         hs = []
         for block1, block2, attn, down in self.downs:
-            x = block1(x, t)
+            x = call(block1, x, t)
             hs.append(x)
-            x = block2(x, t)
-            x = attn(x, context=ctx)
+            x = call(block2, x, t)
+            x = call(attn, x, context=ctx)
             hs.append(x)
             x = down(x)
 
-        x = self.mid_block1(x, t)
-        x = self.mid_attn(x, context=ctx)
-        x = self.mid_block2(x, t)
+        x = call(self.mid_block1, x, t)
+        x = call(self.mid_attn, x, context=ctx)
+        x = call(self.mid_block2, x, t)
 
         for block1, block2, attn, up in self.ups:
-            x = block1(torch.cat([x, hs.pop()], dim=1), t)
-            x = block2(torch.cat([x, hs.pop()], dim=1), t)
-            x = attn(x, context=ctx)
+            x = call(block1, torch.cat([x, hs.pop()], dim=1), t)
+            x = call(block2, torch.cat([x, hs.pop()], dim=1), t)
+            x = call(attn, x, context=ctx)
             x = up(x)
 
         if self.scale == 0.5:
             x = self.upsample(x)
-        x = self.final_res_block(torch.cat([x, x_skip], dim=1), t)
+        x = call(self.final_res_block, torch.cat([x, x_skip], dim=1), t)
         x = self.final_conv(x)
         return x[:, :, :H, :W].float().contiguous()

@@ -26,17 +26,31 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_long
 _F = ctypes.c_float
 # C signatures of the exported launchers; each returns a cudaError_t
 SIGNATURES = {
     # x, g_pre, w_qkv, part_m, part_s, part_ctx, B, n, C, rows, is_bf16, stream
     "daclip_wrap_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # part_m, part_s, part_ctx, w_attn, B, n_parts, n, is_bf16, stream
-    "daclip_wrap_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # part_m, part_s, part_ctx, w_attn, ctx|null, s|null, m|null, B, n_parts, n,
+    # is_bf16, stream
+    "daclip_wrap_combine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, g_pre, w_qkv, w_attn, w_out, b_out, g_out, out, B, n, C, is_bf16, stream
     "daclip_wrap_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, out, B, N, H, D, scale, is_bf16, stream
-    "daclip_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # x, dout, g_pre, w_qkv, w_attn, w_out, b_out, g_out, dy_spill, attn_spill,
+    # part_dw, part_dgout, part_dbout, B, n, C, rows, is_bf16, stream
+    "daclip_wrap_bwd1": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
+    # part_dw, ctx, s, dctx, ds, B, n_parts, n, is_bf16, stream
+    "daclip_wrap_bwd_mid": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, dout, g_pre, w_qkv, w_attn, w_out, dctx, ds, m, dy_spill, dx, xn_spill,
+    # dqkv_spill, part_dgpre, B, n, C, rows, is_bf16, stream
+    "daclip_wrap_bwd2": [_P] * 14 + [_I, _I, _I, _I, _I, _P],
+    # a, b, part, R, K1, K2, rows_per_split, splits, is_bf16, stream
+    "daclip_wrap_wgrad": [_P, _P, _P, _L, _I, _I, _L, _I, _I, _P],
+    # q, k, v, out, lse|null, B, N, H, D, scale, is_bf16, stream
+    "daclip_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, dout, lse, dsum, dq, dk, dv, B, N, H, D, scale, is_bf16, stream
+    "daclip_flash_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,17 @@
 """Residual(PreNorm(LinearAttention)) of the ConditionalUNet: the CUDA kernel
-wrapper and its plain PyTorch version.
+wrappers, their plain PyTorch versions and the autograd Function over them.
 
 `attn_wrap` is the port of the Pallas TPU kernel `attn_wrap_v5`
-(daclip_tpu/ops/linear_attention.py:491). On a CUDA tensor it launches the
-hand-written kernel in `daclip_torch/csrc/linear_attention.cu` (three
-launches: stats, combine, apply) or raises; on a CPU tensor it runs
-`attn_wrap_reference`, the plain composition the reference computes
-(`_attn_wrap_composition_reference`, :1070).
+(daclip_tpu/ops/linear_attention.py:491), `attn_wrap_bwd` of its VJP
+`attn_wrap_v5_bwd_pallas` (:885). On a CUDA tensor each launches its
+hand-written kernel (`daclip_torch/csrc/linear_attention.cu`: stats, combine,
+apply; `csrc/linear_attention_bwd.cu`: pass 1, mid, pass 2, two weight-grad
+launches) or raises; on a CPU tensor each runs its plain version:
+`attn_wrap_reference`, the composition the reference computes
+(`_attn_wrap_composition_reference`, :1070), and `attn_wrap_bwd_reference`,
+the hand-derived VJP `_wrap_v5_bwd_manual` (:616-687). `attn_wrap` is
+differentiable on both devices through `_AttnWrapFn`, whose forward on the
+card also keeps the combined (ctx, s, m) that the backward kernel needs.
 
 Layout: x is (B, n, C), pixels flattened, channels last — the free view of a
 channels_last NCHW activation.
@@ -64,6 +69,76 @@ def attn_wrap_reference(x, g_pre, w_qkv, w_out, b_out, g_out):
     return x + _channel_ln(y, g_out)
 
 
+def _ln_parts(t):
+    """(normalised rows, 1/std) of t over its last axis, in f32."""
+    tf = t.float()
+    tc = tf - tf.mean(-1, keepdim=True)
+    r = torch.rsqrt(tc.square().mean(-1, keepdim=True) + 1e-5)
+    return tc * r, r
+
+
+def _ln_bwd(dn, norm, r):
+    """VJP of the normalisation given dn = upstream ∘ gain."""
+    return r * (dn - dn.mean(-1, keepdim=True) - norm * (dn * norm).mean(-1, keepdim=True))
+
+
+def _head_mask(device):
+    d = torch.arange(HID, device=device) // DIM_HEAD
+    return (d[:, None] == d[None, :]).float()
+
+
+def attn_wrap_bwd_reference(x, g_pre, w_qkv, w_out, b_out, g_out, dout):
+    """VJP of `attn_wrap_reference` at dout, plain PyTorch: the hand-derived
+    backward `_wrap_v5_bwd_manual`, every product in x's dtype with f32
+    statistics, rounded where it rounds. The softmax max-shifts are
+    constants (both softmaxes are shift-invariant). Returns (dx, dg_pre,
+    dw_qkv, dw_out, db_out, dg_out), each in its input's dtype."""
+    dt = x.dtype
+    B, n, C = x.shape
+    nx, r_x = _ln_parts(x)
+    xn = (nx * g_pre.float()).to(dt)
+    qkv = torch.einsum("bnc,cd->bnd", xn, w_qkv)
+    q, k, v = qkv[..., :HID], qkv[..., HID:2 * HID], qkv[..., 2 * HID:]
+    q_soft = torch.softmax(q.reshape(B, n, HEADS, DIM_HEAD).float(), dim=-1)
+    q_soft = q_soft.reshape(B, n, HID).to(dt)
+    k_max = k.amax(dim=1, keepdim=True).float()
+    e = torch.exp(k.float() - k_max).to(dt)
+    s = e.sum(dim=1, dtype=torch.float32)
+    ctx = torch.einsum("bnx,bny->bxy", e, v).float()
+    mask = _head_mask(x.device)
+    rowscale = (DIM_HEAD ** -0.5) / (s[..., None] * n)
+    w = (ctx * mask * rowscale).to(dt)
+    attn = torch.einsum("bnx,bxy->bny", q_soft, w)
+    y = (torch.einsum("bnh,hc->bnc", attn, w_out) + b_out).float()
+    ny, r_y = _ln_parts(y)
+
+    gf = dout.float()
+    dg_out = torch.einsum("bnc,bnc->c", gf, ny)
+    dy = _ln_bwd(gf * g_out.float(), ny, r_y)
+    db_out = dy.sum(dim=(0, 1))
+    dy_b = dy.to(dt)
+    dattn = torch.einsum("bnc,hc->bnh", dy_b, w_out)
+    dw_out = torch.einsum("bnh,bnc->hc", attn, dy_b)
+    dq_soft = torch.einsum("bny,bxy->bnx", dattn, w).float()
+    dw = torch.einsum("bnx,bny->bxy", q_soft, dattn).float()
+    qs = q_soft.float().reshape(B, n, HEADS, DIM_HEAD)
+    dqs = dq_soft.reshape(B, n, HEADS, DIM_HEAD)
+    dq = (qs * (dqs - (dqs * qs).sum(-1, keepdim=True))).reshape(B, n, HID)
+    dctx = dw * mask * rowscale
+    ds = -(dctx * ctx).sum(-1) / s
+    dctx_b = dctx.to(dt)
+    de = torch.einsum("bny,bxy->bnx", v, dctx_b).float() + ds[:, None, :]
+    dk = e.float() * de
+    dv = torch.einsum("bnx,bxy->bny", e, dctx_b).float()
+    dqkv = torch.cat([dq.to(dt), dk.to(dt), dv.to(dt)], dim=-1)
+    dxn = torch.einsum("bnd,cd->bnc", dqkv, w_qkv).float()
+    dw_qkv = torch.einsum("bnc,bnd->cd", xn, dqkv)
+    dg_pre = torch.einsum("bnc,bnc->c", dxn, nx)
+    dx = gf + _ln_bwd(dxn * g_pre.float(), nx, r_x)
+    return (dx.to(dt), dg_pre.to(g_pre.dtype), dw_qkv.to(w_qkv.dtype),
+            dw_out.to(w_out.dtype), db_out.to(b_out.dtype), dg_out.to(g_out.dtype))
+
+
 def _rows_per_part(B: int, n: int) -> int:
     """Rows each stats CTA walks: a multiple of the tile, sized so B·parts
     is about two waves."""
@@ -93,16 +168,9 @@ def _check(x, g_pre, w_qkv, w_out, b_out, g_out):
             raise ValueError("attn_wrap: operands must be contiguous")
 
 
-def attn_wrap(x, g_pre, w_qkv, w_out, b_out, g_out):
-    """Residual(PreNorm(LinearAttention)) on raw x (B, n, C).
-
-    g_pre/g_out/b_out are (C,), w_qkv (C, 384) with columns [q | k | v],
-    w_out (128, C), all in x's dtype. A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel or raises."""
-    if x.device.type == "cpu":
-        return attn_wrap_reference(x, g_pre, w_qkv, w_out, b_out, g_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"attn_wrap runs on cuda or cpu, got {x.device}")
+def _forward_kernel(x, g_pre, w_qkv, w_out, b_out, g_out, keep_stats: bool):
+    """The forward kernel's three launches. With keep_stats also the combined
+    statistics the backward needs: (w_attn, ctx, s, m), each f32."""
     _check(x, g_pre, w_qkv, w_out, b_out, g_out)
     lib = _build.library()
     B, n, C = x.shape
@@ -113,6 +181,12 @@ def attn_wrap(x, g_pre, w_qkv, w_out, b_out, g_out):
     part_s = torch.empty((B, parts, HID), **f32)
     part_ctx = torch.empty((B, parts, HEADS, DIM_HEAD, DIM_HEAD), **f32)
     w_attn = torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), **f32)
+    stats = None
+    if keep_stats:
+        stats = (w_attn, torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), **f32),
+                 torch.empty((B, HID), **f32), torch.empty((B, HID), **f32))
+    ctx_p, s_p, m_p = (None, None, None) if stats is None else (
+        stats[1].data_ptr(), stats[2].data_ptr(), stats[3].data_ptr())
     out = torch.empty_like(x)
     bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
@@ -123,13 +197,122 @@ def attn_wrap(x, g_pre, w_qkv, w_out, b_out, g_out):
             "daclip_wrap_stats")
         _build.check(lib.daclip_wrap_combine(
             part_m.data_ptr(), part_s.data_ptr(), part_ctx.data_ptr(),
-            w_attn.data_ptr(), B, parts, n, bf16, stream), "daclip_wrap_combine")
+            w_attn.data_ptr(), ctx_p, s_p, m_p, B, parts, n, bf16, stream),
+            "daclip_wrap_combine")
         _build.check(lib.daclip_wrap_apply(
             x.data_ptr(), g_pre.data_ptr(), w_qkv.data_ptr(), w_attn.data_ptr(),
             w_out.data_ptr(), b_out.data_ptr(), g_out.data_ptr(), out.data_ptr(),
             B, n, C, bf16, stream), "daclip_wrap_apply")
     attn_wrap.launches += 1
-    return out
+    return out, stats
+
+
+def _wgrad(lib, a, b, stream):
+    """Σ over all rows of aᵀ·b for (B, n, K1) and (B, n, K2) spills, in f32:
+    one partial per split of the rows, summed here."""
+    K1, K2 = a.shape[-1], b.shape[-1]
+    R = a.numel() // K1
+    tiles = math.ceil(K1 / 64) * math.ceil(K2 / 64)
+    splits = max(1, min(math.ceil(R / 256), _TARGET_CTAS // tiles))
+    per = 32 * math.ceil(math.ceil(R / splits) / 32)
+    splits = math.ceil(R / per)
+    part = torch.empty((splits, K1, K2), dtype=torch.float32, device=a.device)
+    _build.check(lib.daclip_wrap_wgrad(
+        a.data_ptr(), b.data_ptr(), part.data_ptr(), R, K1, K2, per, splits,
+        int(a.dtype == torch.bfloat16), stream), "daclip_wrap_wgrad")
+    return part.sum(0)
+
+
+def attn_wrap_bwd(x, g_pre, w_qkv, w_out, b_out, g_out, dout, stats=None):
+    """VJP of `attn_wrap` at dout: (dx, dg_pre, dw_qkv, dw_out, db_out,
+    dg_out), each in its input's dtype. A CPU tensor takes the plain version;
+    a CUDA tensor launches the backward kernel or raises, and needs the
+    forward's `stats` (w_attn, ctx, s, m) from `_forward_kernel`."""
+    if x.device.type == "cpu":
+        return attn_wrap_bwd_reference(x, g_pre, w_qkv, w_out, b_out, g_out, dout)
+    if x.device.type != "cuda":
+        raise ValueError(f"attn_wrap_bwd runs on cuda or cpu, got {x.device}")
+    _check(x, g_pre, w_qkv, w_out, b_out, g_out)
+    if dout.shape != x.shape or dout.dtype != x.dtype or dout.device != x.device:
+        raise ValueError("attn_wrap_bwd: dout must match x in shape, dtype and device")
+    if stats is None:
+        raise ValueError("attn_wrap_bwd on the card needs the forward's statistics")
+    dout = dout.contiguous()
+    w_attn, ctx, s, m = stats
+    lib = _build.library()
+    B, n, C = x.shape
+    rows = _rows_per_part(B, n)
+    parts = math.ceil(n / rows)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dy = torch.empty_like(x)
+    attn = torch.empty((B, n, HID), dtype=x.dtype, device=x.device)
+    part_dw = torch.empty((B, parts, HEADS, DIM_HEAD, DIM_HEAD), **f32)
+    part_dgout = torch.empty((B, parts, C), **f32)
+    part_dbout = torch.empty((B, parts, C), **f32)
+    dctx = torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), **f32)
+    ds = torch.empty((B, HID), **f32)
+    dx = torch.empty_like(x)
+    xn = torch.empty_like(x)
+    dqkv = torch.empty((B, n, 3 * HID), dtype=x.dtype, device=x.device)
+    part_dgpre = torch.empty((B, parts, C), **f32)
+    bf16 = int(x.dtype == torch.bfloat16)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.daclip_wrap_bwd1(
+            x.data_ptr(), dout.data_ptr(), g_pre.data_ptr(), w_qkv.data_ptr(),
+            w_attn.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), g_out.data_ptr(),
+            dy.data_ptr(), attn.data_ptr(), part_dw.data_ptr(), part_dgout.data_ptr(),
+            part_dbout.data_ptr(), B, n, C, rows, bf16, stream), "daclip_wrap_bwd1")
+        _build.check(lib.daclip_wrap_bwd_mid(
+            part_dw.data_ptr(), ctx.data_ptr(), s.data_ptr(), dctx.data_ptr(),
+            ds.data_ptr(), B, parts, n, bf16, stream), "daclip_wrap_bwd_mid")
+        _build.check(lib.daclip_wrap_bwd2(
+            x.data_ptr(), dout.data_ptr(), g_pre.data_ptr(), w_qkv.data_ptr(),
+            w_attn.data_ptr(), w_out.data_ptr(), dctx.data_ptr(), ds.data_ptr(),
+            m.data_ptr(), dy.data_ptr(), dx.data_ptr(), xn.data_ptr(), dqkv.data_ptr(),
+            part_dgpre.data_ptr(), B, n, C, rows, bf16, stream), "daclip_wrap_bwd2")
+        dw_qkv = _wgrad(lib, xn, dqkv, stream)
+        dw_out = _wgrad(lib, attn, dy, stream)
+    attn_wrap_bwd.launches += 1
+    dt = x.dtype
+    return (dx, part_dgpre.sum((0, 1)).to(dt), dw_qkv.to(dt), dw_out.to(dt),
+            part_dbout.sum((0, 1)).to(dt), part_dgout.sum((0, 1)).to(dt))
+
+
+class _AttnWrapFn(torch.autograd.Function):
+    """attn_wrap with its VJP: kernels on the card, plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, g_pre, w_qkv, w_out, b_out, g_out):
+        if x.device.type == "cpu":
+            out, stats = attn_wrap_reference(x, g_pre, w_qkv, w_out, b_out, g_out), ()
+        else:
+            out, stats = _forward_kernel(x, g_pre, w_qkv, w_out, b_out, g_out, True)
+        ctx.save_for_backward(x, g_pre, w_qkv, w_out, b_out, g_out, *stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        return attn_wrap_bwd(*saved[:6], dout, stats=saved[6:] or None)
+
+
+def attn_wrap(x, g_pre, w_qkv, w_out, b_out, g_out):
+    """Residual(PreNorm(LinearAttention)) on raw x (B, n, C).
+
+    g_pre/g_out/b_out are (C,), w_qkv (C, 384) with columns [q | k | v],
+    w_out (128, C), all in x's dtype. A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel or raises. Differentiable: when grad is
+    on and an operand requires it, the call goes through `_AttnWrapFn`."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attn_wrap runs on cuda or cpu, got {x.device}")
+    args = (x, g_pre, w_qkv, w_out, b_out, g_out)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _AttnWrapFn.apply(*args)
+    if x.device.type == "cpu":
+        return attn_wrap_reference(*args)
+    return _forward_kernel(*args, keep_stats=False)[0]
 
 
 attn_wrap.launches = 0
+attn_wrap_bwd.launches = 0

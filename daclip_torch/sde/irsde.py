@@ -6,6 +6,12 @@ and looked up per step; the reverse samplers are plain Python loops over t.
 Per-step noise comes from an explicit `torch.Generator`, or from an explicit
 `noises` bank (the deterministic hook the golden-fixture replay uses).
 
+Every step function takes t as a Python int (the samplers' path, a float32
+scalar per table entry) or as an int64 tensor broadcastable against the
+state, typically (B, 1, 1, 1) (the training path, one t per sample), which
+gathers from float32 copies of the tables on t's device — as the JAX
+package's `jnp.take` reads them.
+
 Tensors are NCHW; the UNet behind `noise_fn` takes NCHW as well.
 """
 from __future__ import annotations
@@ -108,46 +114,85 @@ class IRSDE:
         self._s = {k: [float(np.float32(x)) for x in v]
                    for k, v in self.np_schedule._asdict().items()
                    if isinstance(v, np.ndarray)}
+        self._tables = {}  # device → {name: f32 tensor}
 
-    def _at(self, name: str, t: int) -> float:
-        return self._s[name][t]
+    def _at(self, name: str, t):
+        """Table entry at t: a float for an int t, a float32 tensor of t's
+        shape, on t's device, for a tensor t."""
+        if not torch.is_tensor(t):
+            return self._s[name][t]
+        if t.dtype != torch.int64:
+            raise TypeError(f"IRSDE takes t as an int or an int64 tensor, got {t.dtype}")
+        tables = self._tables.get(t.device)
+        if tables is None:
+            tables = {k: torch.tensor(v, dtype=torch.float32, device=t.device)
+                      for k, v in self._s.items()}
+            self._tables[t.device] = tables
+        return tables[name][t]
 
     # -- forward-process quantities ---------------------------------------------
-    def mu_bar(self, mu, x0, t: int):
+    def mu_bar(self, mu, x0, t):
         return mu + (x0 - mu) * self._at("weights", t)
 
-    def get_real_noise(self, xt, x0, mu, t: int):
+    def get_real_noise(self, xt, x0, mu, t):
         """(x_t - μ̄_t(x_0)) / σ̄_t (sde_utils.py:239-240)."""
         return (xt - self.mu_bar(mu, x0, t)) / self._at("sigma_bars", t)
 
-    def get_score_from_noise(self, noise, t: int):
+    def get_score_from_noise(self, noise, t):
         return -noise / self._at("sigma_bars", t)
 
-    def get_init_state_from_noise(self, xt, noise, mu, t: int):
+    def get_init_state_from_noise(self, xt, noise, mu, t):
         """x̂_0 = (x_t - μ - σ̄_t ε̂) e^{θ̄_t dt} + μ (sde_utils.py:245-247)."""
         return ((xt - mu - self._at("sigma_bars", t) * noise)
                 * self._at("exp_theta_cumsum_dt", t) + mu)
 
     # -- single-step updates --------------------------------------------------
-    def reverse_sde_step_mean(self, x, score, mu, t: int):
+    def reverse_sde_step_mean(self, x, score, mu, t):
         return x - (self._at("thetas", t) * (mu - x)
                     - self._at("sigmas", t) ** 2 * score) * self._dt32
 
-    def reverse_ode_step(self, x, score, mu, t: int):
+    def reverse_ode_step(self, x, score, mu, t):
         return x - (self._at("thetas", t) * (mu - x)
                     - 0.5 * self._at("sigmas", t) ** 2 * score) * self._dt32
 
-    def reverse_optimum_step(self, xt, x0, mu, t: int):
+    def reverse_optimum_step(self, xt, x0, mu, t):
         """Optimal posterior mean of x_{t-1} given (x_t, x_0) (sde_utils.py:205-213)."""
         return (self._at("post_term1", t) * (xt - mu)
                 + self._at("post_term2", t) * (x0 - mu) + mu)
 
-    def reverse_optimum_std(self, t: int) -> float:
+    def reverse_optimum_std(self, t):
         return self._at("post_std", t)
 
-    def reverse_posterior_step(self, xt, noise, mu, t: int, z):
+    def reverse_posterior_step(self, xt, noise, mu, t, z):
         x0 = self.get_init_state_from_noise(xt, noise, mu, t)
         return self.reverse_optimum_step(xt, x0, mu, t) + self.reverse_optimum_std(t) * z
+
+    # -- training-state sampling ----------------------------------------------
+    def generate_random_states(self, x0, mu, generator: Optional[torch.Generator] = None,
+                               timesteps=None, T_start: int = 1, T_end: int = -1):
+        """Sample (t, x_t) pairs for training (sde_utils.py:356-372): t
+        uniform in [T_start, sample_T] (or [T_start, T_end]) per sample as an
+        int64 (B, 1, 1, 1) tensor, x_t = ε·σ̄_t + μ̄_t(x0) in float32, with t
+        and ε drawn from `generator`."""
+        if timesteps is None:
+            hi = self.sample_T + 1 if T_end <= 1 else T_end + 1
+            timesteps = torch.randint(T_start, hi, (x0.shape[0],) + (1,) * (x0.dim() - 1),
+                                      generator=generator, device=x0.device)
+        state_mean = self.mu_bar(mu, x0, timesteps)
+        noises = torch.randn(state_mean.shape, generator=generator, dtype=torch.float32,
+                             device=x0.device)
+        return timesteps, (noises * self._at("sigma_bars", timesteps) + state_mean).float()
+
+    def forward(self, x0, mu, generator: Optional[torch.Generator] = None, T: int = -1):
+        """Forward simulation of the SDE from x0 over t = 1..T, Euler-Maruyama
+        (diagnostics; sde_utils.py:38-39, 50-56)."""
+        T = self.T if T < 0 else T
+        sqrt_dt = math.sqrt(self.dt)
+        x = x0
+        for t in range(1, T + 1):
+            drift = self._at("thetas", t) * (mu - x) * self._dt32
+            x = x + drift + self._at("sigmas", t) * sqrt_dt * self._randn(x, generator)
+        return x
 
     # -- initial state -------------------------------------------------------
     def noise_state(self, tensor: torch.Tensor,

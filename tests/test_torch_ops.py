@@ -1,6 +1,8 @@
-"""daclip_torch kernel wrappers on the CPU: their plain versions against the
-JAX package's references and Pallas kernels (interpret mode), the CPU
-dispatch, and the checks that guard the CUDA launch."""
+"""daclip_torch kernel wrappers on the CPU: their plain versions (forward and
+backward) against the JAX package's references and Pallas kernels
+(interpret mode), the autograd Functions, the CPU dispatch, and the checks
+that guard the CUDA launch."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,9 +11,11 @@ import torch
 from daclip_torch.ops import flash_attention as tfa
 from daclip_torch.ops import linear_attention as tla
 from daclip_tpu.ops.flash_attention import _reference as jax_flash_reference
-from daclip_tpu.ops.flash_attention import flash_self_attention_pallas
+from daclip_tpu.ops.flash_attention import (flash_self_attention_bwd_pallas,
+                                            flash_self_attention_pallas)
 from daclip_tpu.ops.linear_attention import (_attn_wrap_composition_reference,
-                                             attn_wrap_v5)
+                                             _wrap_v5_bwd_manual, attn_wrap_v5,
+                                             attn_wrap_v5_bwd_pallas)
 from daclip_tpu.ops.linear_attention import \
     linear_attention_reference as jax_linear_attention_reference
 
@@ -203,3 +207,120 @@ def test_unsupported_devices_shapes_and_dtypes_raise():
     with pytest.raises(ValueError):
         s = torch.zeros(1, 64, 128)[:, :, ::2]
         tfa._check(s, s, s, 2, 32)
+
+
+# -- backward ------------------------------------------------------------------
+WRAP_GRADS = ("dx", "dg_pre", "dw_qkv", "dw_out", "db_out", "dg_out")
+
+
+def _assert_rel(got, want, tol, names):
+    """Each gradient within tol of its own max |value|; dw_qkv per q, k, v
+    column block, so that a wrong dk cannot hide behind a large dq."""
+    for name, a, b in zip(names, got, want):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        blocks = ([(f"{name}[{i}]", a[:, 128 * i:128 * (i + 1)], b[:, 128 * i:128 * (i + 1)])
+                   for i in range(3)] if name == "dw_qkv" else [(name, a, b)])
+        for label, x, y in blocks:
+            scale = np.abs(y).max()
+            assert scale > 0, label
+            err = np.abs(x - y).max() / scale
+            assert err <= tol, f"{label}: {err:.3g} > {tol}"
+
+
+def _dout(shape, seed=9):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("balanced", [False, True])
+@pytest.mark.parametrize("C,n", [(64, 1024), (128, 512), (96, 301)])
+def test_plain_wrap_bwd_matches_jax_vjp_and_manual_f32(C, n, balanced):
+    args = _wrap_inputs(2, n, C, seed=4)
+    if balanced:
+        args = _balanced(args)
+    g = _dout((2, n, C))
+    got = tla.attn_wrap_bwd_reference(*map(torch.from_numpy, args), torch.from_numpy(g))
+    got = [t.numpy() for t in got]
+    jargs = tuple(map(jnp.asarray, args))
+    _, vjp = jax.vjp(_attn_wrap_composition_reference, *jargs)
+    _assert_rel(got, vjp(jnp.asarray(g)), 2e-5, WRAP_GRADS)
+    _assert_rel(got, _wrap_v5_bwd_manual(jargs, jnp.asarray(g)), 2e-5, WRAP_GRADS)
+
+
+@pytest.mark.parametrize("balanced", [False, True])
+def test_wrap_function_takes_autograd_path_on_cpu(balanced):
+    """attn_wrap on tensors that require grad goes through the autograd
+    Function (plain forward and backward on the CPU), and its gradients reach
+    x and every weight as torch.autograd of the plain forward gives them."""
+    args = _wrap_inputs(1, 300, 64, seed=5)
+    if balanced:
+        args = _balanced(args)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    g = torch.from_numpy(_dout((1, 300, 64)))
+    out = tla.attn_wrap(*leaves)
+    assert type(out.grad_fn).__name__ == "_AttnWrapFnBackward"
+    got = torch.autograd.grad(out, leaves, g)
+    ref = [torch.from_numpy(a).requires_grad_() for a in args]
+    want = torch.autograd.grad(tla.attn_wrap_reference(*ref), ref, g)
+    _assert_rel([t.numpy() for t in got], [t.numpy() for t in want], 1e-5, WRAP_GRADS)
+
+
+def test_plain_wrap_bwd_matches_pallas_bwd_kernel_bf16():
+    """In bf16 against the TPU backward kernel itself (interpret mode, the dy
+    spill variant), within the JAX suite's own bound for that kernel
+    (tests/test_ops.py: 1.5e-2 of each gradient's max)."""
+    args = [a.astype(jnp.bfloat16) for a in map(jnp.asarray, _wrap_inputs(2, 1024, 64, 6))]
+    g = jnp.asarray(_dout((2, 1024, 64))).astype(jnp.bfloat16)
+    _, ctx, s, m = attn_wrap_v5(*args, interpret=True, with_stats=True)
+    want = attn_wrap_v5_bwd_pallas(*args, ctx, s, m, g, interpret=True, spill_dy=True)
+    to_t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    got = tla.attn_wrap_bwd(*map(to_t, args), to_t(g))
+    assert all(t.dtype == torch.bfloat16 for t in got)
+    _assert_rel([t.float().numpy() for t in got], [np.asarray(w, np.float32) for w in want],
+                1.5e-2, WRAP_GRADS)
+
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 64, 4, 32), (1, 100, 2, 64)])
+def test_plain_flash_bwd_matches_jax_vjp_and_pallas(B, N, H, D):
+    q, k, v = _qkv(B, N, H, D, seed=2)
+    g = _dout((B, N, H * D))
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out = tfa.attention_reference(tq, tk, tv, H, D)
+    got = [t.numpy() for t in tfa.attention_bwd_reference(tq, tk, tv, out, tg, H, D)]
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash_reference(a, b, c, H, D), jq, jk, jv)
+    _assert_rel(got, vjp(jg), 1e-4, ("dq", "dk", "dv"))
+    if N % 8 == 0:  # the Pallas kernels' own block constraint
+        dsum = jnp.einsum("bnhd,bnhd->bnh", jg.reshape(B, N, H, D),
+                          jnp.asarray(out.numpy()).reshape(B, N, H, D))
+        want = flash_self_attention_bwd_pallas(jq, jk, jv, jg, dsum, H, D, interpret=True)
+        _assert_rel(got, want, 1e-4, ("dq", "dk", "dv"))
+
+
+def test_flash_function_takes_autograd_path_on_cpu():
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(2, 64, 4, 32, seed=3))
+    g = torch.from_numpy(_dout((2, 64, 128)))
+    out = tfa.flash_self_attention(q, k, v, 4, 32)
+    assert type(out.grad_fn).__name__ == "_FlashFnBackward"
+    got = torch.autograd.grad(out, (q, k, v), g)
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tfa.attention_reference(*ref, 4, 32), ref, g)
+    _assert_rel([t.numpy() for t in got], [t.numpy() for t in want], 1e-5, ("dq", "dk", "dv"))
+
+
+def test_backward_wrappers_on_cpu_count_no_launch_and_guard_the_card():
+    tla.attn_wrap_bwd.launches = 0
+    tfa.flash_self_attention_bwd.launches = 0
+    args = list(map(torch.from_numpy, _wrap_inputs(1, 64, 64)))
+    g = torch.from_numpy(_dout((1, 64, 64)))
+    for a, b in zip(tla.attn_wrap_bwd(*args, g), tla.attn_wrap_bwd_reference(*args, g)):
+        assert torch.equal(a, b)
+    q, k, v = map(torch.from_numpy, _qkv(1, 64, 2, 32))
+    out = tfa.attention_reference(q, k, v, 2, 32)
+    dq = tfa.flash_self_attention_bwd(q, k, v, out, out, 2, 32)[0]
+    assert torch.equal(dq, tfa.attention_bwd_reference(q, k, v, out, out, 2, 32)[0])
+    assert tla.attn_wrap_bwd.launches == 0 and tfa.flash_self_attention_bwd.launches == 0
+    meta = [torch.empty(a.shape, device="meta") for a in args]
+    with pytest.raises(ValueError):
+        tla.attn_wrap_bwd(*meta, meta[0])
+    with pytest.raises(ValueError):
+        tfa.flash_self_attention_bwd(*[torch.empty(1, 64, 64, device="meta")] * 5, 2, 32)

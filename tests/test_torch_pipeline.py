@@ -163,8 +163,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'daclip_tpu'))]\n"
         "assert not bad, bad\n"
+        "need = ['daclip_torch.train.restoration', 'daclip_torch.train.schedules',\n"
+        "        'daclip_torch.losses.matching', 'daclip_torch.utils.ema',\n"
+        "        'daclip_torch.utils.checkpoint']\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "print(len([m for m in sys.modules if m.startswith('daclip_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 22
