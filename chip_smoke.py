@@ -7,14 +7,33 @@ Phases, each printing JSON lines:
   1 build    nvcc builds daclip_torch/csrc/*.cu (one process per source)
   2 kernels  each kernel against its plain PyTorch version at every shape the
              restore path gives it (the wrap also on inputs where the
-             attention is as large as the bias, at each shape); times (median of CUDA-event timed runs
-             after warm-up), the bound, and for flash the one-call PyTorch
-             yardstick (scaled_dot_product_attention, timed here only)
-  3 fixture  the committed golden fixture replayed through the kernels in f32
+             attention is as large as the bias, at each shape); times (median
+             of CUDA-event timed calls after warm-up, and the device time of
+             the kernels alone from torch.profiler), the bound, and for flash
+             the one-call PyTorch yardstick (scaled_dot_product_attention,
+             timed here only)
+  2b kernels_alt  the kernels of the UNet's other wirings, each against its
+             plain version: linear_attention_fused (v4), attn_wrap_fused (v3,
+             with and without prenorm/residual) at the six sites on
+             production-like and balanced inputs plus a ragged and an f32
+             case; the attention core linear_attention at the six sites (its
+             path: one call at each, counted); dual_conv1x1 at the four
+             res_conv shapes of the nine sites, both forms, plus ragged and
+             f32 cases, with torch.matmul as the single form's yardstick;
+             then linear_attention_fused and dual_conv1x1's single form at
+             the (v4, pointwise) training step's shapes (B=16)
+  3 fixture  the committed golden fixture replayed through the kernels in f32,
+             in the default wiring and in (v4, pointwise) and (v3, pointwise)
   4 serve    the production restore path at full width (ViT-B-32 DaCLIP, UNet
              nf=64 ch_mult 1,2,4,8, context 512, bf16, 100 posterior steps) on
              seeded random weights: four requests through DACLIPRestorer, with
              the kernels' launch counts per request
+  4b serve_alt  the same weights in (v4, pointwise), (v3, pointwise) and (v5,
+             pointwise): one full-width bf16 UNet forward each against the v5
+             wiring's (limit: 3× the v5 bf16 forward's own distance from its
+             f32 forward), then two 256² requests each with their launch
+             counts and a UNet forward profile each; two v5 requests before
+             and two after the other wirings are the yardstick in the phase
   5 profile  one sampler step (a UNet forward at 256²): wall time, device
              kernel time by name (torch.profiler)
   6 kernels_bwd  at every shape of the training step (B=16, 256²; the wrap
@@ -35,6 +54,10 @@ Phases, each printing JSON lines:
              and 5 timed steps, kernel calls per step; then a checkpoint
              whose EMA UNet restores a 256² image through DACLIPRestorer
   9 profile_train  torch.profiler over one full-width training step
+ 10 train_alt  the same step in the (v4, pointwise) wiring: 2 warm-up and 3
+             timed steps, peak memory, kernel calls per step, a profile of
+             one step
+(train_check runs the default wiring, then (v4, pointwise) and (v3, pointwise).)
 Then the per-kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
 without a CUDA device it exits non-zero before printing any result.
@@ -65,7 +88,28 @@ FLASH_SHAPES = [  # (B, N, H, D, dtype): down3 and mid/up3 at 256², the fixture
     (1, 1024, 8, 32, torch.bfloat16), (1, 1024, 16, 32, torch.bfloat16),
     (1, 256, 2, 32, torch.float32)]
 LIMITS = {("wrap", torch.bfloat16): 0.1, ("wrap", torch.float32): 1e-3,
-          ("flash", torch.bfloat16): 2e-2, ("flash", torch.float32): 1e-4}
+          ("flash", torch.bfloat16): 2e-2, ("flash", torch.float32): 1e-4,
+          # relative to the output's max: the core's output is the attention
+          # alone; the 1×1 rounds once to bf16 (half a step is 2^-8 of a value)
+          ("core", torch.bfloat16): 2e-2, ("core", torch.float32): 1e-4,
+          ("dual", torch.bfloat16): 1e-2, ("dual", torch.float32): 1e-5}
+# dual_conv1x1 at the res_conv sites of the UNet at 256² (rows = H·W at B=1;
+# K = Cx + Cs: the up level's x and its skip, the final block's x and x_skip):
+# (rows, Cx, Cs, O) — up3 ×2, up2 ×2, up1 ×2, up0 ×2 and final; a ragged case
+DUAL_SHAPES = [(1024, 512, 256, 512, torch.bfloat16), (4096, 256, 128, 256, torch.bfloat16),
+               (16384, 128, 64, 128, torch.bfloat16), (65536, 64, 64, 64, torch.bfloat16),
+               (3001, 96, 40, 72, torch.bfloat16), (4096, 64, 64, 64, torch.float32)]
+# the (v4, pointwise) training step's shapes (B=16, 256²): linear_attention_fused
+# at the five (B, n, C) of the six sites, dual_conv1x1's single form at 16× the
+# rows of the four res_conv shapes
+TRAIN_WRAP_SHAPES = [(16, n, C, dtype) for _, n, C, dtype in WRAP_SHAPES[:5]]
+TRAIN_DUAL_SHAPES = [(16 * R, cx, cs, O, dtype) for R, cx, cs, O, dtype in DUAL_SHAPES[:4]]
+ALT_CONFIGS = {"v4_pointwise": dict(linear_attention="v4", pointwise=True),
+               "v3_pointwise": dict(linear_attention="v3", pointwise=True),
+               "v5_pointwise": dict(linear_attention="v5", pointwise=True)}
+# an alt wiring's bf16 forward may differ from the v5 wiring's by at most this
+# many times the v5 bf16 forward's own max distance from its f32 forward
+ALT_FORWARD_FACTOR = 3.0
 # the backward kernels at the training step's shapes: (B, n, C) of the six
 # wrap sites at 256² and B=16 (down0/up0 share a shape), the ragged case, an
 # f32 case, and C=512 (the context-free UNet's level 3, the kernel's 32-row
@@ -95,6 +139,28 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
+def kernel_counters():
+    """Every kernel wrapper, whose `launches` counts its kernel's launches, by
+    the key the summary line uses."""
+    from daclip_torch.ops import flash_attention as fa
+    from daclip_torch.ops import linear_attention as la
+    from daclip_torch.ops import pointwise as pw
+
+    return {"wrap": la.attn_wrap, "flash": fa.flash_self_attention,
+            "wrap_bwd": la.attn_wrap_bwd, "flash_bwd": fa.flash_self_attention_bwd,
+            "fused_v4": la.linear_attention_fused, "wrap_fused": la.attn_wrap_fused,
+            "core": la.linear_attention, "dual": pw.dual_conv1x1}
+
+
+def reset_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {key: fn.launches for key, fn in kernel_counters().items()}
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
@@ -115,6 +181,25 @@ def time_ms(fn, iters=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, match, iters=10):
+    """Device time per call of `fn` of the kernels whose name holds `match`
+    (torch.profiler, after one warm-up call). Unlike `time_ms`, which times
+    a call between two CUDA events, it leaves out the wrapper's host time,
+    which a small kernel can take less than."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and match in e.name)
+    return us / iters / 1e3 if us else None
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -209,6 +294,7 @@ def run_kernels():
             nbytes = (2 * B * n * C + C * 384 + 128 * C + 3 * C) * esize
             bms, by = bound_ms(nbytes, 2 * B * n * (512 * C + 8192), dtype)
             row.update(kernel_ms=time_ms(lambda: la.attn_wrap(*args)),
+                       device_ms=device_ms(lambda: la.attn_wrap(*args), "daclip::wrap::"),
                        plain_ms=time_ms(lambda: la.attn_wrap_reference(*args)),
                        bound_ms=bms, bound_by=by, library_ms=None)
         emit(**row)
@@ -238,6 +324,8 @@ def run_kernels():
         row = dict(phase="kernels", kernel="flash_self_attention", shape=[B, N, H, D],
                    dtype=str(dtype).split(".")[-1], max_abs_err=err, limit=limit,
                    kernel_ms=time_ms(lambda: fa.flash_self_attention(q, k, v, H, D)),
+                   device_ms=device_ms(lambda: fa.flash_self_attention(q, k, v, H, D),
+                                       "daclip::flash::"),
                    plain_ms=time_ms(lambda: fa.attention_reference(q, k, v, H, D)),
                    bound_ms=bms, bound_by=by, library_ms=time_ms(lib))
         emit(**row)
@@ -246,44 +334,238 @@ def run_kernels():
     return rows
 
 
+# -- phase 2b ------------------------------------------------------------------
+def fused_share(want, b_out, g_out):
+    """Mean |plain output − the plain output with the attention left out|,
+    without a residual."""
+    from daclip_torch.ops.linear_attention import _channel_ln
+
+    return float((want - _channel_ln(b_out.expand_as(want), g_out)).abs().mean())
+
+
+def linattn_bound(B, n, C, esize, dtype):
+    """The bound of the wrap's math on (B, n, C): x in, out out, the weights
+    once; 2·B·n·(512·C + 8192) FLOP (q/k/v, ctx, ·W, to_out)."""
+    nbytes = (2 * B * n * C + C * 384 + 128 * C + 3 * C) * esize
+    return bound_ms(nbytes, 2 * B * n * (512 * C + 8192), dtype)
+
+
+def run_kernels_alt():
+    """The kernels of the UNet's other wirings against their plain versions."""
+    from daclip_torch.ops import linear_attention as la
+    from daclip_torch.ops import pointwise as pw
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {"fused_v4": [], "wrap_fused": [], "core": [], "dual": []}
+    kernels = {  # key → (name, kernel, plain, takes the raw x)
+        "fused_v4": ("linear_attention_fused", la.linear_attention_fused,
+                     la.fused_composition_reference, False),
+        "wrap_fused": ("attn_wrap_fused", la.attn_wrap_fused, la.attn_wrap_reference, True),
+        "wrap_fused_xn": ("attn_wrap_fused", lambda xn, *w: la.attn_wrap_fused(
+            xn, None, *w, prenorm_residual=False), la.fused_composition_reference, False)}
+    for (B, n, C, dtype), balanced in [(s, b) for s in WRAP_SHAPES for b in (False, True)]:
+        x, g_pre, *w = wrap_case(B, n, C, dtype, gen, balanced)
+        xn = la._channel_ln(x, g_pre)
+        for key, (name, kernel, plain, raw) in kernels.items():
+            args = [x, g_pre, *w] if raw else [xn, *w]
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            fargs = [a.float() for a in args]
+            want = plain(*fargs)
+            err = (got.float() - want).abs()
+            share = (attention_share(want, fargs[0], fargs[-2], fargs[-1]) if raw
+                     else fused_share(want, fargs[-2], fargs[-1]))
+            limit = LIMITS[("wrap", dtype)]
+            row = dict(phase="kernels_alt", kernel=name, shape=[B, n, C],
+                       dtype=str(dtype).split(".")[-1], balanced=balanced,
+                       prenorm_residual=raw if name == "attn_wrap_fused" else None,
+                       max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
+                       limit=limit, attention_share=share)
+            if not balanced:
+                bms, by = linattn_bound(B, n, C, x.element_size(), dtype)
+                row.update(kernel_ms=time_ms(lambda: kernel(*args)),
+                           device_ms=device_ms(lambda: kernel(*args), "daclip::wrap::"),
+                           plain_ms=time_ms(lambda: plain(*args)),
+                           bound_ms=bms, bound_by=by, library_ms=None)
+            emit(**row)
+            rows["fused_v4" if key == "fused_v4" else "wrap_fused"].append(row)
+            what = f"{name} {B, n, C, dtype}" + (" raw x" if raw else "") + (
+                " balanced" if balanced else "")
+            check(torch.isfinite(got).all().item(), f"{what} not finite")
+            check(row["max_abs_err"] <= limit, f"{what} max err {row['max_abs_err']}")
+            if dtype == torch.bfloat16:
+                check(row["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16,
+                      f"{what} mean err {row['mean_abs_err']}")
+            if balanced:
+                check(share >= SIGNAL_MIN, f"{what}: the attention's share {share} is too small")
+            del got, want, err, fargs
+
+    # the attention core: its path is one call at each of the six sites
+    # (down0 and up0 share the first shape), counted from 0; then the ragged
+    # and f32 cases
+    qkvs = []
+    for B, n, C, dtype in WRAP_SHAPES:
+        x, g_pre, w_qkv, *_ = wrap_case(B, n, C, dtype, gen, False)
+        qkvs.append((la._channel_ln(x, g_pre) @ w_qkv).contiguous())
+    la.linear_attention.launches = 0
+    outs = [la.linear_attention(q) for q in qkvs[:1] + qkvs[:5]][1:]
+    torch.cuda.synchronize()
+    core_path = la.linear_attention.launches
+    check(core_path == 6, f"core path launched {core_path} times, expected 6")
+    outs += [la.linear_attention(q) for q in qkvs[5:]]
+    for qkv, got in zip(qkvs, outs):
+        B, n, _ = qkv.shape
+        dtype = qkv.dtype
+        want = la.linear_attention_reference(qkv.float())
+        err = float((got.float() - want).abs().max() / want.abs().max())
+        limit = LIMITS[("core", dtype)]
+        esize = qkv.element_size()
+        bms, by = bound_ms(B * n * (384 + 128) * esize, 2 * B * n * 8192, dtype)
+        row = dict(phase="kernels_alt", kernel="linear_attention", shape=[B, n, 384],
+                   dtype=str(dtype).split(".")[-1], max_rel_err=err,
+                   max_abs_err=float((got.float() - want).abs().max()), limit=limit,
+                   kernel_ms=time_ms(lambda: la.linear_attention(qkv)),
+                   device_ms=device_ms(lambda: la.linear_attention(qkv), "daclip::wrap::"),
+                   plain_ms=time_ms(lambda: la.linear_attention_reference(qkv)),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+        emit(**row)
+        rows["core"].append(row)
+        check(torch.isfinite(got).all().item(), f"core {B, n, dtype} not finite")
+        check(err <= limit, f"core {B, n, dtype} rel err {err}")
+    del qkvs, outs
+
+    for R, cx, cs, O, dtype in DUAL_SHAPES:
+        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+        x, skip, w = rnd(R, cx), rnd(R, cs), rnd(cx + cs, O) * (cx + cs) ** -0.5
+        xcat = torch.cat([x, skip], dim=1)
+        for form, args in (("dual", (x, skip, w)), ("single", (xcat, None, w))):
+            got = pw.dual_conv1x1(*args)
+            torch.cuda.synchronize()
+            want = pw.dual_conv1x1_reference(*[None if a is None else a.float() for a in args])
+            err = float((got.float() - want).abs().max() / want.abs().max())
+            limit = LIMITS[("dual", dtype)]
+            bms, by = bound_ms((R * (cx + cs) + R * O + (cx + cs) * O) * x.element_size(),
+                               2 * R * (cx + cs) * O, dtype)
+            lib = (lambda: torch.matmul(xcat, w)) if form == "single" else None
+            row = dict(phase="kernels_alt", kernel="dual_conv1x1", form=form,
+                       shape=[R, cx, cs, O], dtype=str(dtype).split(".")[-1],
+                       max_rel_err=err, max_abs_err=float((got.float() - want).abs().max()),
+                       limit=limit, kernel_ms=time_ms(lambda: pw.dual_conv1x1(*args)),
+                       device_ms=device_ms(lambda: pw.dual_conv1x1(*args), "daclip::pointwise::"),
+                       plain_ms=time_ms(lambda: pw.dual_conv1x1_reference(*args)),
+                       bound_ms=bms, bound_by=by, library_ms=lib and time_ms(lib))
+            emit(**row)
+            rows["dual"].append(row)
+            check(torch.isfinite(got).all().item(), f"dual_conv1x1 {form} {R, cx, cs, O} "
+                  "not finite")
+            check(err <= limit, f"dual_conv1x1 {form} {R, cx, cs, O, dtype} rel err {err}")
+
+    # the training step's shapes (B=16): linear_attention_fused at the five
+    # (n, C) of the six sites, production-like and balanced, and the single
+    # form the UNet calls at 16× the res_conv rows. attn_wrap_fused launches
+    # the v5 wrap's forward or linear_attention_fused's, both held here or
+    # in kernels_bwd at B=16.
+    for (B, n, C, dtype), balanced in [(s, b) for s in TRAIN_WRAP_SHAPES for b in (False, True)]:
+        x, g_pre, *w = wrap_case(B, n, C, dtype, gen, balanced)
+        args = [la._channel_ln(x, g_pre), *w]
+        del x, g_pre
+        got = la.linear_attention_fused(*args)
+        torch.cuda.synchronize()
+        fargs = [a.float() for a in args]
+        want = la.fused_composition_reference(*fargs)
+        err = (got.float() - want).abs()
+        share = fused_share(want, fargs[-2], fargs[-1])
+        limit = LIMITS[("wrap", dtype)]
+        row = dict(phase="kernels_alt", kernel="linear_attention_fused", path="train",
+                   shape=[B, n, C], dtype=str(dtype).split(".")[-1], balanced=balanced,
+                   max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
+                   limit=limit, attention_share=share)
+        if not balanced:
+            bms, by = linattn_bound(B, n, C, args[0].element_size(), dtype)
+            row.update(kernel_ms=time_ms(lambda: la.linear_attention_fused(*args), iters=10),
+                       plain_ms=time_ms(lambda: la.fused_composition_reference(*args),
+                                        iters=5, warmup=1),
+                       bound_ms=bms, bound_by=by, library_ms=None)
+        emit(**row)
+        rows["fused_v4"].append(row)
+        what = f"linear_attention_fused {B, n, C, dtype}" + (" balanced" if balanced else "")
+        check(torch.isfinite(got).all().item(), f"{what} not finite")
+        check(row["max_abs_err"] <= limit, f"{what} max err {row['max_abs_err']}")
+        check(row["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16,
+              f"{what} mean err {row['mean_abs_err']}")
+        if balanced:
+            check(share >= SIGNAL_MIN, f"{what}: the attention's share {share} is too small")
+        del got, want, err, fargs, args
+        torch.cuda.empty_cache()
+
+    for R, cx, cs, O, dtype in TRAIN_DUAL_SHAPES:
+        K = cx + cs
+        x = torch.randn(R, K, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(K, O, generator=gen, device="cuda") * K ** -0.5).to(dtype)
+        got = pw.dual_conv1x1(x, None, w)
+        torch.cuda.synchronize()
+        want = pw.dual_conv1x1_reference(x.float(), None, w.float())
+        abs_err = float((got.float() - want).abs().max())
+        err = abs_err / float(want.abs().max())
+        limit = LIMITS[("dual", dtype)]
+        bms, by = bound_ms((R * K + R * O + K * O) * x.element_size(), 2 * R * K * O, dtype)
+        row = dict(phase="kernels_alt", kernel="dual_conv1x1", form="single", path="train",
+                   shape=[R, cx, cs, O], dtype=str(dtype).split(".")[-1], max_rel_err=err,
+                   max_abs_err=abs_err, limit=limit,
+                   kernel_ms=time_ms(lambda: pw.dual_conv1x1(x, None, w), iters=10),
+                   plain_ms=time_ms(lambda: pw.dual_conv1x1_reference(x, None, w), iters=10),
+                   bound_ms=bms, bound_by=by,
+                   library_ms=time_ms(lambda: torch.matmul(x, w), iters=10))
+        emit(**row)
+        rows["dual"].append(row)
+        check(torch.isfinite(got).all().item(), f"dual_conv1x1 single {R, K, O} not finite")
+        check(err <= limit, f"dual_conv1x1 single {R, K, O, dtype} rel err {err}")
+        del x, w, got, want
+    return rows, core_path
+
+
 # -- phase 3 -------------------------------------------------------------------
 def run_fixture():
     from daclip_torch.convert import infer_unet_arch, load_torch_state_dict
     from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
     from daclip_torch.models.unet import ConditionalUNet
-    from daclip_torch.ops import flash_attention as fa
-    from daclip_torch.ops import linear_attention as la
     from daclip_torch.sde import IRSDE
 
     meta = json.loads((FIXTURE / "meta.json").read_text())
     arrs = np.load(FIXTURE / "arrays.npz")
     daclip = DaCLIP(CLIPCfg.from_dict(get_model_config(meta["model_name"])))
     daclip.load_state_dict(load_torch_state_dict(str(FIXTURE / "daclip.pt")), strict=True)
-    sd = load_torch_state_dict(str(FIXTURE / "unet.pth"))
-    arch = infer_unet_arch(sd)
-    unet = ConditionalUNet(**{k: v for k, v in arch.items() if k not in ("in_nc", "out_nc")})
-    unet.load_state_dict(sd, strict=True)
     daclip.cuda().eval()
-    unet.cuda().eval()
+    sd = load_torch_state_dict(str(FIXTURE / "unet.pth"))
+    arch = {k: v for k, v in infer_unet_arch(sd).items() if k not in ("in_nc", "out_nc")}
     sde = IRSDE(max_sigma=meta["max_sigma"], T=meta["T"], schedule=meta["schedule"],
                 eps=meta["eps"])
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, -3))).cuda()
-    la.attn_wrap.launches = fa.flash_self_attention.launches = 0
     with torch.no_grad():
         img_ctx, degra_ctx = daclip.encode_image(dev(arrs["img4clip"][None]), control=True)
-        out = sde.reverse_posterior(unet, dev(arrs["x_T"][None]), dev(arrs["lq"][None]),
-                                    noises=dev(arrs["noises"]), text_context=degra_ctx,
-                                    image_context=img_ctx)
-    torch.cuda.synchronize()
-    ours = out[0].cpu().numpy().transpose(1, 2, 0)
-    row = dict(phase="fixture", psnr_vs_ref_out=psnr(ours, arrs["ref_out"]),
-               psnr_vs_gt=psnr(ours, arrs["gt"]), ref_psnr_vs_gt=meta["ref_psnr_vs_gt"],
-               wrap_launches=la.attn_wrap.launches,
-               flash_launches=fa.flash_self_attention.launches)
-    emit(**row)
-    check(row["psnr_vs_ref_out"] > 40.0, "fixture replay below 40 dB vs ref_out")
-    check(row["wrap_launches"] > 0 and row["flash_launches"] > 0,
-          "fixture replay did not launch both kernels")
+    # the kernels each wiring must run (flash at the SpatialTransformers)
+    wirings = {"v5": ({}, ("wrap", "flash")),
+               "v4_pointwise": (ALT_CONFIGS["v4_pointwise"], ("fused_v4", "dual", "flash")),
+               "v3_pointwise": (ALT_CONFIGS["v3_pointwise"], ("wrap_fused", "dual", "flash"))}
+    for wiring, (config, need) in wirings.items():
+        unet = ConditionalUNet(**arch, **config)
+        unet.load_state_dict(sd, strict=True)
+        unet.cuda().eval()
+        reset_counts()
+        with torch.no_grad():
+            out = sde.reverse_posterior(unet, dev(arrs["x_T"][None]), dev(arrs["lq"][None]),
+                                        noises=dev(arrs["noises"]), text_context=degra_ctx,
+                                        image_context=img_ctx)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        ours = out[0].cpu().numpy().transpose(1, 2, 0)
+        row = dict(phase="fixture", wiring=wiring, psnr_vs_ref_out=psnr(ours, arrs["ref_out"]),
+                   psnr_vs_gt=psnr(ours, arrs["gt"]), ref_psnr_vs_gt=meta["ref_psnr_vs_gt"],
+                   launches=counts)
+        emit(**row)
+        check(row["psnr_vs_ref_out"] > 40.0, f"fixture replay ({wiring}) below 40 dB vs ref_out")
+        check(set(counts) == set(need), f"fixture replay ({wiring}) launched {counts}, "
+              f"expected exactly {need}")
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -321,7 +603,9 @@ def run_serve():
     from daclip_torch.ops import linear_attention as la
     from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
 
-    cfg = RestorerConfig()  # production: ViT-B-32, nf 64, (1,2,4,8), ctx 512, bf16, T=100
+    # production: ViT-B-32, nf 64, (1,2,4,8), ctx 512, bf16, T=100; the default
+    # wiring whatever the DACLIP_TPU_* variables say
+    cfg = RestorerConfig(linear_attention="v5", pointwise=False)
     t0 = time.perf_counter()
     unet_sd = seeded_state_dict(lambda: ConditionalUNet(
         nf=cfg.nf, ch_mult=cfg.ch_mult, context_dim=cfg.context_dim,
@@ -359,6 +643,7 @@ def run_serve():
     totals = {"wrap": 0, "flash": 0}
     for name, fn, shapes in requests:
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         la.attn_wrap.launches = fa.flash_self_attention.launches = 0
         t0 = time.perf_counter()
         outs = fn()
@@ -371,16 +656,96 @@ def run_serve():
         emit(phase="serve", request=name, latency_ms=ms, sampler_runs=1, steps=steps,
              wrap_launches=wrap_n, flash_launches=flash_n, finite=bool(finite),
              output_shapes=[list(o.shape) for o in outs],
-             max_memory_allocated=torch.cuda.max_memory_allocated())
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             memory_allocated_before=resident)
         check([o.shape for o in outs] == shapes, f"{name} output shapes")
         check(finite, f"{name} output not finite")
         check(wrap_n == 6 * steps and flash_n == 3 * steps,
               f"{name}: {wrap_n} wrap / {flash_n} flash launches, expected "
               f"{6 * steps} / {3 * steps} for one {steps}-step sampler run")
-    return restorer, totals
+    return restorer, totals, (unet_sd, daclip_sd)
 
 
-def run_profile(restorer, forwards=5):
+# -- phase 4b ------------------------------------------------------------------
+def run_serve_alt(restorer, sds):
+    """The production weights in each other wiring: one full-width bf16 UNet
+    forward against the v5 wiring's (limit ALT_FORWARD_FACTOR × the v5 bf16
+    forward's max distance from the f32 v5 forward, TF32 off), then two 256²
+    requests through DACLIPRestorer with their launch counts and a profile of
+    one UNet forward."""
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
+
+    unet_sd, daclip_sd = sds
+    cfg = restorer.cfg
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    xt, cond = (torch.rand(1, 3, 256, 256, generator=gen, device="cuda") for _ in range(2))
+    c = torch.randn(1, cfg.context_dim, generator=gen, device="cuda")
+    t = torch.full((1,), 50.0, device="cuda")
+    with torch.no_grad():
+        ref = restorer.unet(xt, cond, t, c, c)
+        unet32 = ConditionalUNet(nf=cfg.nf, ch_mult=cfg.ch_mult, context_dim=cfg.context_dim,
+                                 use_degra_context=True, use_image_context=True)
+        unet32.load_state_dict(unet_sd, strict=True)
+        out32 = unet32.cuda().eval()(xt, cond, t, c, c)
+    del unet32
+    floor = float((ref - out32).abs().max())
+    limit = ALT_FORWARD_FACTOR * floor
+    emit(phase="serve_alt_forward", wiring="v5", max_abs_err_vs_f32=floor,
+         mean_abs_err_vs_f32=float((ref - out32).abs().mean()), output_max=float(ref.abs().max()))
+    img = np.random.RandomState(5).rand(256, 256, 3).astype(np.float32)
+    steps = restorer.sde.sample_T
+    totals = {}
+    route = {"v4": "fused_v4", "v3": "wrap_fused", "v5": "wrap"}
+
+    def requests(r, wiring, want, n=2, yardstick=False):
+        """n 256² requests through `r`, each counted from 0; the v5 ones
+        (yardstick) before and after the other wirings bracket them in this
+        phase (host time spreads run to run)."""
+        for i in range(n):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = r.restore(img, seed=1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: v for k, v in read_counts().items() if v}
+            emit(phase="serve_alt", wiring=wiring, request=f"restore_256x256#{i}",
+                 latency_ms=ms, steps=steps, launches=counts,
+                 finite=bool(np.isfinite(res).all()), output_shape=list(res.shape),
+                 max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 memory_allocated_before=resident)
+            check(res.shape == (256, 256, 3) and np.isfinite(res).all(),
+                  f"{wiring} request output")
+            check(counts == want, f"{wiring} request launched {counts}, expected {want}")
+            if not yardstick:
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+
+    v5_want = {"wrap": 6 * steps, "flash": 3 * steps}
+    requests(restorer, "v5", v5_want, yardstick=True)
+    for wiring, config in ALT_CONFIGS.items():
+        alt = DACLIPRestorer(RestorerConfig(**config), unet_sd, daclip_sd, device="cuda")
+        with torch.no_grad():
+            out = alt.unet(xt, cond, t, c, c)
+        err = float((out - ref).abs().max())
+        emit(phase="serve_alt_forward", wiring=wiring, max_abs_err_vs_v5=err,
+             mean_abs_err_vs_v5=float((out - ref).abs().mean()),
+             max_abs_err_vs_f32=float((out - out32).abs().max()), limit=limit)
+        check(bool(torch.isfinite(out).all()), f"{wiring} forward not finite")
+        check(err <= limit, f"{wiring} forward differs from v5 by {err} (limit {limit})")
+        requests(alt, wiring, {route[config["linear_attention"]]: 6 * steps,
+                               "flash": 3 * steps, "dual": 9 * steps})
+        run_profile(alt, wiring=wiring)
+        del alt, out
+        torch.cuda.empty_cache()
+    requests(restorer, "v5_after", v5_want, yardstick=True)
+    return totals
+
+
+def run_profile(restorer, forwards=5, wiring="v5"):
     """Where one sampler step's time goes: one ConditionalUNet forward at 256²,
     B=1, bf16 — host wall time unprofiled, then the device kernels that
     torch.profiler records, summed by name."""
@@ -410,7 +775,7 @@ def run_profile(restorer, forwards=5):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     kernel_ms = sum(by_name.values()) / forwards / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit(phase="profile", what="one ConditionalUNet forward, 256x256, B=1, bf16",
+    emit(phase="profile", wiring=wiring, what="one ConditionalUNet forward, 256x256, B=1, bf16",
          wall_ms_per_forward=wall_ms,
          device_kernel_ms_per_forward=kernel_ms if launches else None,
          device_busy_share=kernel_ms / wall_ms if launches else None,
@@ -528,22 +893,30 @@ def run_kernels_bwd():
 
 
 # -- phase 7 -------------------------------------------------------------------
-def run_train_check():
-    """A small UNet in f32 (TF32 off) whose level 0 runs the wrap and whose
-    level 1 and middle run SpatialTransformers: the loss and every gradient
-    through the kernels against the plain versions, swapped into the UNet
-    module here only; then 8 AdamW steps on one fixed draw."""
+# the kernels each wiring's training step must launch
+TRAIN_KERNELS = {"v5": ("wrap", "wrap_bwd", "flash", "flash_bwd"),
+                 "v4_pointwise": ("fused_v4", "dual", "flash", "flash_bwd"),
+                 "v3_pointwise": ("wrap_fused", "dual", "flash", "flash_bwd")}
+
+
+def run_train_check(wiring="v5"):
+    """A small UNet in f32 (TF32 off) whose level 0 runs the linear attention
+    (in `wiring`) and whose level 1 and middle run SpatialTransformers: the
+    loss and every gradient through the kernels against the plain versions,
+    swapped into the UNet module here only; then 8 AdamW steps on one fixed
+    draw."""
     from daclip_torch.models import unet as unet_mod
     from daclip_torch.models.unet import ConditionalUNet
     from daclip_torch.ops import flash_attention as fa
     from daclip_torch.ops import linear_attention as la
+    from daclip_torch.ops import pointwise as pw
     from daclip_torch.sde import IRSDE
     from daclip_torch.train.restoration import (RestorationTrainConfig, init_state, loss_fn,
                                                 make_train_step)
 
     kw = dict(nf=32, ch_mult=(1, 2), context_dim=64, use_degra_context=True,
               use_image_context=True, spatial_attn_min_level=1)
-    net = ConditionalUNet(**kw)
+    net = ConditionalUNet(**kw, **ALT_CONFIGS.get(wiring, {}))
     net.load_state_dict(seeded_state_dict(lambda: ConditionalUNet(**kw), seed=5))
     net.train()
     sde = IRSDE(max_sigma=50, T=100)
@@ -563,19 +936,21 @@ def run_train_check():
         return loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()
                              if p.grad is not None}
 
-    counters = (la.attn_wrap, la.attn_wrap_bwd, fa.flash_self_attention,
-                fa.flash_self_attention_bwd)
-    for c in counters:
-        c.launches = 0
+    reset_counts()
     loss_k, g_k = grads()
-    calls = [c.launches for c in counters]
-    saved = unet_mod.attn_wrap, unet_mod.flash_self_attention
-    unet_mod.attn_wrap, unet_mod.flash_self_attention = (la.attn_wrap_reference,
-                                                         fa.attention_reference)
+    calls = {k: read_counts()[k] for k in TRAIN_KERNELS[wiring]}
+    plain = dict(attn_wrap=la.attn_wrap_reference, flash_self_attention=fa.attention_reference,
+                 linear_attention_fused=la.fused_composition_reference,
+                 attn_wrap_fused=la.attn_wrap_reference,
+                 dual_conv1x1=pw.dual_conv1x1_reference)
+    saved = {name: getattr(unet_mod, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(unet_mod, name, fn)
     try:
         loss_p, g_p = grads()
     finally:
-        unet_mod.attn_wrap, unet_mod.flash_self_attention = saved
+        for name, fn in saved.items():
+            setattr(unet_mod, name, fn)
     check(set(g_k) == set(g_p), "kernel and plain runs give gradients to different tensors")
     errs = {k: rel_err(g_k[k], g_p[k]) for k in g_p if float(g_p[k].abs().max()) > 0}
     worst = max(errs, key=errs.get)
@@ -585,13 +960,12 @@ def run_train_check():
         state, m = step(state, dict(LQ=lq, GT=gt, text_context=tctx, image_context=ictx),
                         torch.Generator(device="cuda").manual_seed(7))
         losses.append(float(m["loss"]))
-    row = dict(phase="train_check", unet=kw, loss_kernels=loss_k, loss_plain=loss_p,
-               tensors=len(errs), worst_tensor=worst, worst_rel_err=errs[worst],
-               limit=TRAIN_CHECK_LIMIT,
-               calls=dict(zip(("wrap", "wrap_bwd", "flash", "flash_bwd"), calls)),
+    row = dict(phase="train_check", wiring=wiring, unet=kw, loss_kernels=loss_k,
+               loss_plain=loss_p, tensors=len(errs), worst_tensor=worst,
+               worst_rel_err=errs[worst], limit=TRAIN_CHECK_LIMIT, calls=calls,
                adamw_losses=losses)
     emit(**row)
-    check(all(c > 0 for c in calls), f"train_check did not run every kernel: {calls}")
+    check(all(c > 0 for c in calls.values()), f"train_check did not run every kernel: {calls}")
     check(abs(loss_k - loss_p) <= TRAIN_CHECK_LIMIT * abs(loss_p), "train_check loss differs")
     check(errs[worst] <= TRAIN_CHECK_LIMIT, f"train_check gradient of {worst}: {errs[worst]}")
     check(np.isfinite(losses).all() and losses[-1] < losses[0],
@@ -599,18 +973,17 @@ def run_train_check():
 
 
 # -- phase 8 -------------------------------------------------------------------
-def run_train(steps=5, warmup=2):
+def run_train(steps=5, warmup=2, wiring="v5"):
     """The production training step at full width, as the JAX CLI composes it
     (cli/train_restoration.py:156-260): seeded UNet and DaCLIP weights,
-    seeded 16 × 256² LQ/GT batches and their 224² CLIP views."""
+    seeded 16 × 256² LQ/GT batches and their 224² CLIP views; the UNet in
+    `wiring`. In the default wiring a checkpoint of the result restores."""
     import gc
     import tempfile
 
     from daclip_torch.convert import load_torch_state_dict
     from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
     from daclip_torch.models.unet import ConditionalUNet
-    from daclip_torch.ops import flash_attention as fa
-    from daclip_torch.ops import linear_attention as la
     from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
     from daclip_torch.sde import IRSDE
     from daclip_torch.train.restoration import (RestorationTrainConfig, init_state,
@@ -623,7 +996,8 @@ def run_train(steps=5, warmup=2):
     B, P = 16, 256
     kw = dict(nf=64, ch_mult=(1, 2, 4, 8), context_dim=512, use_degra_context=True,
               use_image_context=True)
-    unet = ConditionalUNet(dtype=torch.bfloat16, remat=P >= 256, **kw)
+    unet = ConditionalUNet(dtype=torch.bfloat16, remat=P >= 256, **kw,
+                           **ALT_CONFIGS.get(wiring, {}))
     unet.load_state_dict(seeded_state_dict(lambda: ConditionalUNet(**kw), seed=11))
     unet.train()
     clip_cfg = CLIPCfg.from_dict(get_model_config("daclip_ViT-B-32"))
@@ -650,39 +1024,44 @@ def run_train(steps=5, warmup=2):
         batch = dict(LQ=lq, GT=gt, text_context=degra_f.float(), image_context=img_f.float())
         return train_step(state, batch, gen)
 
-    counters = (la.attn_wrap, la.attn_wrap_bwd, fa.flash_self_attention,
-                fa.flash_self_attention_bwd)
-    want_calls = [12, 6, 6, 3] if unet.remat else [6, 6, 3, 3]
+    fwd = 2 if unet.remat else 1  # remat runs each checkpointed forward twice
+    want_calls = dict(zip(TRAIN_KERNELS[wiring], {
+        "v5": (6 * fwd, 6, 3 * fwd, 3),
+        "v4_pointwise": (6 * fwd, 9 * fwd, 3 * fwd, 3)}[wiring]))
     for _ in range(warmup):
         full_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    records, totals = [], [0, 0, 0, 0]
+    records, totals = [], {}
     for i in range(steps):
-        for c in counters:
-            c.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         _, m = full_step()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        calls = [c.launches for c in counters]
-        totals = [a + b for a, b in zip(totals, calls)]
+        calls = {k: v for k, v in read_counts().items() if v}
+        for k, v in calls.items():
+            totals[k] = totals.get(k, 0) + v
         rec = dict(step=state.step, ms=ms, loss=float(m["loss"]),
                    grad_norm=float(m["grad_norm"]), lr=m["lr"], calls=calls)
         records.append(rec)
-        emit(phase="train_step", **rec)
+        emit(phase="train_step", wiring=wiring, **rec)
         check(np.isfinite([rec["loss"], rec["grad_norm"]]).all(), f"step {i} not finite")
-        check(calls == want_calls, f"step {i}: kernel calls {calls} (wrap, wrap_bwd, flash, "
-              f"flash_bwd), expected {want_calls} with remat={unet.remat}")
+        check(calls == want_calls, f"step {i}: kernel calls {calls}, expected {want_calls} "
+              f"with remat={unet.remat}")
     step_ms = float(np.median([r["ms"] for r in records]))
-    row = dict(phase="train", config=dict(B=B, patch=P, remat=unet.remat, dtype="bfloat16",
-                                          optimizer=cfg.optimizer, lr=cfg.lr_G, **kw),
+    row = dict(phase="train" if wiring == "v5" else "train_alt", wiring=wiring,
+               config=dict(B=B, patch=P, remat=unet.remat, dtype="bfloat16",
+                           optimizer=cfg.optimizer, lr=cfg.lr_G, **kw,
+                           **ALT_CONFIGS.get(wiring, {})),
                unet_params=sum(p.numel() for p in unet.parameters()),
                ms_per_step=[r["ms"] for r in records], median_ms_per_step=step_ms,
                samples_per_s=B * 1e3 / step_ms,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
-               calls_per_step=dict(zip(("wrap", "wrap_bwd", "flash", "flash_bwd"), want_calls)),
-               ema_step=state.ema.step)
+               calls_per_step=want_calls, ema_step=state.ema.step)
+    if wiring != "v5":
+        emit(**row)
+        return full_step, step_ms, totals
 
     with tempfile.TemporaryDirectory() as d:
         path = save_checkpoint(d, unet, state)
@@ -699,7 +1078,7 @@ def run_train(steps=5, warmup=2):
 
 
 # -- phase 9 -------------------------------------------------------------------
-def run_profile_train(full_step, step_ms):
+def run_profile_train(full_step, step_ms, wiring="v5"):
     """Where one full-width training step's device time goes (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -714,7 +1093,8 @@ def run_profile_train(full_step, step_ms):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     kernel_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    emit(phase="profile_train", what="one training step, B=16, 256x256, bf16, remat",
+    emit(phase="profile_train", wiring=wiring,
+         what="one training step, B=16, 256x256, bf16, remat",
          wall_ms_per_step_unprofiled=step_ms,
          device_kernel_ms_per_step=kernel_ms if launches else None,
          device_busy_share=kernel_ms / step_ms if launches else None,
@@ -747,46 +1127,65 @@ def main():
          ptxas=ptxas_summary(log.read_text() if log.exists() else ""))
 
     rows = run_kernels()
+    alt_rows, core_path = run_kernels_alt()
+    rows.update(alt_rows)
     run_fixture()
-    restorer, serve_totals = run_serve()
+    restorer, serve_totals, sds = run_serve()
     run_profile(restorer)
-    del restorer
+    serve_alt_totals = run_serve_alt(restorer, sds)
+    del restorer, sds
     rows.update(run_kernels_bwd())
-    run_train_check()
+    for wiring in TRAIN_KERNELS:
+        run_train_check(wiring)
     full_step, step_ms, train_totals = run_train()
     run_profile_train(full_step, step_ms)
     del full_step
+    full_step, step_ms, train_alt_totals = run_train(steps=3, wiring="v4_pointwise")
+    run_profile_train(full_step, step_ms, wiring="v4_pointwise")
+    del full_step
 
-    # launches on each main path: serve (the four requests) and train (the
-    # five timed steps), each counted from 0 just before its run
-    by_path = {"wrap": dict(serve=serve_totals["wrap"], train=train_totals[0]),
-               "flash": dict(serve=serve_totals["flash"], train=train_totals[2]),
-               "wrap_bwd": dict(train=train_totals[1]),
-               "flash_bwd": dict(train=train_totals[3])}
+    # launches on each main path, each counted from 0 just before its run:
+    # serve (the four requests), serve_alt (two requests per other wiring),
+    # train (five timed steps), train_alt (three), and for the attention core,
+    # which no model wiring calls, its path in the kernels_alt phase
+    paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, train=train_totals,
+                 train_alt=train_alt_totals, kernels=dict(core=core_path))
+    by_path = {key: {path: n[key] for path, n in paths.items() if n.get(key)}
+               for key in kernel_counters()}
     bf16 = lambda key: [x for x in rows[key] if x["dtype"] == "bfloat16"]
     abs_err = {key: max(x["max_abs_err"] for x in bf16(key)) for key in rows}
     for fwd, bwd in (("wrap", "wrap_bwd"), ("flash", "flash_bwd")):
         # the forward also as training calls it, checked in kernels_bwd
         abs_err[fwd] = max(abs_err[fwd], *(x["forward"]["max_abs_err"] for x in bf16(bwd)))
     summary = []
+    la_py, la_cu = "daclip_tpu/ops/linear_attention.py", "daclip_torch/csrc/linear_attention.cu"
     for key, name_, src, replaces, pick in (
-            ("wrap", "attn_wrap", "daclip_torch/csrc/linear_attention.cu",
-             "daclip_tpu/ops/linear_attention.py:491", 0),
+            ("wrap", "attn_wrap", la_cu, f"{la_py}:491", 0),
             ("flash", "flash_self_attention", "daclip_torch/csrc/flash_attention.cu",
              "daclip_tpu/ops/flash_attention.py:68", 1),
             ("wrap_bwd", "attn_wrap_bwd", "daclip_torch/csrc/linear_attention_bwd.cu",
-             "daclip_tpu/ops/linear_attention.py:885", 0),
+             f"{la_py}:885", 0),
             ("flash_bwd", "flash_self_attention_bwd",
              "daclip_torch/csrc/flash_attention_bwd.cu",
-             "daclip_tpu/ops/flash_attention.py:199", 1)):
-        r = rows[key][pick]  # the largest site of its path
+             "daclip_tpu/ops/flash_attention.py:199", 1),
+            ("fused_v4", "linear_attention_fused", la_cu, f"{la_py}:310", 0),
+            ("wrap_fused", "attn_wrap_fused", la_cu, f"{la_py}:199", 0),
+            ("core", "linear_attention", la_cu, f"{la_py}:91", 0),
+            ("dual", "dual_conv1x1", "daclip_torch/csrc/pointwise.cu",
+             "daclip_tpu/ops/pointwise.py:121", 7)):
+        r = rows[key][pick]  # the largest site of its path (dual: the single form)
         entry = dict(name=name_, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path[key].values()), launches_by_path=by_path[key],
                      shape=r["shape"], max_abs_err=abs_err[key])
         if "bwd" in key:
             entry.update(max_rel_err=max(x["max_rel_err"] for x in bf16(key)),
                          rel_err_is="max over gradients of max |kernel - plain| / max |plain|")
-        summary.append(dict(entry, ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+        elif key in ("core", "dual"):
+            entry.update(max_rel_err=max(x["max_rel_err"] for x in bf16(key)),
+                         rel_err_is="max |kernel - plain| / max |plain|")
+        check(entry["launches"] > 0, f"{name_} was launched no time on its path")
+        summary.append(dict(entry, ms=r["kernel_ms"], device_ms=r.get("device_ms"),
+                            plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
     print(json.dumps({"kernels": summary}), flush=True)

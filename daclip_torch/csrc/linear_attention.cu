@@ -34,6 +34,27 @@
 //           underflow a head), ·W, ·W_out + b_out, LN, + x.
 // x is read twice (stats, apply) and written once; the (n, 384) qkv and the
 // (n, 128) attention never leave shared memory.
+//
+// The same three launches, templated on the input form (raw x with the
+// prenorm, normalised xn, or a precomputed qkv) and on the residual, also
+// replace the three other TPU kernels of this math:
+//   daclip_linattn_fused_v4  `linear_attention_fused_v4` (:310; `_kernel_stats`
+//       :246, `_kernel_apply` :282, W finalised in XLA between them at
+//       :345-349, here by the combine launch): xn in, no prenorm, no residual;
+//   `linear_attention_fused_pallas` (:199; `_kernel_fused` :119): the TPU
+//       ran stats and output as two phases of one in-order grid; its function
+//       is the v5 wrap's with prenorm and residual on and v4's with both off,
+//       so its wrapper calls daclip_wrap_* or daclip_linattn_fused_v4;
+//   daclip_linattn_core      `linear_attention_pallas` (:91; `_kernel` :34):
+//       qkv (n, 384) in, the 128-wide attention out, before to_out; k and v
+//       are read, not projected, and the apply launch ends after ·W.
+// Each takes the reference's per-pixel, per-head q-softmax max, where the
+// three TPU kernels take one max over the whole block (:80, :177, :292). The
+// rounding points are the reference composition's in T (for f32 inputs the
+// TPU kernels round p, v, q_soft and W to bf16 whatever the input type).
+// Bounds at the path's shapes: as the wrap's, bound by operations in this
+// first version's scalar-FMA products (≥80 µs at n=65536, C=64); the core
+// moves (n·384 + n·128)·2 bytes and does 2·n·(128·32·2) FLOP, bytes-bound.
 #include "common.cuh"
 
 namespace daclip {
@@ -45,15 +66,26 @@ constexpr int TILE = 64;     // rows per tile
 constexpr int NT = 256;      // threads per CTA (8 warps)
 constexpr float LN_EPS = 1e-5f;
 
-// Load a tile of rows [t0, t0+valid) of x (row stride C) into xs as f32 and
-// apply the prenorm ChannelLN·g, rounded to T. Rows past `valid` are zero.
-template <typename T>
-__device__ void load_ln_tile(const T* __restrict__ xb, int t0, int valid, int C,
-                             const T* __restrict__ g, float* xs) {
+// Input forms of the forward launches.
+enum Form : int {
+  RAW_X = 0,  // raw x (n, C): ChannelLN·g_pre, then ·W_qkv (v5 wrap, v3 wrap)
+  XN = 1,     // normalised xn (n, C): ·W_qkv (v4, v3 without prenorm)
+  QKV = 2,    // qkv (n, 384) as given; the output is the 128-wide attention
+};
+
+// Load a tile of rows [t0, t0+valid) of x (row stride C) into xs as f32 and,
+// with PRENORM, apply the ChannelLN·g, rounded to T. Rows past `valid` are
+// zero.
+template <typename T, bool PRENORM>
+__device__ void load_tile(const T* __restrict__ xb, int t0, int valid, int C,
+                          const T* __restrict__ g, float* xs) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < TILE; r += NT / 32) {
     float* row = xs + r * C;
-    if (r < valid) {
+    if (r < valid && !PRENORM) {
+      const T* src = xb + (size_t)(t0 + r) * C;
+      for (int c = lane; c < C; c += 32) row[c] = to_f(src[c]);
+    } else if (r < valid) {
       const T* src = xb + (size_t)(t0 + r) * C;
       float sum = 0.f;
       for (int c = lane; c < C; c += 32) {
@@ -112,16 +144,18 @@ __device__ void gemm_tile(const float* A, int lda, int K, const T* __restrict__ 
   }
 }
 
-template <typename T>
+// x is (n, C) per batch element in the form FORM; for QKV, C is 384.
+template <typename T, int FORM>
 __global__ void __launch_bounds__(NT)
 stats_kernel(const T* __restrict__ x, const T* __restrict__ g_pre,
              const T* __restrict__ w_qkv, float* __restrict__ part_m,
              float* __restrict__ part_s, float* __restrict__ part_ctx, int n, int C,
              int rows) {
   extern __shared__ float smem[];
-  float* xs = smem;                    // [TILE][C]     xn
-  float* ws = xs + TILE * C;           // [32][256]     staged weights
-  float* kv = ws + 32 * 2 * HID;       // [TILE][256]   k | v, then p | v
+  constexpr bool PROJ = FORM != QKV;   // k, v from xn·W_qkv (else read)
+  float* xs = smem;                    // [TILE][C]     xn        (PROJ only)
+  float* ws = xs + (PROJ ? TILE * C : 0);    // [32][256] weights (PROJ only)
+  float* kv = ws + (PROJ ? 32 * 2 * HID : 0);  // [TILE][256] k | v, then p | v
   float* m_run = kv + TILE * 2 * HID;  // [128]
   float* s_run = m_run + HID;          // [128]
   float* alpha = s_run + HID;          // [128]
@@ -143,8 +177,14 @@ stats_kernel(const T* __restrict__ x, const T* __restrict__ g_pre,
 
   for (int t0 = r0; t0 < r1; t0 += TILE) {
     const int valid = min(TILE, r1 - t0);
-    load_ln_tile<T>(xb, t0, valid, C, g_pre, xs);
-    {
+    if constexpr (!PROJ) {
+      for (int e = tid; e < TILE * 2 * HID; e += NT) {
+        const int r = e / (2 * HID), col = e - r * 2 * HID;
+        kv[e] = r < valid ? to_f(xb[(size_t)(t0 + r) * C + HID + col])
+                          : (col < HID ? -INFINITY : 0.f);
+      }
+    } else {
+      load_tile<T, FORM == RAW_X>(xb, t0, valid, C, g_pre, xs);
       float acc[8][8];
       gemm_tile<T, 8>(xs, C, C, w_qkv + HID, 3 * HID, 2 * HID, ws, acc);
 #pragma unroll
@@ -242,26 +282,33 @@ combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_
   }
 }
 
-template <typename T>
+// x is (n, C) per batch element in the form FORM; for QKV, C is 384 and out
+// is the (n, 128) attention, else out is (n, C).
+template <typename T, int FORM, bool RESIDUAL>
 __global__ void __launch_bounds__(NT)
 apply_kernel(const T* __restrict__ x, const T* __restrict__ g_pre,
              const T* __restrict__ w_qkv, const float* __restrict__ w_attn,
              const T* __restrict__ w_out, const T* __restrict__ b_out,
              const T* __restrict__ g_out, T* __restrict__ out, int n, int C) {
   extern __shared__ float smem[];
-  float* xs = smem;              // [TILE][C]   xn, then y
-  float* ws = xs + TILE * C;     // [32][128]   staged weights
-  float* qs = ws + 32 * HID;     // [TILE][128] q, q_soft, then attn
-  float* wa = qs + TILE * HID;   // [4][32][32] W of this batch element
+  constexpr bool PROJ = FORM != QKV;  // q from xn·W_q, then to_out and the LN
+  float* xs = smem;                             // [TILE][C]   xn, then y (PROJ)
+  float* ws = xs + (PROJ ? TILE * C : 0);       // [32][128]   weights    (PROJ)
+  float* qs = ws + (PROJ ? 32 * HID : 0);       // [TILE][128] q, q_soft, then attn
+  float* wa = qs + TILE * HID;                  // [4][32][32] W of this batch element
 
   const int b = blockIdx.y, t0 = blockIdx.x * TILE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int valid = min(TILE, n - t0);
   const T* xb = x + (size_t)b * n * C;
   for (int e = tid; e < 4 * DH * DH; e += NT) wa[e] = w_attn[(size_t)b * 4 * DH * DH + e];
-  load_ln_tile<T>(xb, t0, valid, C, g_pre, xs);  // ends in __syncthreads
-
-  {
+  if constexpr (!PROJ) {
+    for (int e = tid; e < TILE * HID; e += NT) {
+      const int r = e / HID, c = e - r * HID;
+      qs[e] = r < valid ? to_f(xb[(size_t)(t0 + r) * C + c]) : 0.f;
+    }
+  } else {
+    load_tile<T, FORM == RAW_X>(xb, t0, valid, C, g_pre, xs);  // ends in __syncthreads
     float acc[8][4];
     gemm_tile<T, 4>(xs, C, C, w_qkv, 3 * HID, HID, ws, acc);
 #pragma unroll
@@ -293,6 +340,18 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ g_pre,
 #pragma unroll
         for (int i = 0; i < 8; ++i) at[i][h] += qs[(warp * 8 + i) * HID + h * DH + ii] * w;
       }
+    }
+    if constexpr (!PROJ) {  // the attention is the output
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = warp * 8 + i;
+        if (r < valid) {
+          T* dst = out + ((size_t)b * n + t0 + r) * HID + lane;
+#pragma unroll
+          for (int h = 0; h < 4; ++h) dst[h * DH] = from_f<T>(at[i][h]);
+        }
+      }
+      return;
     }
     __syncthreads();
 #pragma unroll
@@ -328,44 +387,79 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ g_pre,
     const float rs = 1.f / sqrtf(warp_sum(sq) / C + LN_EPS);
     const T* src = xb + (size_t)(t0 + r) * C;
     T* dst = out + (size_t)b * n * C + (size_t)(t0 + r) * C;
-    for (int c = lane; c < C; c += 32)
-      dst[c] = from_f<T>((row[c] - mean) * rs * to_f(g_out[c]) + to_f(src[c]));
+    if constexpr (RESIDUAL) {
+      for (int c = lane; c < C; c += 32)
+        dst[c] = from_f<T>((row[c] - mean) * rs * to_f(g_out[c]) + to_f(src[c]));
+    } else {
+      for (int c = lane; c < C; c += 32)
+        dst[c] = from_f<T>((row[c] - mean) * rs * to_f(g_out[c]));
+    }
   }
 }
 
-inline size_t stats_smem(int C) {
-  return (size_t)(TILE * C + 32 * 2 * HID + TILE * 2 * HID + 3 * HID) * sizeof(float);
+inline size_t stats_smem(int C, int form) {
+  const size_t proj = form == QKV ? 0 : TILE * C + 32 * 2 * HID;
+  return (proj + TILE * 2 * HID + 3 * HID) * sizeof(float);
 }
-inline size_t apply_smem(int C) {
-  return (size_t)(TILE * C + 32 * HID + TILE * HID + 4 * DH * DH) * sizeof(float);
+inline size_t apply_smem(int C, int form) {
+  const size_t proj = form == QKV ? 0 : TILE * C + 32 * HID;
+  return (proj + TILE * HID + 4 * DH * DH) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, int FORM>
 int launch_stats(const void* x, const void* g, const void* w, void* pm, void* ps,
                  void* pc, int B, int n, int C, int rows, cudaStream_t st) {
-  const size_t smem = stats_smem(C);
-  cudaError_t err = cudaFuncSetAttribute(stats_kernel<T>,
+  const size_t smem = stats_smem(C, FORM);
+  cudaError_t err = cudaFuncSetAttribute(stats_kernel<T, FORM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + rows - 1) / rows, B);
-  stats_kernel<T><<<grid, NT, smem, st>>>((const T*)x, (const T*)g, (const T*)w, (float*)pm,
-                                          (float*)ps, (float*)pc, n, C, rows);
+  stats_kernel<T, FORM><<<grid, NT, smem, st>>>((const T*)x, (const T*)g, (const T*)w,
+                                                (float*)pm, (float*)ps, (float*)pc, n, C,
+                                                rows);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
+int launch_combine(const void* pm, const void* ps, const void* pc, void* w_attn, void* ctx_out,
+                   void* s_out, void* m_out, int B, int nparts, int n, cudaStream_t st) {
+  combine_kernel<T><<<dim3(HID, B), 32, 0, st>>>((const float*)pm, (const float*)ps,
+                                                 (const float*)pc, (float*)w_attn,
+                                                 (float*)ctx_out, (float*)s_out,
+                                                 (float*)m_out, nparts, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int FORM, bool RESIDUAL>
 int launch_apply(const void* x, const void* g_pre, const void* w_qkv, const void* w_attn,
                  const void* w_out, const void* b_out, const void* g_out, void* out, int B,
                  int n, int C, cudaStream_t st) {
-  const size_t smem = apply_smem(C);
-  cudaError_t err = cudaFuncSetAttribute(apply_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = apply_smem(C, FORM);
+  auto kernel = apply_kernel<T, FORM, RESIDUAL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + TILE - 1) / TILE, B);
-  apply_kernel<T><<<grid, NT, smem, st>>>((const T*)x, (const T*)g_pre, (const T*)w_qkv,
-                                          (const float*)w_attn, (const T*)w_out,
-                                          (const T*)b_out, (const T*)g_out, (T*)out, n, C);
+  kernel<<<grid, NT, smem, st>>>((const T*)x, (const T*)g_pre, (const T*)w_qkv,
+                                 (const float*)w_attn, (const T*)w_out, (const T*)b_out,
+                                 (const T*)g_out, (T*)out, n, C);
   return (int)cudaGetLastError();
+}
+
+// stats → combine → apply on one stream, no statistics kept: the forward of
+// #5 and #7. part_* and w_attn are the caller's scratch, sized as for
+// daclip_wrap_stats with ⌈n/rows⌉ parts.
+template <typename T, int FORM, bool RESIDUAL>
+int launch_forward(const void* x, const void* g_pre, const void* w_qkv, const void* w_out,
+                   const void* b_out, const void* g_out, void* pm, void* ps, void* pc,
+                   void* w_attn, void* out, int B, int n, int C, int rows, cudaStream_t st) {
+  int err = launch_stats<T, FORM>(x, g_pre, w_qkv, pm, ps, pc, B, n, C, rows, st);
+  if (err) return err;
+  err = launch_combine<T>(pm, ps, pc, w_attn, nullptr, nullptr, nullptr, B,
+                          (n + rows - 1) / rows, n, st);
+  if (err) return err;
+  return launch_apply<T, FORM, RESIDUAL>(x, g_pre, w_qkv, w_attn, w_out, b_out, g_out, out, B,
+                                         n, C, st);
 }
 
 }  // namespace wrap
@@ -378,10 +472,10 @@ extern "C" int daclip_wrap_stats(const void* x, const void* g_pre, const void* w
                                  int C, int rows, int is_bf16, void* stream) {
   if (C % 32 || C > 512 || rows % TILE || n < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
-  return is_bf16 ? launch_stats<__nv_bfloat16>(x, g_pre, w_qkv, part_m, part_s, part_ctx, B,
-                                               n, C, rows, st)
-                 : launch_stats<float>(x, g_pre, w_qkv, part_m, part_s, part_ctx, B, n, C,
-                                       rows, st);
+  return is_bf16 ? launch_stats<__nv_bfloat16, RAW_X>(x, g_pre, w_qkv, part_m, part_s,
+                                                      part_ctx, B, n, C, rows, st)
+                 : launch_stats<float, RAW_X>(x, g_pre, w_qkv, part_m, part_s, part_ctx, B, n,
+                                              C, rows, st);
 }
 
 extern "C" int daclip_wrap_combine(const void* part_m, const void* part_s,
@@ -391,16 +485,10 @@ extern "C" int daclip_wrap_combine(const void* part_m, const void* part_s,
   if ((ctx_out == nullptr) != (s_out == nullptr) || (s_out == nullptr) != (m_out == nullptr))
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
-  dim3 grid(HID, B);
-  auto pm = (const float*)part_m, ps = (const float*)part_s, pc = (const float*)part_ctx;
-  if (is_bf16)
-    combine_kernel<__nv_bfloat16><<<grid, 32, 0, st>>>(pm, ps, pc, (float*)w_attn,
-                                                       (float*)ctx_out, (float*)s_out,
-                                                       (float*)m_out, nparts, n);
-  else
-    combine_kernel<float><<<grid, 32, 0, st>>>(pm, ps, pc, (float*)w_attn, (float*)ctx_out,
-                                               (float*)s_out, (float*)m_out, nparts, n);
-  return (int)cudaGetLastError();
+  return is_bf16 ? launch_combine<__nv_bfloat16>(part_m, part_s, part_ctx, w_attn, ctx_out,
+                                                 s_out, m_out, B, nparts, n, st)
+                 : launch_combine<float>(part_m, part_s, part_ctx, w_attn, ctx_out, s_out,
+                                         m_out, B, nparts, n, st);
 }
 
 extern "C" int daclip_wrap_apply(const void* x, const void* g_pre, const void* w_qkv,
@@ -409,8 +497,38 @@ extern "C" int daclip_wrap_apply(const void* x, const void* g_pre, const void* w
                                  int is_bf16, void* stream) {
   if (C % 32 || C > 512 || n < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
-  return is_bf16 ? launch_apply<__nv_bfloat16>(x, g_pre, w_qkv, w_attn, w_out, b_out, g_out,
-                                               out, B, n, C, st)
-                 : launch_apply<float>(x, g_pre, w_qkv, w_attn, w_out, b_out, g_out, out, B,
-                                       n, C, st);
+  return is_bf16 ? launch_apply<__nv_bfloat16, RAW_X, true>(x, g_pre, w_qkv, w_attn, w_out,
+                                                            b_out, g_out, out, B, n, C, st)
+                 : launch_apply<float, RAW_X, true>(x, g_pre, w_qkv, w_attn, w_out, b_out,
+                                                    g_out, out, B, n, C, st);
+}
+
+// #5, linear_attention_fused_v4: xn (B, n, C) → ChannelLN(attn(xn)·W_out + b)·g
+extern "C" int daclip_linattn_fused_v4(const void* xn, const void* w_qkv, const void* w_out,
+                                       const void* b_out, const void* g_out, void* part_m,
+                                       void* part_s, void* part_ctx, void* w_attn, void* out,
+                                       int B, int n, int C, int rows, int is_bf16,
+                                       void* stream) {
+  if (C % 32 || C > 512 || rows % TILE || n < 1) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  return is_bf16 ? launch_forward<__nv_bfloat16, XN, false>(
+                       xn, nullptr, w_qkv, w_out, b_out, g_out, part_m, part_s, part_ctx,
+                       w_attn, out, B, n, C, rows, st)
+                 : launch_forward<float, XN, false>(xn, nullptr, w_qkv, w_out, b_out, g_out,
+                                                    part_m, part_s, part_ctx, w_attn, out, B,
+                                                    n, C, rows, st);
+}
+
+// #7, linear_attention_pallas: qkv (B, n, 384) → the attention (B, n, 128)
+extern "C" int daclip_linattn_core(const void* qkv, void* part_m, void* part_s, void* part_ctx,
+                                   void* w_attn, void* out, int B, int n, int rows,
+                                   int is_bf16, void* stream) {
+  if (rows % TILE || n < 1) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  return is_bf16 ? launch_forward<__nv_bfloat16, QKV, false>(
+                       qkv, nullptr, nullptr, nullptr, nullptr, nullptr, part_m, part_s,
+                       part_ctx, w_attn, out, B, n, 3 * HID, rows, st)
+                 : launch_forward<float, QKV, false>(qkv, nullptr, nullptr, nullptr, nullptr,
+                                                     nullptr, part_m, part_s, part_ctx, w_attn,
+                                                     out, B, n, 3 * HID, rows, st);
 }

@@ -19,6 +19,15 @@ self-attention; both are differentiable (kernel backwards on the card). The
 single-token image-context cross-attention reduces exactly to `to_out(v)`
 (softmax over one key is 1), so its `to_q`/`to_k` get no gradient.
 
+The JAX UNet's other kernel wirings are arguments here (their environment
+variables set `pipeline.RestorerConfig`'s defaults, `daclip_torch/flags.py`):
+`linear_attention="v4"` runs the prenorm in PyTorch, then
+`linear_attention_fused`, then the residual (`DACLIP_TPU_V5_WRAP=0`);
+`"v3"` runs `attn_wrap_fused` (`V3_WRAP=1`); `pointwise=True` runs each
+ResBlock's res_conv with out channels ≤ `pointwise_max_out` through the
+`dual_conv1x1` kernel (`POINTWISE=1`, `POINTWISE_MAXO`). The parameters and
+their names are the same in every wiring, so one checkpoint loads into all.
+
 `remat=True` recomputes each ResBlock's and AttnWrap's activations in the
 backward pass (`torch.utils.checkpoint`, as the JAX UNet's `nn.remat`).
 """
@@ -34,7 +43,11 @@ from torch.utils.checkpoint import checkpoint
 
 from daclip_torch.models.layers import Conv2d, GroupNorm, LayerNorm, Linear
 from daclip_torch.ops.flash_attention import attention_reference, flash_self_attention
-from daclip_torch.ops.linear_attention import attn_wrap
+from daclip_torch.ops.linear_attention import (_channel_ln, attn_wrap, attn_wrap_fused,
+                                               linear_attention_fused)
+from daclip_torch.ops.pointwise import dual_conv1x1
+
+LINEAR_ATTENTION = ("v5", "v4", "v3")
 
 
 def _tokens(x):
@@ -47,6 +60,22 @@ def _from_tokens(t, H: int, W: int):
     """(B, H·W, C) → NCHW view with channels_last strides."""
     B, _, C = t.shape
     return t.reshape(B, H, W, C).permute(0, 3, 1, 2)
+
+
+def _kernel_layout(module: nn.Module, params, dtype: torch.dtype, layout):
+    """`layout()`: copies of `params` in a kernel's layout and `dtype`. When
+    grad is on and a parameter requires it, they are made under autograd on
+    every call, so the gradients flow back to the f32 parameters. Otherwise
+    (serving) they are made once per set of parameter values and kept on
+    `module`: a load, an in-place update or a move of the parameters makes
+    them anew."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return layout()
+    key = (dtype,) + tuple((p.data_ptr(), p._version, p.device, p.dtype) for p in params)
+    if module._layout[0] != key:
+        with torch.no_grad():
+            module._layout = (key, layout())
+    return module._layout[1]
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -96,21 +125,35 @@ class Block(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """Time-conditioned double conv with a residual (module_util.py:132-153)."""
+    """Time-conditioned double conv with a residual (module_util.py:132-153).
+    With `pointwise` the 1×1 res_conv runs through the `dual_conv1x1` kernel
+    (JAX's `Conv1x1Pair` under DACLIP_TPU_POINTWISE=1, unet.py:222-247)."""
 
-    def __init__(self, dim: int, dim_out: int, time_emb_dim: int):
+    def __init__(self, dim: int, dim_out: int, time_emb_dim: int, pointwise: bool = False):
         super().__init__()
         self.mlp = nn.Sequential(nn.SiLU(), Linear(time_emb_dim, dim_out * 2))
         self.block1 = Block(dim, dim_out)
         self.block2 = Block(dim_out, dim_out)
         self.res_conv = (Conv2d(dim, dim_out, 1, bias=False) if dim != dim_out
                          else nn.Identity())
+        self.pointwise = pointwise and dim != dim_out
+        self._layout = (None, None)  # (key, weight) of _kernel_layout
+
+    def _res(self, x):
+        if not self.pointwise:
+            return self.res_conv(x)
+        B, C, H, W = x.shape
+        w = self.res_conv.weight
+        wt = _kernel_layout(self, (w,), x.dtype,
+                            lambda: w.reshape(w.shape[0], C).t().to(x.dtype).contiguous())
+        y = dual_conv1x1(_tokens(x).reshape(B * H * W, C).contiguous(), None, wt)
+        return _from_tokens(y.reshape(B, H * W, -1), H, W)
 
     def forward(self, x, time_emb):
         h = self.mlp(time_emb)[:, :, None, None]
         h = self.block1(x, h.chunk(2, dim=1))
         h = self.block2(h)
-        return h + self.res_conv(x)
+        return h + self._res(x)
 
 
 class LinearAttention(nn.Module):
@@ -227,22 +270,23 @@ class PreNorm(nn.Module):
 
 class AttnWrap(nn.Module):
     """Residual(PreNorm(dim, attn)) (module_util.py:27-33, 89-97). With
-    LinearAttention the whole wrap is one `attn_wrap` call on the raw x."""
+    LinearAttention the wrap takes the route of `linear_attention`
+    (daclip_tpu/models/unet.py:296-316, 455): "v5" one `attn_wrap` call on
+    the raw x; "v4" the prenorm here, `linear_attention_fused`, then + x;
+    "v3" one `attn_wrap_fused` call."""
 
-    def __init__(self, dim: int, use_spatial: bool, heads: int, context_dim=None):
+    def __init__(self, dim: int, use_spatial: bool, heads: int, context_dim=None,
+                 linear_attention: str = "v5"):
         super().__init__()
         fn = (SpatialTransformer(dim, heads, 32, context_dim=context_dim)
               if use_spatial else LinearAttention(dim))
         self.fn = PreNorm(dim, fn)
-        self._wrap_weights = (None, None)  # (key, weights) of _kernel_weights
+        self.linear_attention = linear_attention
+        self._layout = (None, None)  # (key, weights) of _kernel_layout
 
     def _kernel_weights(self, dtype: torch.dtype):
-        """g_pre, w_qkv (C, 384), w_out (128, C), b_out, g_out in the kernel's
-        layout and `dtype`. When grad is on and a parameter requires it, they
-        are made under autograd on every call, so the gradients flow back to
-        the f32 parameters. Otherwise (serving) they are made once per set of
-        parameter values: a load, an in-place update or a move of the
-        parameters makes them anew."""
+        """g_pre, w_qkv (C, 384), w_out (128, C), b_out, g_out in the kernels'
+        layout and `dtype` (`_kernel_layout`), for every route."""
         attn = self.fn.fn
         out_conv, out_norm = attn.to_out[0], attn.to_out[1]
         params = (self.fn.norm.g, attn.to_qkv.weight, out_conv.weight, out_conv.bias,
@@ -255,20 +299,22 @@ class AttnWrap(nn.Module):
                        w_out.reshape(C, -1).t(), b_out, g_out.reshape(C))
             return tuple(w.to(dtype).contiguous() for w in weights)
 
-        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-            return layout()
-        key = (dtype,) + tuple((p.data_ptr(), p._version, p.device, p.dtype) for p in params)
-        if self._wrap_weights[0] != key:
-            with torch.no_grad():
-                self._wrap_weights = (key, layout())
-        return self._wrap_weights[1]
+        return _kernel_layout(self, params, dtype, layout)
 
     def forward(self, x, context=None):
         attn = self.fn.fn
         if isinstance(attn, SpatialTransformer):
             return attn(self.fn.norm(x), context=context) + x
         H, W = x.shape[2:]
-        y = attn_wrap(_tokens(x).contiguous(), *self._kernel_weights(x.dtype))
+        t = _tokens(x).contiguous()
+        weights = self._kernel_weights(x.dtype)
+        if self.linear_attention == "v4":
+            g_pre, *rest = weights
+            y = linear_attention_fused(_channel_ln(t, g_pre), *rest) + t
+        elif self.linear_attention == "v3":
+            y = attn_wrap_fused(t, *weights)
+        else:
+            y = attn_wrap(t, *weights)
         return _from_tokens(y, H, W)
 
 
@@ -291,14 +337,26 @@ class ConditionalUNet(nn.Module):
 
     `spatial_attn_min_level`: levels i ≥ this use a SpatialTransformer instead
     of LinearAttention when the image context is on (daclip-sde: 3;
-    wild-ir: depth−1). `scale=0.5` is wild-ir's internal down/upsample."""
+    wild-ir: depth−1). `scale=0.5` is wild-ir's internal down/upsample.
+    `linear_attention` ("v5", "v4" or "v3") picks the LinearAttention sites'
+    kernel route; `pointwise` runs the res_convs with at most
+    `pointwise_max_out` out channels (None: every one) through the dual 1×1
+    kernel."""
 
     def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64,
                  ch_mult: Sequence[int] = (1, 2, 4, 8), context_dim: Optional[int] = 512,
                  use_degra_context: bool = True, use_image_context: bool = False,
                  scale: float = 1.0, spatial_attn_min_level: int = 3,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 linear_attention: str = "v5", pointwise: bool = False,
+                 pointwise_max_out: Optional[int] = None):
         super().__init__()
+        if linear_attention not in LINEAR_ATTENTION:
+            raise ValueError(f"linear_attention must be one of {LINEAR_ATTENTION}, "
+                             f"got {linear_attention!r}")
+        def res(dim, out):
+            pw = pointwise and (pointwise_max_out is None or out <= pointwise_max_out)
+            return ResBlock(dim, out, time_dim, pointwise=pw)
         self.depth = depth = len(ch_mult)
         self.scale = scale
         self.dtype = dtype
@@ -328,25 +386,26 @@ class ConditionalUNet(nn.Module):
             dim_in, dim_out = nf * ch[i], nf * ch[i + 1]
             spatial = use_image_context and cdim > 0 and i >= spatial_attn_min_level
             self.downs.append(nn.ModuleList([
-                ResBlock(dim_in, dim_in, time_dim),
-                ResBlock(dim_in, dim_in, time_dim),
-                AttnWrap(dim_in, spatial, dim_in // 32, cdim),
+                res(dim_in, dim_in),
+                res(dim_in, dim_in),
+                AttnWrap(dim_in, spatial, dim_in // 32, cdim, linear_attention),
                 Downsample(dim_in, dim_out) if i != depth - 1
                 else Conv2d(dim_in, dim_out, 3, padding=1, bias=False),
             ]))
             # the reference inserts at 0: ups[j] is level depth-1-j
             self.ups.insert(0, nn.ModuleList([
-                ResBlock(dim_out + dim_in, dim_out, time_dim),
-                ResBlock(dim_out + dim_in, dim_out, time_dim),
-                AttnWrap(dim_out, spatial, dim_out // 32, cdim),
+                res(dim_out + dim_in, dim_out),
+                res(dim_out + dim_in, dim_out),
+                AttnWrap(dim_out, spatial, dim_out // 32, cdim, linear_attention),
                 Upsample(dim_out, dim_in) if i != 0
                 else Conv2d(dim_out, dim_in, 3, padding=1, bias=False),
             ]))
         mid = nf * ch[-1]
-        self.mid_block1 = ResBlock(mid, mid, time_dim)
-        self.mid_attn = AttnWrap(mid, use_image_context and cdim > 0, mid // 32, cdim)
-        self.mid_block2 = ResBlock(mid, mid, time_dim)
-        self.final_res_block = ResBlock(nf * 2, nf, time_dim)
+        self.mid_block1 = res(mid, mid)
+        self.mid_attn = AttnWrap(mid, use_image_context and cdim > 0, mid // 32, cdim,
+                                 linear_attention)
+        self.mid_block2 = res(mid, mid)
+        self.final_res_block = res(nf * 2, nf)
         self.final_conv = Conv2d(nf, out_nc, 3, padding=1)
 
     def _call(self, block, *args, **kwargs):

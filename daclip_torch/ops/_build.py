@@ -47,6 +47,13 @@ SIGNATURES = {
     "daclip_wrap_bwd2": [_P] * 14 + [_I, _I, _I, _I, _I, _P],
     # a, b, part, R, K1, K2, rows_per_split, splits, is_bf16, stream
     "daclip_wrap_wgrad": [_P, _P, _P, _L, _I, _I, _L, _I, _I, _P],
+    # xn, w_qkv, w_out, b_out, g_out, part_m, part_s, part_ctx, w_attn, out,
+    # B, n, C, rows, is_bf16, stream
+    "daclip_linattn_fused_v4": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
+    # qkv, part_m, part_s, part_ctx, w_attn, out, B, n, rows, is_bf16, stream
+    "daclip_linattn_core": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # x, skip|null, w, y, R, Kx, Ks, O, is_bf16, stream
+    "daclip_dual_conv1x1": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # q, k, v, out, lse|null, B, N, H, D, scale, is_bf16, stream
     "daclip_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, dout, lse, dsum, dq, dk, dv, B, N, H, D, scale, is_bf16, stream

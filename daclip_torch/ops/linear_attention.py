@@ -1,5 +1,5 @@
 """Residual(PreNorm(LinearAttention)) of the ConditionalUNet: the CUDA kernel
-wrappers, their plain PyTorch versions and the autograd Function over them.
+wrappers, their plain PyTorch versions and the autograd Functions over them.
 
 `attn_wrap` is the port of the Pallas TPU kernel `attn_wrap_v5`
 (daclip_tpu/ops/linear_attention.py:491), `attn_wrap_bwd` of its VJP
@@ -12,6 +12,24 @@ launches) or raises; on a CPU tensor each runs its plain version:
 the hand-derived VJP `_wrap_v5_bwd_manual` (:616-687). `attn_wrap` is
 differentiable on both devices through `_AttnWrapFn`, whose forward on the
 card also keeps the combined (ctx, s, m) that the backward kernel needs.
+
+The UNet's other wirings of the same math (`ConditionalUNet(linear_attention=
+"v4" | "v3")`) and the attention core have their own entry points, each a
+port of one more TPU kernel and each launching the same stats / combine /
+apply kernels of `csrc/linear_attention.cu` in another template:
+- `linear_attention_fused(xn, …)` ← `linear_attention_fused_v4` (:310): on a
+  normalised xn, no prenorm and no residual; plain version
+  `fused_composition_reference` (`_fused_composition_reference`, :1032);
+- `attn_wrap_fused(x, g_pre, …, prenorm_residual)` ←
+  `linear_attention_fused_pallas` (:199), as `attn_wrap_fused` (:1080) calls
+  it; with prenorm_residual the function of `attn_wrap`, else that of
+  `linear_attention_fused`;
+- `linear_attention(qkv)` ← `linear_attention_pallas` (:91): the core alone,
+  qkv (B, n, 384) → (B, n, 128), forward only.
+The first two are differentiable through `_RecomputeFn`: their backward
+recomputes the plain composition from the saved inputs and takes its VJP, as
+JAX's `_fused_bwd` (:1060) and `_wrap_bwd` (:1098) do; nothing of the forward
+is kept.
 
 Layout: x is (B, n, C), pixels flattened, channels last — the free view of a
 channels_last NCHW activation.
@@ -60,13 +78,18 @@ def linear_attention_reference(qkv: torch.Tensor, heads: int = HEADS,
     return torch.einsum("bnx,bxy->bny", q_soft, w)
 
 
-def attn_wrap_reference(x, g_pre, w_qkv, w_out, b_out, g_out):
-    """x + ChannelLN(LinearAttention(ChannelLN(x)·g_pre))·g_out, plain PyTorch."""
-    xn = _channel_ln(x, g_pre)
+def fused_composition_reference(xn, w_qkv, w_out, b_out, g_out):
+    """ChannelLN(LinearAttention(xn)·w_out + b_out)·g_out on a normalised xn,
+    plain PyTorch (`_fused_composition_reference`)."""
     qkv = torch.einsum("bnc,cd->bnd", xn, w_qkv)
     attn = linear_attention_reference(qkv)
     y = torch.einsum("bnh,hc->bnc", attn, w_out) + b_out
-    return x + _channel_ln(y, g_out)
+    return _channel_ln(y, g_out)
+
+
+def attn_wrap_reference(x, g_pre, w_qkv, w_out, b_out, g_out):
+    """x + ChannelLN(LinearAttention(ChannelLN(x)·g_pre))·g_out, plain PyTorch."""
+    return x + fused_composition_reference(_channel_ln(x, g_pre), w_qkv, w_out, b_out, g_out)
 
 
 def _ln_parts(t):
@@ -146,41 +169,58 @@ def _rows_per_part(B: int, n: int) -> int:
     return _TILE * max(1, math.ceil(math.ceil(n / parts) / _TILE))
 
 
-def _check(x, g_pre, w_qkv, w_out, b_out, g_out):
+def _check(x, g_pre, w_qkv, w_out, b_out, g_out, name="attn_wrap"):
+    """Raise on what the kernels do not take; g_pre None where it is unread."""
     if x.dim() != 3:
-        raise ValueError(f"attn_wrap takes x as (B, n, C), got {tuple(x.shape)}")
+        raise ValueError(f"{name} takes x as (B, n, C), got {tuple(x.shape)}")
     B, n, C = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"attn_wrap takes bfloat16 or float32, got {x.dtype}")
+        raise TypeError(f"{name} takes bfloat16 or float32, got {x.dtype}")
     if C % 32 or not 32 <= C <= 512 or n < 1 or not 1 <= B <= 65535:
-        raise ValueError(f"attn_wrap kernel takes C a multiple of 32 up to 512, "
+        raise ValueError(f"{name} kernel takes C a multiple of 32 up to 512, "
                          f"n >= 1, 1 <= B <= 65535; got (B, n, C) = {(B, n, C)}")
     want = {"g_pre": (C,), "w_qkv": (C, 3 * HID), "w_out": (HID, C),
             "b_out": (C,), "g_out": (C,)}
-    for name, t in zip(want, (g_pre, w_qkv, w_out, b_out, g_out)):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"attn_wrap: {name} has shape {tuple(t.shape)}, "
-                             f"expected {want[name]}")
-    for t in (x, g_pre, w_qkv, w_out, b_out, g_out):
+    operands = dict(zip(want, (g_pre, w_qkv, w_out, b_out, g_out)))
+    for key, t in operands.items():
+        if t is not None and tuple(t.shape) != want[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {want[key]}")
+    for t in (x, *operands.values()):
+        if t is None:
+            continue
         if t.device != x.device or t.dtype != x.dtype:
-            raise ValueError("attn_wrap: every operand must share x's device and dtype")
+            raise ValueError(f"{name}: every operand must share x's device and dtype")
         if not t.is_contiguous():
-            raise ValueError("attn_wrap: operands must be contiguous")
+            raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _forward_kernel(x, g_pre, w_qkv, w_out, b_out, g_out, keep_stats: bool):
-    """The forward kernel's three launches. With keep_stats also the combined
-    statistics the backward needs: (w_attn, ctx, s, m), each f32."""
-    _check(x, g_pre, w_qkv, w_out, b_out, g_out)
-    lib = _build.library()
-    B, n, C = x.shape
+def _scratch(x, B, n):
+    """(rows per stats CTA, [part_m, part_s, part_ctx, w_attn]): the forward
+    kernel's f32 scratch for B batch elements of n rows on x's device."""
     rows = _rows_per_part(B, n)
     parts = math.ceil(n / rows)
     f32 = dict(dtype=torch.float32, device=x.device)
-    part_m = torch.empty((B, parts, HID), **f32)
-    part_s = torch.empty((B, parts, HID), **f32)
-    part_ctx = torch.empty((B, parts, HEADS, DIM_HEAD, DIM_HEAD), **f32)
-    w_attn = torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), **f32)
+    return rows, [torch.empty((B, parts, HID), **f32), torch.empty((B, parts, HID), **f32),
+                  torch.empty((B, parts, HEADS, DIM_HEAD, DIM_HEAD), **f32),
+                  torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), **f32)]
+
+
+def _ptrs(*tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _forward_kernel(x, g_pre, w_qkv, w_out, b_out, g_out, keep_stats: bool, wrapper=None):
+    """The forward kernel's three launches, counted on `wrapper` (default
+    `attn_wrap`). With keep_stats also the combined statistics the backward
+    needs: (w_attn, ctx, s, m), each f32."""
+    wrapper = wrapper or attn_wrap
+    _check(x, g_pre, w_qkv, w_out, b_out, g_out, name=wrapper.__name__)
+    lib = _build.library()
+    B, n, C = x.shape
+    rows, (part_m, part_s, part_ctx, w_attn) = _scratch(x, B, n)
+    parts = part_m.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
     stats = None
     if keep_stats:
         stats = (w_attn, torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), **f32),
@@ -203,7 +243,7 @@ def _forward_kernel(x, g_pre, w_qkv, w_out, b_out, g_out, keep_stats: bool):
             x.data_ptr(), g_pre.data_ptr(), w_qkv.data_ptr(), w_attn.data_ptr(),
             w_out.data_ptr(), b_out.data_ptr(), g_out.data_ptr(), out.data_ptr(),
             B, n, C, bf16, stream), "daclip_wrap_apply")
-    attn_wrap.launches += 1
+    wrapper.launches += 1
     return out, stats
 
 
@@ -314,5 +354,125 @@ def attn_wrap(x, g_pre, w_qkv, w_out, b_out, g_out):
     return _forward_kernel(*args, keep_stats=False)[0]
 
 
+def _dispatch(name, kernel, plain, args):
+    """The plain version on a CPU tensor, the kernel on a CUDA tensor; through
+    `_RecomputeFn` when grad is on and an operand requires it."""
+    if args[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, got {args[0].device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _RecomputeFn.apply(kernel, plain, *args)
+    return plain(*args) if args[0].device.type == "cpu" else kernel(*args)
+
+
+class _RecomputeFn(torch.autograd.Function):
+    """A forward kernel (its plain version on the CPU) whose backward
+    recomputes the plain composition from the saved inputs and takes its
+    VJP: nothing of the forward is kept."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        return plain(*args) if args[0].device.type == "cpu" else kernel(*args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        args = [a.detach().requires_grad_(need)
+                for a, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            out = ctx.plain(*args)
+        grads = iter(torch.autograd.grad(out, [a for a in args if a.requires_grad], dout))
+        return (None, None, *(next(grads) if a.requires_grad else None for a in args))
+
+
+def _fused_v4_kernel(xn, w_qkv, w_out, b_out, g_out, wrapper=None):
+    """The v4 kernel's three launches, counted on `wrapper` (default
+    `linear_attention_fused`)."""
+    wrapper = wrapper or linear_attention_fused
+    _check(xn, None, w_qkv, w_out, b_out, g_out, name=wrapper.__name__)
+    B, n, C = xn.shape
+    rows, scratch = _scratch(xn, B, n)
+    out = torch.empty_like(xn)
+    lib = _build.library()
+    with torch.cuda.device(xn.device):
+        _build.check(lib.daclip_linattn_fused_v4(
+            *_ptrs(xn, w_qkv, w_out, b_out, g_out, *scratch, out), B, n, C, rows,
+            int(xn.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream),
+            "daclip_linattn_fused_v4")
+    wrapper.launches += 1
+    return out
+
+
+def linear_attention_fused(xn, w_qkv, w_out, b_out, g_out):
+    """ChannelLN(LinearAttention(xn)·w_out + b_out)·g_out on a pre-normalised
+    xn (B, n, C): the UNet's v4 wiring, without prenorm and residual.
+
+    w_qkv (C, 384) with columns [q | k | v], w_out (128, C), b_out and g_out
+    (C,), all in xn's dtype. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises. Differentiable through
+    `_RecomputeFn`."""
+    return _dispatch("linear_attention_fused", _fused_v4_kernel, fused_composition_reference,
+                     (xn, w_qkv, w_out, b_out, g_out))
+
+
+def _wrap_fused_kernel(*args):
+    return _forward_kernel(*args, keep_stats=False, wrapper=attn_wrap_fused)[0]
+
+
+def _fused_no_prenorm_kernel(*args):
+    return _fused_v4_kernel(*args, wrapper=attn_wrap_fused)
+
+
+def attn_wrap_fused(x, g_pre, w_qkv, w_out, b_out, g_out, prenorm_residual=True):
+    """The UNet's v3 wiring of LinearAttention, in one entry point.
+
+    With prenorm_residual, x is raw and the result is the whole
+    Residual(PreNorm(LinearAttention)), the function of `attn_wrap`; without,
+    x is a normalised xn, g_pre is not read and the result is that of
+    `linear_attention_fused`. Operands as for `attn_wrap`. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises: the
+    launches of `attn_wrap`'s forward or of `linear_attention_fused`, which
+    compute the same function, counted here. Differentiable through
+    `_RecomputeFn` (the VJP of the plain composition, not the v5 backward
+    kernel)."""
+    if prenorm_residual:
+        return _dispatch("attn_wrap_fused", _wrap_fused_kernel, attn_wrap_reference,
+                         (x, g_pre, w_qkv, w_out, b_out, g_out))
+    return _dispatch("attn_wrap_fused", _fused_no_prenorm_kernel, fused_composition_reference,
+                     (x, w_qkv, w_out, b_out, g_out))
+
+
+def linear_attention(qkv):
+    """The linear-attention core alone: qkv (B, n, 384) with columns
+    [q | k | v] → (B, n, 128), before to_out. A CPU tensor takes the plain
+    version `linear_attention_reference`; a CUDA tensor launches the kernel or
+    raises. Forward only, as the TPU kernel."""
+    if qkv.device.type == "cpu":
+        return linear_attention_reference(qkv)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"linear_attention runs on cuda or cpu, got {qkv.device}")
+    if qkv.dim() != 3 or qkv.shape[-1] != 3 * HID:
+        raise ValueError(f"linear_attention takes qkv as (B, n, {3 * HID}), "
+                         f"got {tuple(qkv.shape)}")
+    B, n, _ = qkv.shape
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"linear_attention takes bfloat16 or float32, got {qkv.dtype}")
+    if n < 1 or not 1 <= B <= 65535 or not qkv.is_contiguous():
+        raise ValueError(f"linear_attention kernel takes a contiguous qkv with n >= 1 and "
+                         f"1 <= B <= 65535; got {tuple(qkv.shape)}")
+    rows, scratch = _scratch(qkv, B, n)
+    out = torch.empty((B, n, HID), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        _build.check(lib.daclip_linattn_core(
+            *_ptrs(qkv, *scratch, out), B, n, rows, int(qkv.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream), "daclip_linattn_core")
+    linear_attention.launches += 1
+    return out
+
+
 attn_wrap.launches = 0
 attn_wrap_bwd.launches = 0
+linear_attention_fused.launches = 0
+attn_wrap_fused.launches = 0
+linear_attention.launches = 0

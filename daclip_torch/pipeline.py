@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from daclip_torch import flags
 from daclip_torch.convert import infer_unet_arch, load_torch_state_dict
 from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
 from daclip_torch.models.unet import ConditionalUNet
@@ -81,6 +82,11 @@ class RestorerConfig:
     use_image_context: bool = True
     scale: float = 1.0                    # wild-ir: 0.5
     spatial_attn_min_level: int = 3
+    # the UNet's kernel wiring, defaults from the DACLIP_TPU_* variables
+    # (daclip_torch/flags.py): v5 | v4 | v3, and the dual 1×1 res_conv kernel
+    linear_attention: str = flags.LINEAR_ATTENTION
+    pointwise: bool = flags.POINTWISE
+    pointwise_max_out: Optional[int] = flags.POINTWISE_MAXO
     # SDE (options/test.yml sde)
     max_sigma: float = 50
     T: int = 100
@@ -124,7 +130,9 @@ class DACLIPRestorer:
             nf=cfg.nf, ch_mult=tuple(cfg.ch_mult), context_dim=cfg.context_dim,
             use_degra_context=cfg.use_degra_context,
             use_image_context=cfg.use_image_context, scale=cfg.scale,
-            spatial_attn_min_level=cfg.spatial_attn_min_level, dtype=dtype)
+            spatial_attn_min_level=cfg.spatial_attn_min_level, dtype=dtype,
+            linear_attention=cfg.linear_attention, pointwise=cfg.pointwise,
+            pointwise_max_out=cfg.pointwise_max_out)
         self.unet.load_state_dict(unet_sd, strict=True)
         self.unet.to(self.device).eval()
         self.daclip = None
