@@ -22,6 +22,11 @@ Phases, each printing JSON lines:
              f32 cases, with torch.matmul as the single form's yardstick;
              then linear_attention_fused and dual_conv1x1's single form at
              the (v4, pointwise) training step's shapes (B=16)
+  2c kernels_conv  conv3x3 against its plain version at the 15 shapes of the
+             production UNet's 44 3×3 stride-1 convs at 256² (B=1), the three
+             largest at B=16, a ragged and an f32 case (its path: one call at
+             each, counted), with cuDNN's conv2d on the channels_last view as
+             the yardstick (timed here only)
   3 fixture  the committed golden fixture replayed through the kernels in f32,
              in the default wiring and in (v4, pointwise) and (v3, pointwise)
   4 serve    the production restore path at full width (ViT-B-32 DaCLIP, UNet
@@ -34,8 +39,14 @@ Phases, each printing JSON lines:
              f32 forward), then two 256² requests each with their launch
              counts and a UNet forward profile each; two v5 requests before
              and two after the other wirings are the yardstick in the phase
+  4c forward_conv  one full-width bf16 v5 UNet forward with the output of
+             each of its 44 3×3 stride-1 Conv2d replaced by conv3x3's (forward
+             hooks registered here, not by the package): each site against
+             the module's own output, exactly 44 launches, the forward against
+             serve_alt's plain one (limit: 3× the v5 bf16 forward's distance
+             from its f32 forward)
   5 profile  one sampler step (a UNet forward at 256²): wall time, device
-             kernel time by name (torch.profiler)
+             kernel time by name and that of the 3×3 convs (torch.profiler)
   6 kernels_bwd  at every shape of the training step (B=16, 256²; the wrap
              also on balanced inputs), one f32 case each with TF32 off, the
              ragged wrap: the forward as training calls it (keeping the
@@ -92,7 +103,9 @@ LIMITS = {("wrap", torch.bfloat16): 0.1, ("wrap", torch.float32): 1e-3,
           # relative to the output's max: the core's output is the attention
           # alone; the 1×1 rounds once to bf16 (half a step is 2^-8 of a value)
           ("core", torch.bfloat16): 2e-2, ("core", torch.float32): 1e-4,
-          ("dual", torch.bfloat16): 1e-2, ("dual", torch.float32): 1e-5}
+          ("dual", torch.bfloat16): 1e-2, ("dual", torch.float32): 1e-5,
+          # the 3×3 conv rounds once to bf16 too; the sums run in another order
+          ("conv", torch.bfloat16): 1e-2, ("conv", torch.float32): 1e-5}
 # dual_conv1x1 at the res_conv sites of the UNet at 256² (rows = H·W at B=1;
 # K = Cx + Cs: the up level's x and its skip, the final block's x and x_skip):
 # (rows, Cx, Cs, O) — up3 ×2, up2 ×2, up1 ×2, up0 ×2 and final; a ragged case
@@ -104,6 +117,20 @@ DUAL_SHAPES = [(1024, 512, 256, 512, torch.bfloat16), (4096, 256, 128, 256, torc
 # rows of the four res_conv shapes
 TRAIN_WRAP_SHAPES = [(16, n, C, dtype) for _, n, C, dtype in WRAP_SHAPES[:5]]
 TRAIN_DUAL_SHAPES = [(16 * R, cx, cs, O, dtype) for R, cx, cs, O, dtype in DUAL_SHAPES[:4]]
+# the 3×3 stride-1 convs of the production UNet (nf 64, ch_mult 1,2,4,8) at 256²:
+# (H = W, C, O), the 15 distinct shapes of its 44 sites (13 at 256², 9 at 128²,
+# 9 at 64², 13 at 32²)
+CONV_SITES = [(256, 64, 64), (256, 128, 64), (256, 64, 3),
+              (128, 64, 64), (128, 192, 128), (128, 128, 128), (128, 256, 128),
+              (64, 128, 128), (64, 384, 256), (64, 256, 256), (64, 512, 256),
+              (32, 256, 256), (32, 256, 512), (32, 512, 512), (32, 768, 512)]
+CONV_SITES_PER_FORWARD = 44
+# (B, H, W, C, O, dtype): the sites at B=1; the three largest at the training
+# batch (other grid sizes, up to 1,048,576 pixels); a ragged bf16 and an f32 case
+CONV_SHAPES = ([(1, s, s, C, O, torch.bfloat16) for s, C, O in CONV_SITES]
+               + [(16, 256, 256, 64, 64, torch.bfloat16), (16, 256, 256, 128, 64, torch.bfloat16),
+                  (16, 32, 32, 768, 512, torch.bfloat16), (2, 37, 45, 6, 72, torch.bfloat16),
+                  (2, 33, 40, 64, 48, torch.float32)])
 ALT_CONFIGS = {"v4_pointwise": dict(linear_attention="v4", pointwise=True),
                "v3_pointwise": dict(linear_attention="v3", pointwise=True),
                "v5_pointwise": dict(linear_attention="v5", pointwise=True)}
@@ -145,11 +172,12 @@ def kernel_counters():
     from daclip_torch.ops import flash_attention as fa
     from daclip_torch.ops import linear_attention as la
     from daclip_torch.ops import pointwise as pw
+    from daclip_torch.ops.conv3x3 import conv3x3
 
     return {"wrap": la.attn_wrap, "flash": fa.flash_self_attention,
             "wrap_bwd": la.attn_wrap_bwd, "flash_bwd": fa.flash_self_attention_bwd,
             "fused_v4": la.linear_attention_fused, "wrap_fused": la.attn_wrap_fused,
-            "core": la.linear_attention, "dual": pw.dual_conv1x1}
+            "core": la.linear_attention, "dual": pw.dual_conv1x1, "conv3x3": conv3x3}
 
 
 def reset_counts():
@@ -524,6 +552,52 @@ def run_kernels_alt():
     return rows, core_path
 
 
+# -- phase 2c ------------------------------------------------------------------
+def run_kernels_conv():
+    """conv3x3 against its plain version (in f32 on the same inputs) at every
+    shape of CONV_SHAPES; cuDNN's conv2d on the free channels_last NCHW view
+    of the same x, with the weight in (O, C, 3, 3), is the yardstick. Its path
+    here is the first call at each shape, counted."""
+    from daclip_torch.ops.conv3x3 import conv3x3, conv3x3_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, path = [], 0
+    for B, H, W, C, O, dtype in CONV_SHAPES:
+        x = torch.randn(B, H, W, C, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(3, 3, C, O, generator=gen, device="cuda") * (9 * C) ** -0.5).to(dtype)
+        before = conv3x3.launches
+        got = conv3x3(x, w)
+        torch.cuda.synchronize()
+        path += conv3x3.launches - before
+        want = conv3x3_reference(x.float(), w.float())
+        abs_err = float((got.float() - want).abs().max())
+        err = abs_err / float(want.abs().max())
+        limit = LIMITS[("conv", dtype)]
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib = lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1)
+        lib_err = rel_err(lib().permute(0, 2, 3, 1), want)
+        iters = 10 if B * H * W >= 2 ** 20 else 20
+        bms, by = bound_ms((B * H * W * (C + O) + 9 * C * O) * x.element_size(),
+                           2 * B * H * W * 9 * C * O, dtype)
+        row = dict(phase="kernels_conv", kernel="conv3x3", shape=[B, H, W, C, O],
+                   dtype=str(dtype).split(".")[-1], max_rel_err=err, max_abs_err=abs_err,
+                   limit=limit, kernel_ms=time_ms(lambda: conv3x3(x, w), iters=iters),
+                   device_ms=device_ms(lambda: conv3x3(x, w), "daclip::conv3x3::"),
+                   plain_ms=time_ms(lambda: conv3x3_reference(x, w), iters=iters),
+                   bound_ms=bms, bound_by=by, library_ms=time_ms(lib, iters=iters),
+                   library_max_rel_err=lib_err)
+        emit(**row)
+        rows.append(row)
+        check(torch.isfinite(got).all().item(), f"conv3x3 {B, H, W, C, O} not finite")
+        check(err <= limit, f"conv3x3 {B, H, W, C, O, dtype} rel err {err}")
+        del x, w, got, want, x_nchw, w_oihw
+    torch.cuda.empty_cache()
+    check(path == len(CONV_SHAPES), f"conv3x3 path launched {path} times, "
+          f"expected {len(CONV_SHAPES)}")
+    return {"conv3x3": rows}, path
+
+
 # -- phase 3 -------------------------------------------------------------------
 def run_fixture():
     from daclip_torch.convert import infer_unet_arch, load_torch_state_dict
@@ -742,7 +816,62 @@ def run_serve_alt(restorer, sds):
         del alt, out
         torch.cuda.empty_cache()
     requests(restorer, "v5_after", v5_want, yardstick=True)
-    return totals
+    return totals, dict(args=(xt, cond, t, c, c), ref=ref, limit=limit)
+
+
+# -- phase 4c ------------------------------------------------------------------
+def run_forward_conv(unet, fwd):
+    """One full-width bf16 v5 UNet forward with every 3×3 stride-1 Conv2d's
+    output replaced, through a forward hook registered here, by conv3x3 on
+    the module's input (its NHWC view; the bias, where the module has one,
+    added outside the kernel). Each site is held against the module's own
+    output, the forward against serve_alt's plain one (`fwd`). Returns the
+    kernel's launches in that forward."""
+    from daclip_torch.ops.conv3x3 import conv3x3, conv3x3_weight
+
+    sites = []
+
+    def substitute(module, inputs, output):
+        x = inputs[0]
+        xh = x.permute(0, 2, 3, 1)
+        copied = not xh.is_contiguous()
+        y = conv3x3(xh.contiguous() if copied else xh, conv3x3_weight(module.weight.to(x.dtype)))
+        if module.bias is not None:
+            y = y + module.bias.to(y.dtype)
+        y = y.permute(0, 3, 1, 2)
+        sites.append(dict(shape=[*xh.shape, y.shape[1]], copied=copied,
+                          max_rel_err=rel_err(y, output)))
+        return y
+
+    convs = [m for m in unet.modules() if isinstance(m, torch.nn.Conv2d)
+             and m.kernel_size == (3, 3) and m.stride == (1, 1) and m.padding == (1, 1)]
+    handles = [m.register_forward_hook(substitute) for m in convs]
+    try:
+        reset_counts()
+        with torch.no_grad():
+            out = unet(*fwd["args"])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+    finally:
+        for h in handles:
+            h.remove()
+    launches = counts.get("conv3x3", 0)
+    err = float((out - fwd["ref"]).abs().max())
+    limit = LIMITS[("conv", torch.bfloat16)]
+    worst = max(s["max_rel_err"] for s in sites)
+    emit(phase="forward_conv", sites=len(convs), launches=counts,
+         max_abs_err_vs_plain_forward=err, forward_limit=fwd["limit"],
+         worst_site_rel_err=worst, site_limit=limit,
+         copied_views=sum(s["copied"] for s in sites), per_site=sites)
+    check(len(convs) == CONV_SITES_PER_FORWARD,
+          f"{len(convs)} 3×3 stride-1 convs, expected {CONV_SITES_PER_FORWARD}")
+    check(launches == CONV_SITES_PER_FORWARD,
+          f"forward_conv launched conv3x3 {launches} times, expected {CONV_SITES_PER_FORWARD}")
+    check(bool(torch.isfinite(out).all()), "forward_conv output not finite")
+    check(worst <= limit, f"a conv3x3 site differs from its Conv2d by {worst} of its max")
+    check(err <= fwd["limit"], f"forward_conv differs from the plain forward by {err} "
+          f"(limit {fwd['limit']})")
+    return launches
 
 
 def run_profile(restorer, forwards=5, wiring="v5"):
@@ -764,22 +893,33 @@ def run_profile(restorer, forwards=5, wiring="v5"):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / forwards
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             for _ in range(forwards):
                 step()
             torch.cuda.synchronize()
     by_name, launches = {}, 0
+    conv_us, conv_calls = 0.0, 0  # the 3×3 convs: aten::conv2d with a (O, C, 3, 3) weight
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             launches += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        elif (e.name == "aten::conv2d" and len(e.input_shapes) > 1
+              and list(e.input_shapes[1][-2:]) == [3, 3]):
+            conv_calls += 1
+            total = getattr(e, "device_time_total", None)  # cuda_time_total before torch 2.4
+            conv_us += e.cuda_time_total if total is None else total
     kernel_ms = sum(by_name.values()) / forwards / 1e3
+    conv_ms = conv_us / forwards / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     emit(phase="profile", wiring=wiring, what="one ConditionalUNet forward, 256x256, B=1, bf16",
          wall_ms_per_forward=wall_ms,
          device_kernel_ms_per_forward=kernel_ms if launches else None,
          device_busy_share=kernel_ms / wall_ms if launches else None,
          kernels_per_forward=launches / forwards,
+         conv3x3_calls_per_forward=conv_calls / forwards,
+         conv3x3_device_ms_per_forward=conv_ms if launches else None,
+         conv3x3_share_of_device=conv_ms / kernel_ms if launches else None,
          top=[dict(name=k[:90], ms_per_forward=v / forwards / 1e3) for k, v in top])
 
 
@@ -1129,11 +1269,14 @@ def main():
     rows = run_kernels()
     alt_rows, core_path = run_kernels_alt()
     rows.update(alt_rows)
+    conv_rows, conv_path = run_kernels_conv()
+    rows.update(conv_rows)
     run_fixture()
     restorer, serve_totals, sds = run_serve()
     run_profile(restorer)
-    serve_alt_totals = run_serve_alt(restorer, sds)
-    del restorer, sds
+    serve_alt_totals, fwd = run_serve_alt(restorer, sds)
+    forward_conv = run_forward_conv(restorer.unet, fwd)
+    del restorer, sds, fwd
     rows.update(run_kernels_bwd())
     for wiring in TRAIN_KERNELS:
         run_train_check(wiring)
@@ -1146,10 +1289,12 @@ def main():
 
     # launches on each main path, each counted from 0 just before its run:
     # serve (the four requests), serve_alt (two requests per other wiring),
-    # train (five timed steps), train_alt (three), and for the attention core,
-    # which no model wiring calls, its path in the kernels_alt phase
+    # train (five timed steps), train_alt (three); for the attention core and
+    # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
+    # and kernels_conv phases, and the conv's in the hooked forward_conv
     paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, train=train_totals,
-                 train_alt=train_alt_totals, kernels=dict(core=core_path))
+                 train_alt=train_alt_totals, kernels=dict(core=core_path),
+                 kernels_conv=dict(conv3x3=conv_path), forward_conv=dict(conv3x3=forward_conv))
     by_path = {key: {path: n[key] for path, n in paths.items() if n.get(key)}
                for key in kernel_counters()}
     bf16 = lambda key: [x for x in rows[key] if x["dtype"] == "bfloat16"]
@@ -1172,15 +1317,18 @@ def main():
             ("wrap_fused", "attn_wrap_fused", la_cu, f"{la_py}:199", 0),
             ("core", "linear_attention", la_cu, f"{la_py}:91", 0),
             ("dual", "dual_conv1x1", "daclip_torch/csrc/pointwise.cu",
-             "daclip_tpu/ops/pointwise.py:121", 7)):
-        r = rows[key][pick]  # the largest site of its path (dual: the single form)
+             "daclip_tpu/ops/pointwise.py:121", 7),
+            ("conv3x3", "conv3x3", "daclip_torch/csrc/conv3x3.cu",
+             "daclip_tpu/ops/conv3x3.py:64", 0)):
+        # the largest site of its path (dual: the single form; conv3x3: level 0)
+        r = rows[key][pick]
         entry = dict(name=name_, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path[key].values()), launches_by_path=by_path[key],
                      shape=r["shape"], max_abs_err=abs_err[key])
         if "bwd" in key:
             entry.update(max_rel_err=max(x["max_rel_err"] for x in bf16(key)),
                          rel_err_is="max over gradients of max |kernel - plain| / max |plain|")
-        elif key in ("core", "dual"):
+        elif key in ("core", "dual", "conv3x3"):
             entry.update(max_rel_err=max(x["max_rel_err"] for x in bf16(key)),
                          rel_err_is="max |kernel - plain| / max |plain|")
         check(entry["launches"] > 0, f"{name_} was launched no time on its path")

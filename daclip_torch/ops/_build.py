@@ -54,6 +54,8 @@ SIGNATURES = {
     "daclip_linattn_core": [_P] * 6 + [_I, _I, _I, _I, _P],
     # x, skip|null, w, y, R, Kx, Ks, O, is_bf16, stream
     "daclip_dual_conv1x1": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # x, w, y, B, H, W, C, O, is_bf16, stream
+    "daclip_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, lse|null, B, N, H, D, scale, is_bf16, stream
     "daclip_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, dout, lse, dsum, dq, dk, dv, B, N, H, D, scale, is_bf16, stream

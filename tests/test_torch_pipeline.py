@@ -166,7 +166,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "need = ['daclip_torch.train.restoration', 'daclip_torch.train.schedules',\n"
         "        'daclip_torch.losses.matching', 'daclip_torch.utils.ema',\n"
         "        'daclip_torch.utils.checkpoint', 'daclip_torch.flags',\n"
-        "        'daclip_torch.ops.pointwise']\n"
+        "        'daclip_torch.ops.pointwise', 'daclip_torch.ops.conv3x3']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print(len([m for m in sys.modules if m.startswith('daclip_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
