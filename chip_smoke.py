@@ -24,9 +24,11 @@ Phases, each printing JSON lines:
              the (v4, pointwise) training step's shapes (B=16)
   2c kernels_conv  conv3x3 against its plain version at the 15 shapes of the
              production UNet's 44 3×3 stride-1 convs at 256² (B=1), the three
-             largest at B=16, a ragged and an f32 case (its path: one call at
-             each, counted), with cuDNN's conv2d on the channels_last view as
-             the yardstick (timed here only)
+             largest at B=16, a ragged and an f32 case and four at the bf16
+             kernel's tile edges (its path: one call at each, counted), each
+             called twice (the bytes must repeat), with cuDNN's conv2d on the
+             channels_last view as the yardstick (timed here only); then both
+             device times summed over the 44 sites
   3 fixture  the committed golden fixture replayed through the kernels in f32,
              in the default wiring and in (v4, pointwise) and (v3, pointwise)
   4 serve    the production restore path at full width (ViT-B-32 DaCLIP, UNet
@@ -52,8 +54,9 @@ Phases, each printing JSON lines:
              ragged wrap: the forward as training calls it (keeping the
              backward's statistics) against the plain forward, then each
              backward kernel against its plain backward, every gradient
-             relative to its own max (dW_qkv per q/k/v block); times,
-             bounds, and for flash the backward of
+             relative to its own max (dW_qkv per q/k/v block), flash also
+             at N of 65 and 129 and called twice (the bytes must repeat);
+             event and device times, bounds, and for flash the backward of
              scaled_dot_product_attention as the yardstick (timed here only)
   7 train_check  a small UNet (a wrap and a SpatialTransformer) in f32: the
              loss and every parameter gradient through the kernels against
@@ -118,19 +121,25 @@ DUAL_SHAPES = [(1024, 512, 256, 512, torch.bfloat16), (4096, 256, 128, 256, torc
 TRAIN_WRAP_SHAPES = [(16, n, C, dtype) for _, n, C, dtype in WRAP_SHAPES[:5]]
 TRAIN_DUAL_SHAPES = [(16 * R, cx, cs, O, dtype) for R, cx, cs, O, dtype in DUAL_SHAPES[:4]]
 # the 3×3 stride-1 convs of the production UNet (nf 64, ch_mult 1,2,4,8) at 256²:
-# (H = W, C, O), the 15 distinct shapes of its 44 sites (13 at 256², 9 at 128²,
-# 9 at 64², 13 at 32²)
-CONV_SITES = [(256, 64, 64), (256, 128, 64), (256, 64, 3),
-              (128, 64, 64), (128, 192, 128), (128, 128, 128), (128, 256, 128),
-              (64, 128, 128), (64, 384, 256), (64, 256, 256), (64, 512, 256),
-              (32, 256, 256), (32, 256, 512), (32, 512, 512), (32, 768, 512)]
+# (H = W, C, O, sites), the 15 distinct shapes of its 44 sites (13 at 256², 9 at
+# 128², 9 at 64², 13 at 32²)
+CONV_SITES = [(256, 64, 64, 8), (256, 128, 64, 4), (256, 64, 3, 1),
+              (128, 64, 64, 4), (128, 192, 128, 2), (128, 128, 128, 2), (128, 256, 128, 1),
+              (64, 128, 128, 4), (64, 384, 256, 2), (64, 256, 256, 2), (64, 512, 256, 1),
+              (32, 256, 256, 4), (32, 256, 512, 1), (32, 512, 512, 6), (32, 768, 512, 2)]
 CONV_SITES_PER_FORWARD = 44
 # (B, H, W, C, O, dtype): the sites at B=1; the three largest at the training
-# batch (other grid sizes, up to 1,048,576 pixels); a ragged bf16 and an f32 case
-CONV_SHAPES = ([(1, s, s, C, O, torch.bfloat16) for s, C, O in CONV_SITES]
+# batch (other grid sizes, up to 1,048,576 pixels); a ragged bf16 and an f32
+# case; then the bf16 kernel's tile edges: W of 65 and 33 (a second, or a
+# mostly empty, 64-pixel tile column), odd H, O = 200 (four 64-output tiles,
+# the last ragged); C = 96 and 160 on its large tile, C = 520 (a ragged last
+# 32-channel slice, K split over a cluster) and 40 on its small one
+CONV_SHAPES = ([(1, s, s, C, O, torch.bfloat16) for s, C, O, _ in CONV_SITES]
                + [(16, 256, 256, 64, 64, torch.bfloat16), (16, 256, 256, 128, 64, torch.bfloat16),
                   (16, 32, 32, 768, 512, torch.bfloat16), (2, 37, 45, 6, 72, torch.bfloat16),
-                  (2, 33, 40, 64, 48, torch.float32)])
+                  (2, 33, 40, 64, 48, torch.float32),
+                  (4, 67, 65, 96, 200, torch.bfloat16), (2, 37, 33, 160, 200, torch.bfloat16),
+                  (1, 31, 33, 520, 200, torch.bfloat16), (2, 9, 65, 40, 72, torch.bfloat16)])
 ALT_CONFIGS = {"v4_pointwise": dict(linear_attention="v4", pointwise=True),
                "v3_pointwise": dict(linear_attention="v3", pointwise=True),
                "v5_pointwise": dict(linear_attention="v5", pointwise=True)}
@@ -140,15 +149,18 @@ ALT_FORWARD_FACTOR = 3.0
 # the backward kernels at the training step's shapes: (B, n, C) of the six
 # wrap sites at 256² and B=16 (down0/up0 share a shape), the ragged case, an
 # f32 case, and C=512 (the context-free UNet's level 3, the kernel's 32-row
-# tiles); flash at down3 and mid/up3, an f32 case, and dim_head 64 with a
-# ragged N
+# tiles); flash at down3 and mid/up3, an f32 case, dim_head 64 with a
+# ragged N, and N of 65 and 129 at both dim_heads
 WRAP_BWD_SHAPES = [
     (16, 65536, 64, torch.bfloat16), (16, 16384, 64, torch.bfloat16),
     (16, 16384, 128, torch.bfloat16), (16, 4096, 128, torch.bfloat16),
     (16, 4096, 256, torch.bfloat16), (2, 3001, 96, torch.bfloat16),
     (2, 4096, 64, torch.float32), (2, 1024, 512, torch.bfloat16)]
 FLASH_BWD_SHAPES = [(16, 1024, 8, 32, torch.bfloat16), (16, 1024, 16, 32, torch.bfloat16),
-                    (2, 1024, 4, 32, torch.float32), (2, 1000, 4, 64, torch.bfloat16)]
+                    (2, 1024, 4, 32, torch.float32), (2, 1000, 4, 64, torch.bfloat16),
+                    # the bf16 kernels' tile edges: one key/query past a 64-row tile
+                    (2, 65, 4, 32, torch.bfloat16), (2, 129, 4, 32, torch.bfloat16),
+                    (2, 65, 4, 64, torch.bfloat16), (2, 129, 4, 64, torch.bfloat16)]
 # each gradient's max |kernel − plain| over its own max |plain|, the plain
 # backward in f32 on the same inputs; set at about 3× (bf16) and 5× (f32) the
 # worst reading of the first H100 runs (0.0063 wrap, 0.0044 flash in bf16,
@@ -221,13 +233,16 @@ def device_ms(fn, match, iters=10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and match in e.name)
-    return us / iters / 1e3 if us else None
+    for _ in range(2):  # a profile that records none of the kernels is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and match in e.name)
+        if us:
+            return us / iters / 1e3
+    return None
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -237,7 +252,8 @@ def bound_ms(nbytes, flops, dtype):
 
 def ptxas_summary(log):
     """One line per compiled kernel of an `nvcc -Xptxas -v` log: its name
-    (namespace::function<type,D>, read off the mangled symbol), registers,
+    (namespace::function<template arguments>, read off the mangled symbol;
+    a configuration struct's arguments stand for the struct), registers,
     stack, spills and shared memory."""
     out, name, props = [], None, ""
     for ln in log.splitlines():
@@ -252,9 +268,11 @@ def ptxas_summary(log):
                 n = int(sym[i:j])
                 parts.append(sym[j:j + n])
                 i = j + n
-            t = "bf16" if "__nv_bfloat16" in sym[i:i + 20] else "f32"
-            d = re.match(r"I(?:13__nv_bfloat16|f)Li(\d+)E", sym[i:])
-            name = "::".join(parts[1:]) + f"<{t}" + (f",{d.group(1)}>" if d else ">")
+            targs = re.match(r"I(.*?)EE", sym[i:])
+            args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a.strip("LiE"))
+                    for a in re.findall(r"13__nv_bfloat16|Li-?\d+E|f(?=L|E|f|1)",
+                                        targs.group(1) + "E" if targs else "")]
+            name = "::".join(parts[1:]) + (f"<{','.join(args)}>" if args else "")
         elif name and "stack frame" in ln:
             props = ln.strip()
         elif name and "Used" in ln and "registers" in ln:
@@ -555,9 +573,12 @@ def run_kernels_alt():
 # -- phase 2c ------------------------------------------------------------------
 def run_kernels_conv():
     """conv3x3 against its plain version (in f32 on the same inputs) at every
-    shape of CONV_SHAPES; cuDNN's conv2d on the free channels_last NCHW view
-    of the same x, with the weight in (O, C, 3, 3), is the yardstick. Its path
-    here is the first call at each shape, counted."""
+    shape of CONV_SHAPES, and against itself (a second call on the same
+    inputs must give the same bytes); cuDNN's conv2d on the free
+    channels_last NCHW view of the same x, with the weight in (O, C, 3, 3), is
+    the yardstick (timed here only). Then the device times of both summed over
+    the 44 sites of one serving forward (B=1 rows at their site counts). Its
+    path here is the first call at each shape, counted."""
     from daclip_torch.ops.conv3x3 import conv3x3, conv3x3_reference
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -569,6 +590,7 @@ def run_kernels_conv():
         got = conv3x3(x, w)
         torch.cuda.synchronize()
         path += conv3x3.launches - before
+        repeats = torch.equal(conv3x3(x, w), got)
         want = conv3x3_reference(x.float(), w.float())
         abs_err = float((got.float() - want).abs().max())
         err = abs_err / float(want.abs().max())
@@ -582,19 +604,34 @@ def run_kernels_conv():
                            2 * B * H * W * 9 * C * O, dtype)
         row = dict(phase="kernels_conv", kernel="conv3x3", shape=[B, H, W, C, O],
                    dtype=str(dtype).split(".")[-1], max_rel_err=err, max_abs_err=abs_err,
-                   limit=limit, kernel_ms=time_ms(lambda: conv3x3(x, w), iters=iters),
+                   limit=limit, repeats_bitwise=repeats,
+                   kernel_ms=time_ms(lambda: conv3x3(x, w), iters=iters),
                    device_ms=device_ms(lambda: conv3x3(x, w), "daclip::conv3x3::"),
                    plain_ms=time_ms(lambda: conv3x3_reference(x, w), iters=iters),
                    bound_ms=bms, bound_by=by, library_ms=time_ms(lib, iters=iters),
-                   library_max_rel_err=lib_err)
+                   library_device_ms=device_ms(lib, ""), library_max_rel_err=lib_err)
         emit(**row)
         rows.append(row)
         check(torch.isfinite(got).all().item(), f"conv3x3 {B, H, W, C, O} not finite")
         check(err <= limit, f"conv3x3 {B, H, W, C, O, dtype} rel err {err}")
+        check(repeats, f"conv3x3 {B, H, W, C, O, dtype}: two calls differ")
         del x, w, got, want, x_nchw, w_oihw
     torch.cuda.empty_cache()
     check(path == len(CONV_SHAPES), f"conv3x3 path launched {path} times, "
           f"expected {len(CONV_SHAPES)}")
+    # one serving forward's 44 sites: the B=1 rows at their site counts
+    sites = {(H, C, O): n for H, C, O, n in CONV_SITES}
+    per_site = [(sites[(r["shape"][1], *r["shape"][3:])], r) for r in rows
+                if r["shape"][0] == 1 and r["dtype"] == "bfloat16"
+                and (r["shape"][1], *r["shape"][3:]) in sites][:len(CONV_SITES)]
+    total = {key: sum(n * r[key] for n, r in per_site)
+             for key in ("device_ms", "library_device_ms", "bound_ms")}
+    emit(phase="kernels_conv_sum", what="device ms summed over the 44 3x3 sites of one "
+         "serving forward (B=1, 256x256), each shape's row times its site count",
+         sites=sum(n for n, _ in per_site), kernel_device_ms=total["device_ms"],
+         cudnn_device_ms=total["library_device_ms"], bound_ms=total["bound_ms"],
+         kernel_over_cudnn=total["device_ms"] / total["library_device_ms"])
+    check(sum(n for n, _ in per_site) == CONV_SITES_PER_FORWARD, "site counts")
     return {"conv3x3": rows}, path
 
 
@@ -865,6 +902,12 @@ def run_forward_conv(unet, fwd):
          copied_views=sum(s["copied"] for s in sites), per_site=sites)
     check(len(convs) == CONV_SITES_PER_FORWARD,
           f"{len(convs)} 3×3 stride-1 convs, expected {CONV_SITES_PER_FORWARD}")
+    counts_by_shape = {}
+    for site in sites:  # (1, H, W, C, O) → (H, C, O)
+        key = (site["shape"][1], site["shape"][3], site["shape"][4])
+        counts_by_shape[key] = counts_by_shape.get(key, 0) + 1
+    check(counts_by_shape == {(H, C, O): n for H, C, O, n in CONV_SITES},
+          f"the forward's 3×3 sites {counts_by_shape} differ from CONV_SITES")
     check(launches == CONV_SITES_PER_FORWARD,
           f"forward_conv launched conv3x3 {launches} times, expected {CONV_SITES_PER_FORWARD}")
     check(bool(torch.isfinite(out).all()), "forward_conv output not finite")
@@ -973,6 +1016,8 @@ def run_kernels_bwd():
             bms, by = bound_ms(nbytes, 2 * B * n * (1536 * C + 20480), dtype)
             row.update(kernel_ms=time_ms(lambda: la.attn_wrap_bwd(*args, dout, stats=stats),
                                          iters=10),
+                       device_ms=device_ms(lambda: la.attn_wrap_bwd(*args, dout, stats=stats),
+                                           "daclip::wrap_bwd::", iters=5),
                        plain_ms=time_ms(lambda: la.attn_wrap_bwd_reference(*args, dout),
                                         iters=5, warmup=1),
                        bound_ms=bms, bound_by=by, library_ms=None)
@@ -993,9 +1038,10 @@ def run_kernels_bwd():
         q, k, v, dout = [torch.randn(B, N, H * D, generator=gen, device="cuda").to(dtype)
                          for _ in range(4)]
         out, lse = fa._forward_kernel(q, k, v, H, D, True)
-        got = dict(zip(("dq", "dk", "dv"), fa.flash_self_attention_bwd(q, k, v, out, dout, H,
-                                                                       D, lse=lse)))
+        bwd = lambda: fa.flash_self_attention_bwd(q, k, v, out, dout, H, D, lse=lse)
+        got = dict(zip(("dq", "dk", "dv"), bwd()))
         torch.cuda.synchronize()
+        repeats = all(torch.equal(a, b) for a, b in zip(got.values(), bwd()))
         want_out = fa.attention_reference(q.float(), k.float(), v.float(), H, D)
         fwd = dict(max_abs_err=float((out.float() - want_out).abs().max()),
                    limit=LIMITS[("flash", dtype)])
@@ -1014,12 +1060,14 @@ def run_kernels_bwd():
         row = dict(phase="kernels_bwd", kernel="flash_self_attention_bwd",
                    shape=[B, N, H, D], dtype=str(dtype).split(".")[-1], forward=fwd,
                    rel_err=errs, max_rel_err=max(errs.values()), max_abs_err=abs_err,
-                   limit=limit,
-                   kernel_ms=time_ms(lambda: fa.flash_self_attention_bwd(
-                       q, k, v, out, dout, H, D, lse=lse), iters=10),
+                   limit=limit, repeats_bitwise=repeats,
+                   kernel_ms=time_ms(bwd, iters=10),
+                   device_ms=device_ms(bwd, "daclip::flash_bwd::"),
                    plain_ms=time_ms(lambda: fa.attention_bwd_reference(
                        q, k, v, out, dout, H, D), iters=5, warmup=1),
-                   bound_ms=bms, bound_by=by, library_ms=time_ms(lib, iters=10))
+                   bound_ms=bms, bound_by=by, library_ms=time_ms(lib, iters=10),
+                   # its event time holds autograd's host time
+                   library_device_ms=device_ms(lib, ""))
         emit(**row)
         rows["flash_bwd"].append(row)
         check(fwd["max_abs_err"] <= fwd["limit"],
@@ -1027,7 +1075,8 @@ def run_kernels_bwd():
         check(all(bool(torch.isfinite(g).all()) for g in got.values()),
               f"flash bwd {B, N, H, D, dtype} not finite")
         check(row["max_rel_err"] <= limit, f"flash bwd {B, N, H, D, dtype} rel err {errs}")
-        del q, k, v, dout, out, lse, got, qh, kh, vh, oh, doh
+        check(repeats, f"flash bwd {B, N, H, D, dtype}: two calls differ")
+        del q, k, v, dout, out, lse, got, qh, kh, vh, oh, doh, bwd
         torch.cuda.empty_cache()
     return rows
 
@@ -1226,11 +1275,14 @@ def run_profile_train(full_step, step_ms, wiring="v5"):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         full_step()
         torch.cuda.synchronize()
-    by_name, launches = {}, 0
+    by_name, launches, ours = {}, 0, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             launches += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            if "daclip::" in e.name:  # the port's kernels by namespace (wrap, flash_bwd, …)
+                ns = e.name.split("daclip::", 1)[1].split("::", 1)[0]
+                ours[ns] = ours.get(ns, 0.0) + e.time_range.elapsed_us() / 1e3
     kernel_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     emit(phase="profile_train", wiring=wiring,
@@ -1238,7 +1290,7 @@ def run_profile_train(full_step, step_ms, wiring="v5"):
          wall_ms_per_step_unprofiled=step_ms,
          device_kernel_ms_per_step=kernel_ms if launches else None,
          device_busy_share=kernel_ms / step_ms if launches else None,
-         kernels_per_step=launches,
+         kernels_per_step=launches, daclip_ms_by_namespace=ours,
          top=[dict(name=k[:90], ms=v / 1e3) for k, v in top])
 
 

@@ -5,8 +5,9 @@
 (3, 3, C, O) HWIO rounded to x's dtype, y (B, H, W, O) in x's dtype, the nine
 shifted (pixels, C)·(C, O) products summed in f32 and rounded once. On a
 CUDA tensor it launches the hand-written implicit-GEMM kernel of
-`daclip_torch/csrc/conv3x3.cu` or raises; on a CPU tensor it runs the plain
-version `conv3x3_reference`. Forward only, as in JAX (no `custom_vjp`
+`daclip_torch/csrc/conv3x3.cu` (bf16: wgmma tensor-core products fed by a
+cp.async ring; f32: scalar FMA) or raises; on a CPU tensor it runs the
+plain version `conv3x3_reference`. Forward only, as in JAX (no `custom_vjp`
 there).
 
 No model wiring calls it, as no JAX path calls its counterpart: the UNet's
@@ -20,7 +21,9 @@ import torch.nn.functional as F
 
 from daclip_torch.ops import _build
 
-TILE_OUT = 64  # output channels of one CTA tile (the grid's y extent is at most 65535)
+# output channels of one CTA tile, bf16 (wgmma) and f32 kernels alike: the grid's
+# y extent, at most 65535, is O / TILE_OUT tiles
+TILE_OUT = 64
 
 
 def conv3x3_reference(x, w):

@@ -6,7 +6,8 @@ wrappers, their plain PyTorch versions and the autograd Function over them.
 `flash_self_attention_bwd` of its backward `flash_self_attention_bwd_pallas`
 (:199). On a CUDA tensor each launches its hand-written kernel
 (`daclip_torch/csrc/flash_attention.cu`, FlashAttention-2 style;
-`csrc/flash_attention_bwd.cu`: dsum, dq, dk/dv) or raises; on a CPU tensor
+`csrc/flash_attention_bwd.cu`: dsum, dq, dk/dv, on mma.sync tensor cores in
+bf16) or raises; on a CPU tensor
 each runs its plain version: `attention_reference`, the composition of
 `_reference` (:91-101), and `attention_bwd_reference`, the FA2 backward
 arithmetic of `_bwd_kernel` (:104-154). `flash_self_attention` is
@@ -110,6 +111,8 @@ def flash_self_attention_bwd(q, k, v, out, dout, heads: int, dim_head: int, lse=
     if lse is None:
         raise ValueError("flash_self_attention_bwd on the card needs the forward's lse")
     out, dout = out.contiguous(), dout.contiguous()
+    if q.dtype == torch.bfloat16:  # the tensor-core kernels copy 16-byte chunks
+        q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, dout))
     lib = _build.library()
     B, N, _ = q.shape
     dsum = torch.empty((B, heads, N), dtype=torch.float32, device=q.device)

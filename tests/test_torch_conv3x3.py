@@ -22,7 +22,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from daclip_torch.ops.conv3x3 import conv3x3, conv3x3_reference, conv3x3_weight
+from daclip_torch.ops.conv3x3 import (TILE_OUT, _check, conv3x3, conv3x3_reference,
+                                      conv3x3_weight)
 from daclip_tpu.ops import conv3x3 as jconv
 
 torch.set_num_threads(1)
@@ -72,7 +73,12 @@ def test_plain_matches_pallas_kernel_interpret(shape, dtype):
         assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("shape", [(2, 7, 9, 3, 3), (2, 11, 5, 6, 3), (2, 9, 13, 6, 8)])
+# the last three at the card's bf16 tile edges: W of 33 and 65 (a 64-pixel
+# tile column mostly empty, or a second one), odd H, O = 200 (a ragged last
+# 64-output tile), C = 96 and 40 (a ragged last 32-channel slice)
+@pytest.mark.parametrize("shape", [(2, 7, 9, 3, 3), (2, 11, 5, 6, 3), (2, 9, 13, 6, 8),
+                                   (1, 7, 33, 96, 200), (1, 5, 65, 96, 200),
+                                   (2, 3, 65, 40, 72)])
 def test_plain_matches_lax_conv_on_ragged_shapes(shape):
     x, w = _inputs(*shape, seed=1)
     want = jax.lax.conv_general_dilated(
@@ -125,6 +131,18 @@ def _refused(kind):
 def test_wrapper_refuses(kind, error, match):
     with pytest.raises(error, match=match):
         conv3x3(*_refused(kind))
+
+
+@pytest.mark.parametrize("O, refused", [(TILE_OUT * 65535, False), (TILE_OUT * 65535 + 1, True)])
+def test_guard_follows_the_output_tile(O, refused):
+    """The grid's y extent (O / TILE_OUT tiles) is at most 65535."""
+    x = torch.empty(1, 2, 2, 1, device="meta")
+    w = torch.empty(3, 3, 1, O, device="meta")
+    if refused:
+        with pytest.raises(ValueError, match=f"O <= {TILE_OUT * 65535}"):
+            _check(x, w)
+    else:
+        _check(x, w)
 
 
 def test_operands_requiring_grad_run_under_no_grad():

@@ -279,7 +279,10 @@ def test_plain_wrap_bwd_matches_pallas_bwd_kernel_bf16():
                 1.5e-2, WRAP_GRADS)
 
 
-@pytest.mark.parametrize("B,N,H,D", [(2, 64, 4, 32), (1, 100, 2, 64)])
+# (2, 65/129, 4, 32/64): one query and one key past a 64-row tile, the edge
+# of the card's tensor-core backward kernels
+@pytest.mark.parametrize("B,N,H,D", [(2, 64, 4, 32), (1, 100, 2, 64), (2, 65, 4, 32),
+                                     (2, 129, 4, 32), (2, 65, 4, 64), (2, 129, 4, 64)])
 def test_plain_flash_bwd_matches_jax_vjp_and_pallas(B, N, H, D):
     q, k, v = _qkv(B, N, H, D, seed=2)
     g = _dout((B, N, H * D))
