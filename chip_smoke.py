@@ -7,11 +7,13 @@ Phases, each printing JSON lines:
   1 build    nvcc builds daclip_torch/csrc/*.cu (one process per source)
   2 kernels  each kernel against its plain PyTorch version at every shape the
              restore path gives it (the wrap also on inputs where the
-             attention is as large as the bias, at each shape); times (median
-             of CUDA-event timed calls after warm-up, and the device time of
-             the kernels alone from torch.profiler), the bound, and for flash
-             the one-call PyTorch yardstick (scaled_dot_product_attention,
-             timed here only)
+             attention is as large as the bias, at each shape), the flash
+             forward also at the training step's shapes keeping its lse (held
+             against torch.logsumexp) and called twice (the bytes must repeat);
+             times (median of CUDA-event timed calls after warm-up, and the
+             device time of the kernels alone from torch.profiler), the bound,
+             and for flash the one-call PyTorch yardstick
+             (scaled_dot_product_attention, timed here only, event and device)
   2b kernels_alt  the kernels of the UNet's other wirings, each against its
              plain version: linear_attention_fused (v4), attn_wrap_fused (v3,
              with and without prenorm/residual) at the six sites on
@@ -19,9 +21,11 @@ Phases, each printing JSON lines:
              case; the attention core linear_attention at the six sites (its
              path: one call at each, counted); dual_conv1x1 at the four
              res_conv shapes of the nine sites, both forms, plus ragged and
-             f32 cases, with torch.matmul as the single form's yardstick;
-             then linear_attention_fused and dual_conv1x1's single form at
-             the (v4, pointwise) training step's shapes (B=16)
+             f32 cases and five at the bf16 kernel's tile edges, each called
+             twice (the bytes must repeat), with torch.matmul as the single
+             form's yardstick (event and device); then linear_attention_fused
+             and dual_conv1x1's single form at the (v4, pointwise) training
+             step's shapes (B=16)
   2c kernels_conv  conv3x3 against its plain version at the 15 shapes of the
              production UNet's 44 3×3 stride-1 convs at 256² (B=1), the three
              largest at B=16, a ragged and an f32 case and four at the bf16
@@ -48,7 +52,8 @@ Phases, each printing JSON lines:
              serve_alt's plain one (limit: 3× the v5 bf16 forward's distance
              from its f32 forward)
   5 profile  one sampler step (a UNet forward at 256²): wall time, device
-             kernel time by name and that of the 3×3 convs (torch.profiler)
+             kernel time by name, by the port's kernel namespaces and that of
+             the 3×3 convs (torch.profiler)
   6 kernels_bwd  at every shape of the training step (B=16, 256²; the wrap
              also on balanced inputs), one f32 case each with TF32 off, the
              ragged wrap: the forward as training calls it (keeping the
@@ -72,7 +77,8 @@ Phases, each printing JSON lines:
              timed steps, peak memory, kernel calls per step, a profile of
              one step
 (train_check runs the default wiring, then (v4, pointwise) and (v3, pointwise).)
-Then the per-kernel summary line, the nvidia-smi line, and as the last line
+Then each kernel's device time over its library call's (kernels_vs_library),
+the per-kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
 without a CUDA device it exits non-zero before printing any result.
 """
@@ -101,20 +107,32 @@ WRAP_SHAPES = [  # (B, n, C, dtype): the six sites at 256² plus a ragged and f3
 FLASH_SHAPES = [  # (B, N, H, D, dtype): down3 and mid/up3 at 256², the fixture's mid
     (1, 1024, 8, 32, torch.bfloat16), (1, 1024, 16, 32, torch.bfloat16),
     (1, 256, 2, 32, torch.float32)]
+# the training step's forward at down3 and mid/up3 (B=16), keeping the lse
+FLASH_TRAIN_SHAPES = [(16, 1024, 8, 32, torch.bfloat16), (16, 1024, 16, 32, torch.bfloat16)]
 LIMITS = {("wrap", torch.bfloat16): 0.1, ("wrap", torch.float32): 1e-3,
-          ("flash", torch.bfloat16): 2e-2, ("flash", torch.float32): 1e-4,
           # relative to the output's max: the core's output is the attention
-          # alone; the 1×1 rounds once to bf16 (half a step is 2^-8 of a value)
+          # alone; the 1×1 rounds once to bf16 (half a step is 2^-8 of a value);
+          # flash rounds its output once to bf16 as well (read: 2-3e-3 of max on
+          # the H100 at every shape, N = 65 to 1024)
+          ("flash", torch.bfloat16): 8e-3, ("flash", torch.float32): 1e-5,
           ("core", torch.bfloat16): 2e-2, ("core", torch.float32): 1e-4,
           ("dual", torch.bfloat16): 1e-2, ("dual", torch.float32): 1e-5,
           # the 3×3 conv rounds once to bf16 too; the sums run in another order
           ("conv", torch.bfloat16): 1e-2, ("conv", torch.float32): 1e-5}
 # dual_conv1x1 at the res_conv sites of the UNet at 256² (rows = H·W at B=1;
 # K = Cx + Cs: the up level's x and its skip, the final block's x and x_skip):
-# (rows, Cx, Cs, O) — up3 ×2, up2 ×2, up1 ×2, up0 ×2 and final; a ragged case
+# (rows, Cx, Cs, O) — up3 ×2, up2 ×2, up1 ×2, up0 ×2 and final; a ragged and an
+# f32 case; then the bf16 kernel's tile edges: Kx, Ks and O not multiples of 8
+# (element copies), a row past 65 tiles with O = 200 (a ragged last panel) and
+# a ragged last K slice, 16 K slices (four turns of the ring), one row past a
+# tile with an odd O, and K past the 16 slices its 64 × 64 tiles hold resident
+# (the 256 × 128 tiles at a narrow O, a ragged last K slice)
 DUAL_SHAPES = [(1024, 512, 256, 512, torch.bfloat16), (4096, 256, 128, 256, torch.bfloat16),
                (16384, 128, 64, 128, torch.bfloat16), (65536, 64, 64, 64, torch.bfloat16),
-               (3001, 96, 40, 72, torch.bfloat16), (4096, 64, 64, 64, torch.float32)]
+               (3001, 96, 40, 72, torch.bfloat16), (4096, 64, 64, 64, torch.float32),
+               (1000, 36, 20, 50, torch.bfloat16), (4161, 64, 40, 200, torch.bfloat16),
+               (2048, 512, 512, 96, torch.bfloat16), (65, 24, 16, 33, torch.bfloat16),
+               (257, 640, 520, 40, torch.bfloat16)]
 # the (v4, pointwise) training step's shapes (B=16, 256²): linear_attention_fused
 # at the five (B, n, C) of the six sites, dual_conv1x1's single form at 16× the
 # rows of the four res_conv shapes
@@ -168,6 +186,9 @@ FLASH_BWD_SHAPES = [(16, 1024, 8, 32, torch.bfloat16), (16, 1024, 16, 32, torch.
 BWD_LIMITS = {("wrap", torch.bfloat16): 2e-2, ("wrap", torch.float32): 1e-5,
               ("flash", torch.bfloat16): 2e-2, ("flash", torch.float32): 1e-5}
 TRAIN_CHECK_LIMIT = 1e-4  # worst per-tensor relative gradient error, f32 (read: 2e-6)
+# the forward's log-sum-exp against torch.logsumexp of the f32 logits (read:
+# 1.4e-6 in bf16, from f32 sums of exponentials on the SFU)
+LSE_LIMIT = 1e-4
 WRAP_MEAN_LIMIT_BF16 = 1e-2
 # on balanced wrap inputs the attention's share of the output (the plain
 # output minus the plain output with no attention) must be of order 1
@@ -233,7 +254,7 @@ def device_ms(fn, match, iters=10):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a profile that records none of the kernels is taken again
+    for _ in range(3):  # a profile that records none of the kernels is taken again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -355,28 +376,43 @@ def run_kernels():
             check(row["attention_share"] >= SIGNAL_MIN,
                   f"{what}: the attention's share {row['attention_share']} is too small")
 
-    for B, N, H, D, dtype in FLASH_SHAPES:
+    for (B, N, H, D, dtype), train in ([(s, False) for s in FLASH_SHAPES]
+                                       + [(s, True) for s in FLASH_TRAIN_SHAPES]):
         q, k, v = [torch.randn(B, N, H * D, generator=gen, device="cuda").to(dtype)
                    for _ in range(3)]
-        got = fa.flash_self_attention(q, k, v, H, D)
+        # serving calls the forward alone, training keeps each query's lse
+        fwd = ((lambda: fa._forward_kernel(q, k, v, H, D, True)) if train
+               else (lambda: (fa.flash_self_attention(q, k, v, H, D), None)))
+        got, lse = fwd()
         torch.cuda.synchronize()
+        again, lse2 = fwd()
+        repeats = torch.equal(got, again) and (lse is None or torch.equal(lse, lse2))
         want = fa.attention_reference(q.float(), k.float(), v.float(), H, D)
-        err = float((got.float() - want).abs().max())
+        err = rel_err(got, want)
         limit = LIMITS[("flash", dtype)]
         heads = lambda t: t.view(B, N, H, D).transpose(1, 2)
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
             heads(q), heads(k), heads(v))
         bms, by = bound_ms(4 * B * N * H * D * q.element_size(), 4 * B * H * N * N * D, dtype)
         row = dict(phase="kernels", kernel="flash_self_attention", shape=[B, N, H, D],
-                   dtype=str(dtype).split(".")[-1], max_abs_err=err, limit=limit,
-                   kernel_ms=time_ms(lambda: fa.flash_self_attention(q, k, v, H, D)),
-                   device_ms=device_ms(lambda: fa.flash_self_attention(q, k, v, H, D),
-                                       "daclip::flash::"),
+                   dtype=str(dtype).split(".")[-1], path="train" if train else "serve",
+                   max_rel_err=err, max_abs_err=float((got.float() - want).abs().max()),
+                   limit=limit, repeats_bitwise=repeats,
+                   kernel_ms=time_ms(fwd), device_ms=device_ms(fwd, "daclip::flash::"),
                    plain_ms=time_ms(lambda: fa.attention_reference(q, k, v, H, D)),
-                   bound_ms=bms, bound_by=by, library_ms=time_ms(lib))
+                   bound_ms=bms, bound_by=by, library_ms=time_ms(lib),
+                   library_device_ms=device_ms(lib, ""))
+        if lse is not None:
+            qh, kh = heads(q.float()), heads(k.float())
+            want_lse = torch.logsumexp(qh @ kh.transpose(-1, -2) * D ** -0.5, dim=-1)
+            row["lse_max_abs_err"] = float((lse - want_lse).abs().max())
+            check(row["lse_max_abs_err"] <= LSE_LIMIT,
+                  f"flash {B, N, H, D, dtype} lse err {row['lse_max_abs_err']}")
         emit(**row)
         rows["flash"].append(row)
-        check(err <= limit, f"flash {B, N, H, D, dtype} max err {err}")
+        check(err <= limit, f"flash {B, N, H, D, dtype} rel err {err}")
+        check(repeats, f"flash {B, N, H, D, dtype}: two calls differ")
+        del q, k, v, got, again, lse, lse2, want
     return rows
 
 
@@ -487,6 +523,7 @@ def run_kernels_alt():
         for form, args in (("dual", (x, skip, w)), ("single", (xcat, None, w))):
             got = pw.dual_conv1x1(*args)
             torch.cuda.synchronize()
+            repeats = torch.equal(pw.dual_conv1x1(*args), got)
             want = pw.dual_conv1x1_reference(*[None if a is None else a.float() for a in args])
             err = float((got.float() - want).abs().max() / want.abs().max())
             limit = LIMITS[("dual", dtype)]
@@ -496,15 +533,18 @@ def run_kernels_alt():
             row = dict(phase="kernels_alt", kernel="dual_conv1x1", form=form,
                        shape=[R, cx, cs, O], dtype=str(dtype).split(".")[-1],
                        max_rel_err=err, max_abs_err=float((got.float() - want).abs().max()),
-                       limit=limit, kernel_ms=time_ms(lambda: pw.dual_conv1x1(*args)),
+                       limit=limit, repeats_bitwise=repeats,
+                       kernel_ms=time_ms(lambda: pw.dual_conv1x1(*args)),
                        device_ms=device_ms(lambda: pw.dual_conv1x1(*args), "daclip::pointwise::"),
                        plain_ms=time_ms(lambda: pw.dual_conv1x1_reference(*args)),
-                       bound_ms=bms, bound_by=by, library_ms=lib and time_ms(lib))
+                       bound_ms=bms, bound_by=by, library_ms=lib and time_ms(lib),
+                       library_device_ms=lib and device_ms(lib, ""))
             emit(**row)
             rows["dual"].append(row)
             check(torch.isfinite(got).all().item(), f"dual_conv1x1 {form} {R, cx, cs, O} "
                   "not finite")
             check(err <= limit, f"dual_conv1x1 {form} {R, cx, cs, O, dtype} rel err {err}")
+            check(repeats, f"dual_conv1x1 {form} {R, cx, cs, O, dtype}: two calls differ")
 
     # the training step's shapes (B=16): linear_attention_fused at the five
     # (n, C) of the six sites, production-like and balanced, and the single
@@ -550,6 +590,7 @@ def run_kernels_alt():
         w = (torch.randn(K, O, generator=gen, device="cuda") * K ** -0.5).to(dtype)
         got = pw.dual_conv1x1(x, None, w)
         torch.cuda.synchronize()
+        repeats = torch.equal(pw.dual_conv1x1(x, None, w), got)
         want = pw.dual_conv1x1_reference(x.float(), None, w.float())
         abs_err = float((got.float() - want).abs().max())
         err = abs_err / float(want.abs().max())
@@ -557,15 +598,19 @@ def run_kernels_alt():
         bms, by = bound_ms((R * K + R * O + K * O) * x.element_size(), 2 * R * K * O, dtype)
         row = dict(phase="kernels_alt", kernel="dual_conv1x1", form="single", path="train",
                    shape=[R, cx, cs, O], dtype=str(dtype).split(".")[-1], max_rel_err=err,
-                   max_abs_err=abs_err, limit=limit,
+                   max_abs_err=abs_err, limit=limit, repeats_bitwise=repeats,
                    kernel_ms=time_ms(lambda: pw.dual_conv1x1(x, None, w), iters=10),
+                   device_ms=device_ms(lambda: pw.dual_conv1x1(x, None, w),
+                                       "daclip::pointwise::"),
                    plain_ms=time_ms(lambda: pw.dual_conv1x1_reference(x, None, w), iters=10),
                    bound_ms=bms, bound_by=by,
-                   library_ms=time_ms(lambda: torch.matmul(x, w), iters=10))
+                   library_ms=time_ms(lambda: torch.matmul(x, w), iters=10),
+                   library_device_ms=device_ms(lambda: torch.matmul(x, w), ""))
         emit(**row)
         rows["dual"].append(row)
         check(torch.isfinite(got).all().item(), f"dual_conv1x1 single {R, K, O} not finite")
         check(err <= limit, f"dual_conv1x1 single {R, K, O, dtype} rel err {err}")
+        check(repeats, f"dual_conv1x1 single {R, K, O, dtype}: two calls differ")
         del x, w, got, want
     return rows, core_path
 
@@ -941,12 +986,15 @@ def run_profile(restorer, forwards=5, wiring="v5"):
             for _ in range(forwards):
                 step()
             torch.cuda.synchronize()
-    by_name, launches = {}, 0
+    by_name, launches, ours = {}, 0, {}
     conv_us, conv_calls = 0.0, 0  # the 3×3 convs: aten::conv2d with a (O, C, 3, 3) weight
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             launches += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            if "daclip::" in e.name:  # the port's kernels by namespace (wrap, flash, …)
+                ns = e.name.split("daclip::", 1)[1].split("::", 1)[0]
+                ours[ns] = ours.get(ns, 0.0) + e.time_range.elapsed_us() / forwards / 1e3
         elif (e.name == "aten::conv2d" and len(e.input_shapes) > 1
               and list(e.input_shapes[1][-2:]) == [3, 3]):
             conv_calls += 1
@@ -963,6 +1011,7 @@ def run_profile(restorer, forwards=5, wiring="v5"):
          conv3x3_calls_per_forward=conv_calls / forwards,
          conv3x3_device_ms_per_forward=conv_ms if launches else None,
          conv3x3_share_of_device=conv_ms / kernel_ms if launches else None,
+         daclip_ms_per_forward_by_namespace=ours,
          top=[dict(name=k[:90], ms_per_forward=v / forwards / 1e3) for k, v in top])
 
 
@@ -1043,7 +1092,8 @@ def run_kernels_bwd():
         torch.cuda.synchronize()
         repeats = all(torch.equal(a, b) for a, b in zip(got.values(), bwd()))
         want_out = fa.attention_reference(q.float(), k.float(), v.float(), H, D)
-        fwd = dict(max_abs_err=float((out.float() - want_out).abs().max()),
+        fwd = dict(max_rel_err=rel_err(out, want_out),
+                   max_abs_err=float((out.float() - want_out).abs().max()),
                    limit=LIMITS[("flash", dtype)])
         want = fa.attention_bwd_reference(q.float(), k.float(), v.float(), want_out,
                                           dout.float(), H, D)
@@ -1070,8 +1120,8 @@ def run_kernels_bwd():
                    library_device_ms=device_ms(lib, ""))
         emit(**row)
         rows["flash_bwd"].append(row)
-        check(fwd["max_abs_err"] <= fwd["limit"],
-              f"flash {B, N, H, D, dtype}: forward max err {fwd}")
+        check(fwd["max_rel_err"] <= fwd["limit"],
+              f"flash {B, N, H, D, dtype}: forward rel err {fwd}")
         check(all(bool(torch.isfinite(g).all()) for g in got.values()),
               f"flash bwd {B, N, H, D, dtype} not finite")
         check(row["max_rel_err"] <= limit, f"flash bwd {B, N, H, D, dtype} rel err {errs}")
@@ -1354,6 +1404,12 @@ def main():
     for fwd, bwd in (("wrap", "wrap_bwd"), ("flash", "flash_bwd")):
         # the forward also as training calls it, checked in kernels_bwd
         abs_err[fwd] = max(abs_err[fwd], *(x["forward"]["max_abs_err"] for x in bf16(bwd)))
+    emit(phase="kernels_vs_library", what="each kernel's device ms over the one PyTorch call's "
+         "on the same inputs (torch.profiler), where one computes the same function",
+         rows=[dict(kernel=r["kernel"], shape=r["shape"], path=r.get("path"), form=r.get("form"),
+                    over_library=r["device_ms"] / r["library_device_ms"])
+               for key in ("flash", "dual", "flash_bwd", "conv3x3") for r in rows[key]
+               if r.get("device_ms") and r.get("library_device_ms")])
     summary = []
     la_py, la_cu = "daclip_tpu/ops/linear_attention.py", "daclip_torch/csrc/linear_attention.cu"
     for key, name_, src, replaces, pick in (
@@ -1380,14 +1436,17 @@ def main():
         if "bwd" in key:
             entry.update(max_rel_err=max(x["max_rel_err"] for x in bf16(key)),
                          rel_err_is="max over gradients of max |kernel - plain| / max |plain|")
-        elif key in ("core", "dual", "conv3x3"):
-            entry.update(max_rel_err=max(x["max_rel_err"] for x in bf16(key)),
-                         rel_err_is="max |kernel - plain| / max |plain|")
+        elif key in ("flash", "core", "dual", "conv3x3"):
+            rels = [x["max_rel_err"] for x in bf16(key)]
+            if key == "flash":  # the forward also as training calls it
+                rels += [x["forward"]["max_rel_err"] for x in bf16("flash_bwd")]
+            entry.update(max_rel_err=max(rels), rel_err_is="max |kernel - plain| / max |plain|")
         check(entry["launches"] > 0, f"{name_} was launched no time on its path")
         summary.append(dict(entry, ms=r["kernel_ms"], device_ms=r.get("device_ms"),
                             plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+                            library_ms=r["library_ms"],
+                            library_device_ms=r.get("library_device_ms")))
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -29,7 +29,8 @@
 // or k and v) stay in registers as mma.sync A fragments. The other side's
 // 64-row tiles (k and v, or q, dO, lse and dsum) stream through a 3-stage
 // cp.async ring in shared memory, bf16 rows padded to D + 8 elements so that
-// every ldmatrix is free of bank conflicts. Per tile the warp computes S (dkv:
+// every ldmatrix is free of bank conflicts (the tile helpers are shared with
+// the forward, flash_tiles.cuh). Per tile the warp computes S (dkv:
 // Sᵀ = K·Qᵀ) and dP on mma.sync m16n8k16 with f32 accumulators, turns them into
 // P and dS in those registers, and feeds them, rounded to bf16 and re-packed
 // as A fragments without a trip through shared memory (mma.cuh `pack_a`),
@@ -44,6 +45,7 @@
 // f32 (`dq_kernel`, `dkv_kernel`): scalar FMA in f32, 4 threads per query or
 // key, operands in shared memory as f32, as the plain version computes.
 #include "common.cuh"
+#include "flash_tiles.cuh"
 #include "mma.cuh"
 
 namespace daclip {
@@ -73,59 +75,17 @@ dsum_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restri
 // -- bf16: tensor cores ---------------------------------------------------------
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-constexpr int ROWS = 64;    // the CTA's own rows: 16 per warp
-constexpr int COLS = 64;    // rows of a streamed tile
-constexpr int THREADS = 128;
-constexpr int STAGES = 3;
+using namespace flash_tiles;
 
 template <int D>
 struct Smem {
-  static constexpr int LD = D + 8;                          // padded row, elements
+  static constexpr int LD = Tile<D>::LD;
   static constexpr int CHUNK = D == 32 ? 64 : 32;           // tile columns per pass
-  static constexpr size_t OPERAND = (size_t)COLS * LD * 2;  // one (64 × D) bf16 tile
+  static constexpr size_t OPERAND = Tile<D>::BYTES;         // one (64 × D) bf16 tile
   static constexpr size_t RESIDENT = 2 * OPERAND;           // the CTA's two operands
   static constexpr size_t STAGE = 2 * OPERAND + 2 * COLS * 4;  // two tiles (+ lse, dsum)
   static constexpr size_t BYTES = RESIDENT + STAGES * STAGE;
 };
-
-// Copy rows [r0, r0 + 64) of one head's (N, D) slice of a packed tensor into
-// a padded shared tile; rows past N are zero.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* __restrict__ dst, const bf16* __restrict__ src,
-                                          int r0, int N, int HD) {
-  constexpr int CH = D / 8;
-  for (int e = threadIdx.x; e < COLS * CH; e += THREADS) {
-    const int r = e / CH, c = (e - r * CH) * 8;
-    const bool ok = r0 + r < N;
-    mma::cp_async16(dst + r * Smem<D>::LD + c, src + (size_t)(ok ? r0 + r : 0) * HD + c, ok);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-}
-
-// Rows r and r + 8 (r = this lane's group) of a (16 × D) f32 accumulator,
-// cast to bf16, to rows `row` and `row` + 8 of a packed tensor if below N.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 8][4],
-                                           int row, int N, int HD) {
-  const int c = 2 * (threadIdx.x & 3);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (row < N)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row * HD + 8 * j + c) =
-          mma::pack_bf16(acc[j][0], acc[j][1]);
-    if (row + 8 < N)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)(row + 8) * HD + 8 * j + c) =
-          mma::pack_bf16(acc[j][2], acc[j][3]);
-  }
-}
 
 // dQ of 64 queries: Q, dO (registers), lse, dsum resident; K, V streamed.
 template <int D>

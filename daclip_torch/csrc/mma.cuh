@@ -2,8 +2,8 @@
 // mma.sync m16n8k16 product with f32 accumulators, ldmatrix (plain and
 // transposed), 16-byte cp.async with its commit/wait groups, the re-packing
 // of an accumulator into an A operand (FlashAttention-2's register reuse),
-// and the warpgroup's wgmma m64n64k16 with A in registers and B in shared
-// memory. Plain C interface, no PyTorch headers.
+// and the warpgroup's wgmma m64n64k16 with A in registers or in shared memory
+// and B in shared memory. Plain C interface, no PyTorch headers.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane l of the warp, g = l / 4 (the "group"), t = l % 4:
@@ -129,7 +129,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // chunk j stored at chunk j ^ (r % 8)), each atom 1024-byte aligned, `sbo`
 // bytes between the two 8-row halves of a k16 step (bits 0-13: address / 16,
 // 16-29: leading offset, unused with one 64-column atom, 32-45: sbo / 16,
-// 62-63: layout, 1 = 128-byte swizzle).
+// 62-63: layout, 1 = 128-byte swizzle). The same bits describe a K-major A
+// operand of 64 rows whose rows are 64 k (128 B, row r's chunk j at chunk
+// j ^ (r % 8)), sbo = 1024 between 8-row atoms: its k16 step kk starts 32·kk
+// bytes into the tile, and the swizzle is applied to the computed address.
 __device__ __forceinline__ uint64_t wgmma_desc_b128(const void* p, uint32_t sbo) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
@@ -173,6 +176,41 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[8][4], const uint32_t (&
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// D (64 × 64, f32) = A (64 × 16, bf16, shared memory, K-major, `desc_a`) ·
+// B (16 × 64, bf16, shared memory, N-major, `desc_b`) + D, or without the
+// + D when `accumulate` is 0 (a tile's first product: the accumulators need
+// no zeroing by other instructions, which would serialize the wgmma
+// pipeline); d as in wgmma_m64n64.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[8][4], uint64_t desc_a,
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// Keep the compiler from moving an accumulator's registers across an
+// asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
+__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
 }
 
 }  // namespace mma

@@ -6,8 +6,8 @@ wrappers, their plain PyTorch versions and the autograd Function over them.
 `flash_self_attention_bwd` of its backward `flash_self_attention_bwd_pallas`
 (:199). On a CUDA tensor each launches its hand-written kernel
 (`daclip_torch/csrc/flash_attention.cu`, FlashAttention-2 style;
-`csrc/flash_attention_bwd.cu`: dsum, dq, dk/dv, on mma.sync tensor cores in
-bf16) or raises; on a CPU tensor
+`csrc/flash_attention_bwd.cu`: dsum, dq, dk/dv; both on mma.sync tensor
+cores in bf16) or raises; on a CPU tensor
 each runs its plain version: `attention_reference`, the composition of
 `_reference` (:91-101), and `attention_bwd_reference`, the FA2 backward
 arithmetic of `_bwd_kernel` (:104-154). `flash_self_attention` is
@@ -77,10 +77,26 @@ def _check(q, k, v, heads, dim_head):
             raise ValueError("flash_self_attention: q, k, v must be contiguous")
 
 
+def _check_lse(lse, q, heads: int):
+    """Refuse a log-sum-exp that the backward kernel would misread: it streams
+    (B, heads, N) float32 rows from q's device by address."""
+    if lse is None:
+        raise ValueError("flash_self_attention_bwd on the card needs the forward's lse")
+    B, N, _ = q.shape
+    if (tuple(lse.shape) != (B, heads, N) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_self_attention_bwd: lse must be a contiguous ({B}, {heads}, "
+                         f"{N}) float32 tensor on {q.device}, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}"
+                         + ("" if lse.is_contiguous() else ", not contiguous"))
+
+
 def _forward_kernel(q, k, v, heads: int, dim_head: int, keep_lse: bool):
     """The forward kernel; with keep_lse also each query's log-sum-exp
     (B, heads, N) f32 for the backward."""
     _check(q, k, v, heads, dim_head)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16-byte chunks
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     lib = _build.library()
     B, N, _ = q.shape
     out = torch.empty_like(q)
@@ -108,8 +124,7 @@ def flash_self_attention_bwd(q, k, v, out, dout, heads: int, dim_head: int, lse=
     for t in (out, dout):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("flash_self_attention_bwd: out and dout must match q")
-    if lse is None:
-        raise ValueError("flash_self_attention_bwd on the card needs the forward's lse")
+    _check_lse(lse, q, heads)
     out, dout = out.contiguous(), dout.contiguous()
     if q.dtype == torch.bfloat16:  # the tensor-core kernels copy 16-byte chunks
         q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, dout))

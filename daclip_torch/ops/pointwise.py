@@ -5,7 +5,8 @@ ResBlock's `res_conv` on the ConditionalUNet's pointwise wiring.
 (daclip_tpu/ops/pointwise.py:121; `_dual_kernel` :37, `_single_kernel` :46):
 y = x·w[:Cx] + skip·w[Cx:], or y = x·w without a skip, over the rows of
 channels-last activations. On a CUDA tensor it launches the hand-written
-kernel of `daclip_torch/csrc/pointwise.cu` or raises; on a CPU tensor it runs
+kernel of `daclip_torch/csrc/pointwise.cu` (bf16 on `wgmma` tensor cores) or
+raises; on a CPU tensor it runs
 the plain version `dual_conv1x1_reference`. It is differentiable through
 `_DualConv1x1Fn`, whose backward is the three matmuls of JAX's `_dc_bwd`
 (:132-145), left to `torch.matmul` as JAX leaves them to XLA.

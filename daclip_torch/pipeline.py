@@ -116,13 +116,22 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+_NO_IMAGE_CONTEXT = ("the UNet has image-context modules (SpatialTransformers that attend "
+                     "to DA-CLIP's image features), and no DA-CLIP weights were given: pass "
+                     "the DA-CLIP checkpoint, or a UNet without image context")
+
+
 class DACLIPRestorer:
     """UNet + DaCLIP + IR-SDE on one device; `restore()` is the predict()
     entry point. `unet_sd`/`daclip_sd` are reference-named state dicts
-    (`daclip_sd=None` serves a context-free UNet)."""
+    (`daclip_sd=None` serves a UNet without image context; one with image
+    context is refused, as its SpatialTransformers need DA-CLIP's image
+    features)."""
 
     def __init__(self, cfg: RestorerConfig, unet_sd: Dict[str, torch.Tensor],
                  daclip_sd: Optional[Dict[str, torch.Tensor]] = None, device=None):
+        if daclip_sd is None and cfg.use_image_context and (cfg.context_dim or 0) > 0:
+            raise ValueError(_NO_IMAGE_CONTEXT)
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -150,7 +159,9 @@ class DACLIPRestorer:
              cfg: Optional[RestorerConfig] = None, device=None) -> "DACLIPRestorer":
         """Build from reference torch checkpoints (universal-ir.pth +
         daclip_ViT-B-32.pt), as predict.py:34-56 does. The UNet architecture
-        is inferred from its checkpoint and overrides `cfg`."""
+        is inferred from its checkpoint and overrides `cfg`. Without `daclip`
+        both contexts are off (as daclip_tpu's `load`), and a UNet with image
+        context is refused with a ValueError."""
         for path in (unet, daclip):
             if path is not None and os.path.isdir(path):
                 raise NotImplementedError(
@@ -170,6 +181,14 @@ class DACLIPRestorer:
             # the fork's regression head is not used in restoration
             daclip_sd = {k: v for k, v in load_torch_state_dict(daclip).items()
                          if not k.startswith("predictor.")}
+        elif arch["use_image_context"]:
+            raise ValueError(f"{unet!r}: {_NO_IMAGE_CONTEXT}")
+        else:
+            # as daclip_tpu's load: without DA-CLIP both contexts are off, and
+            # the degradation-context weights (which flax ignores) are dropped
+            cfg = dataclasses.replace(cfg, use_degra_context=False, use_image_context=False)
+            unet_sd = {k: v for k, v in unet_sd.items()
+                       if k != "prompt" and not k.startswith(("text_mlp.", "prompt_mlp."))}
         return cls(cfg, unet_sd, daclip_sd, device=device)
 
     # -- device helpers ----------------------------------------------------------

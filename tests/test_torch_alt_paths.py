@@ -390,9 +390,9 @@ def test_environment_sets_restorer_config_defaults(env, want):
         "import json, torch\n"
         "from daclip_torch.models.unet import ConditionalUNet, ResBlock\n"
         "from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig\n"
-        "cfg = RestorerConfig(nf=32, ch_mult=(1, 2), context_dim=32, dtype='float32')\n"
-        "sd = ConditionalUNet(nf=32, ch_mult=(1, 2), context_dim=32,\n"
-        "                     use_image_context=True).state_dict()\n"
+        "cfg = RestorerConfig(nf=32, ch_mult=(1, 2), context_dim=32, dtype='float32',\n"
+        "                     use_image_context=False)\n"
+        "sd = ConditionalUNet(nf=32, ch_mult=(1, 2), context_dim=32).state_dict()\n"
         "unet = DACLIPRestorer(cfg, sd, None, device='cpu').unet\n"
         "print(json.dumps([cfg.linear_attention, cfg.pointwise, cfg.pointwise_max_out,\n"
         "                  unet.ups[0][2].linear_attention,\n"

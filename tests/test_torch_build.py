@@ -18,12 +18,17 @@ def _includes():
 def test_every_quoted_include_is_a_hashed_source():
     hashed = {p.name for p in _build._sources()}
     found = list(_includes())
-    assert ("conv3x3.cu", "mma.cuh") in found and ("flash_attention_bwd.cu", "mma.cuh") in found
+    # the tensor-core kernels take their PTX from mma.cuh; both flash kernels
+    # their tiles from flash_tiles.cuh
+    for src in ("conv3x3.cu", "flash_attention_bwd.cu", "flash_attention.cu", "pointwise.cu"):
+        assert (src, "mma.cuh") in found, src
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert (src, "flash_tiles.cuh") in found, src
     for src, name in found:
         assert name in hashed, f"{src} includes {name}, which _build._sources() does not hash"
 
 
-@pytest.mark.parametrize("name", ["mma.cuh", "common.cuh", "conv3x3.cu"])
+@pytest.mark.parametrize("name", ["mma.cuh", "common.cuh", "conv3x3.cu", "flash_tiles.cuh"])
 def test_an_edit_to_a_source_changes_the_digest(tmp_path, monkeypatch, name):
     copy = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, copy, ignore=shutil.ignore_patterns("build"))

@@ -327,3 +327,17 @@ def test_backward_wrappers_on_cpu_count_no_launch_and_guard_the_card():
         tla.attn_wrap_bwd(*meta, meta[0])
     with pytest.raises(ValueError):
         tfa.flash_self_attention_bwd(*[torch.empty(1, 64, 64, device="meta")] * 5, 2, 32)
+
+
+@pytest.mark.parametrize("bad", ["missing", "shape", "dtype", "device", "strided"])
+def test_flash_bwd_refuses_an_lse_the_kernel_would_misread(bad):
+    """The backward kernel streams the forward's (B, heads, N) f32 lse by
+    address: any other lse is refused before a launch."""
+    q = torch.from_numpy(_qkv(2, 65, 4, 32)[0])
+    lse = torch.zeros(2, 4, 65)
+    tfa._check_lse(lse, q, 4)  # the forward's own
+    bad_lse = {"missing": None, "shape": torch.zeros(2, 65, 4),
+               "dtype": lse.to(torch.bfloat16), "device": torch.empty(2, 4, 65, device="meta"),
+               "strided": torch.zeros(2, 65, 4).transpose(1, 2)}[bad]
+    with pytest.raises(ValueError, match="lse"):
+        tfa._check_lse(bad_lse, q, 4)

@@ -173,3 +173,74 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 22
+
+
+# -- a restore without DA-CLIP, as daclip_tpu's `load` serves it ------------------
+def _seeded_unet_checkpoint(path, **kw):
+    """A reference-named UNet state dict filled from a numpy seed (fan-in
+    scaled weights, gains near 1), saved where `load` reads it."""
+    rng = np.random.RandomState(4)
+    sd = {}
+    for key, v in ConditionalUNet(**kw).state_dict().items():
+        shape = tuple(v.shape)
+        if len(shape) >= 2:
+            a = rng.randn(*shape) / np.sqrt(np.prod(shape[1:]))
+        elif key.endswith(".g") or (key.endswith(".weight") and len(shape) == 1):
+            a = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            a = 0.05 * rng.randn(*shape)
+        sd[key] = torch.from_numpy(np.asarray(a, np.float32))
+    torch.save(sd, path)
+    return sd
+
+
+def test_load_without_daclip_matches_jax_on_a_degradation_context_unet(tmp_path):
+    """daclip_tpu's `load` turns both contexts off without DA-CLIP; the port
+    does too, drops the degradation-context weights, and its UNet forward
+    equals the JAX one on the same inputs."""
+    from daclip_tpu import pipeline as jpipe
+
+    path = str(tmp_path / "unet.pth")
+    sd = _seeded_unet_checkpoint(path, nf=16, ch_mult=(1, 2), context_dim=32,
+                                 use_degra_context=True, use_image_context=False)
+    assert "prompt" in sd and "text_mlp.0.weight" in sd
+    ours = tpipe.DACLIPRestorer.load(path, None, tpipe.RestorerConfig(dtype="float32"),
+                                     device="cpu")
+    ref = jpipe.DACLIPRestorer.load(path, None, jpipe.RestorerConfig(dtype="float32"))
+    flags = lambda cfg: (cfg.use_degra_context, cfg.use_image_context)
+    assert flags(ours.cfg) == flags(ref.cfg) == (False, False)
+    assert ours.contexts([np.zeros((32, 32, 3), np.float32)]) == (None, None)
+    assert not hasattr(ours.unet, "text_mlp")
+
+    rng = np.random.RandomState(5)
+    xt = rng.randn(1, 32, 32, 3).astype(np.float32)
+    cond = rng.rand(1, 32, 32, 3).astype(np.float32)
+    t = np.asarray([37.0], np.float32)
+    want = np.asarray(ref.unet.apply({"params": ref.unet_params}, xt, cond, t, None, None))
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+    with torch.no_grad():
+        got = ours.unet(nchw(xt), nchw(cond), torch.from_numpy(t)).numpy().transpose(0, 2, 3, 1)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_an_image_context_unet_without_daclip_is_refused(tmp_path):
+    """Its SpatialTransformers need DA-CLIP's image features: the port's
+    `load` and constructor refuse it with a ValueError; daclip_tpu's `load`
+    gives a restorer whose first restore fails (its context-free UNet finds
+    no parameters for the linear attention at the spatial level)."""
+    from daclip_tpu import pipeline as jpipe
+
+    path = str(tmp_path / "unet.pth")
+    kw = dict(nf=32, ch_mult=(1, 2), context_dim=32, use_degra_context=True,
+              use_image_context=True, spatial_attn_min_level=1)
+    sd = _seeded_unet_checkpoint(path, **kw)
+    with pytest.raises(ValueError, match="image-context"):
+        tpipe.DACLIPRestorer.load(path, None, tpipe.RestorerConfig(dtype="float32"),
+                                  device="cpu")
+    cfg = tpipe.RestorerConfig(nf=32, ch_mult=(1, 2), context_dim=32,
+                               spatial_attn_min_level=1, dtype="float32")
+    with pytest.raises(ValueError, match="image-context"):
+        tpipe.DACLIPRestorer(cfg, sd, None, device="cpu")
+    ref = jpipe.DACLIPRestorer.load(path, None, jpipe.RestorerConfig(dtype="float32"))
+    with pytest.raises(Exception, match="Could not find parameter"):
+        ref.restore(np.random.RandomState(1).rand(32, 32, 3).astype(np.float32))
