@@ -4,12 +4,14 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printing JSON lines:
   0 device   the card (nvidia-smi name and power limit), torch and CUDA versions
-  1 build    nvcc builds daclip_torch/csrc/*.cu (one process per source)
+  1 build    nvcc builds daclip_torch/csrc/*.cu (one process per source); no
+             instantiation of the linear-attention kernels may spill
   2 kernels  each kernel against its plain PyTorch version at every shape the
              restore path gives it (the wrap also on inputs where the
              attention is as large as the bias, at each shape), the flash
              forward also at the training step's shapes keeping its lse (held
-             against torch.logsumexp) and called twice (the bytes must repeat);
+             against torch.logsumexp); the wrap and flash called twice (the
+             bytes must repeat);
              times (median of CUDA-event timed calls after warm-up, and the
              device time of the kernels alone from torch.profiler), the bound,
              and for flash the one-call PyTorch yardstick
@@ -19,7 +21,8 @@ Phases, each printing JSON lines:
              with and without prenorm/residual) at the six sites on
              production-like and balanced inputs plus a ragged and an f32
              case; the attention core linear_attention at the six sites (its
-             path: one call at each, counted); dual_conv1x1 at the four
+             path: one call at each, counted), each linear-attention kernel
+             called twice (the bytes must repeat); dual_conv1x1 at the four
              res_conv shapes of the nine sites, both forms, plus ragged and
              f32 cases and five at the bf16 kernel's tile edges, each called
              twice (the bytes must repeat), with torch.matmul as the single
@@ -60,9 +63,12 @@ Phases, each printing JSON lines:
              backward's statistics) against the plain forward, then each
              backward kernel against its plain backward, every gradient
              relative to its own max (dW_qkv per q/k/v block), flash also
-             at N of 65 and 129 and called twice (the bytes must repeat);
-             event and device times, bounds, and for flash the backward of
-             scaled_dot_product_attention as the yardstick (timed here only)
+             at N of 65 and 129; the wrap's forward and backward and flash's
+             backward called twice (the bytes must repeat); event and device
+             times, bounds, for flash the backward of
+             scaled_dot_product_attention as the yardstick, and at each wrap
+             site its weight-gradient launch (dW_qkv = xnᵀ·dqkv) against an
+             f32 matmul and beside torch.matmul(xn.T, dqkv) (timed here only)
   7 train_check  a small UNet (a wrap and a SpatialTransformer) in f32: the
              loss and every parameter gradient through the kernels against
              the same through the plain versions, then 8 AdamW steps on one
@@ -185,6 +191,9 @@ FLASH_BWD_SHAPES = [(16, 1024, 8, 32, torch.bfloat16), (16, 1024, 16, 32, torch.
 # balanced inputs included; 1.8e-6 and 9e-7 in f32 with TF32 off)
 BWD_LIMITS = {("wrap", torch.bfloat16): 2e-2, ("wrap", torch.float32): 1e-5,
               ("flash", torch.bfloat16): 2e-2, ("flash", torch.float32): 1e-5}
+# the weight-gradient launch (f32 sums of bf16 products over up to 1,048,576
+# rows, in another order) against an f32 matmul, relative to its max
+WGRAD_LIMIT = 1e-4
 TRAIN_CHECK_LIMIT = 1e-4  # worst per-tensor relative gradient error, f32 (read: 2e-6)
 # the forward's log-sum-exp against torch.logsumexp of the f32 logits (read:
 # 1.4e-6 in bf16, from f32 sums of exponentials on the SFU)
@@ -348,6 +357,7 @@ def run_kernels():
         args = wrap_case(B, n, C, dtype, gen, balanced)
         got = la.attn_wrap(*args)
         torch.cuda.synchronize()
+        repeats = torch.equal(la.attn_wrap(*args), got)
         fargs = [a.float() for a in args]
         want = la.attn_wrap_reference(*fargs)
         err = (got.float() - want).abs()
@@ -355,6 +365,7 @@ def run_kernels():
         row = dict(phase="kernels", kernel="attn_wrap", shape=[B, n, C],
                    dtype=str(dtype).split(".")[-1], balanced=balanced,
                    max_abs_err=float(err.max()), mean_abs_err=float(err.mean()), limit=limit,
+                   repeats_bitwise=repeats,
                    attention_share=attention_share(want, fargs[0], fargs[4], fargs[5]))
         if not balanced:  # time each shape once
             esize = args[0].element_size()
@@ -368,6 +379,7 @@ def run_kernels():
         rows["wrap"].append(row)
         what = f"wrap {B, n, C, dtype}" + (" balanced" if balanced else "")
         check(torch.isfinite(got).all().item(), f"{what} not finite")
+        check(repeats, f"{what}: two calls differ")
         check(row["max_abs_err"] <= limit, f"{what} max err {row['max_abs_err']}")
         if dtype == torch.bfloat16:
             check(row["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16,
@@ -452,6 +464,7 @@ def run_kernels_alt():
             args = [x, g_pre, *w] if raw else [xn, *w]
             got = kernel(*args)
             torch.cuda.synchronize()
+            repeats = torch.equal(kernel(*args), got)
             fargs = [a.float() for a in args]
             want = plain(*fargs)
             err = (got.float() - want).abs()
@@ -462,7 +475,7 @@ def run_kernels_alt():
                        dtype=str(dtype).split(".")[-1], balanced=balanced,
                        prenorm_residual=raw if name == "attn_wrap_fused" else None,
                        max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
-                       limit=limit, attention_share=share)
+                       limit=limit, repeats_bitwise=repeats, attention_share=share)
             if not balanced:
                 bms, by = linattn_bound(B, n, C, x.element_size(), dtype)
                 row.update(kernel_ms=time_ms(lambda: kernel(*args)),
@@ -474,6 +487,7 @@ def run_kernels_alt():
             what = f"{name} {B, n, C, dtype}" + (" raw x" if raw else "") + (
                 " balanced" if balanced else "")
             check(torch.isfinite(got).all().item(), f"{what} not finite")
+            check(repeats, f"{what}: two calls differ")
             check(row["max_abs_err"] <= limit, f"{what} max err {row['max_abs_err']}")
             if dtype == torch.bfloat16:
                 check(row["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16,
@@ -498,6 +512,7 @@ def run_kernels_alt():
     for qkv, got in zip(qkvs, outs):
         B, n, _ = qkv.shape
         dtype = qkv.dtype
+        repeats = torch.equal(la.linear_attention(qkv), got)
         want = la.linear_attention_reference(qkv.float())
         err = float((got.float() - want).abs().max() / want.abs().max())
         limit = LIMITS[("core", dtype)]
@@ -506,6 +521,7 @@ def run_kernels_alt():
         row = dict(phase="kernels_alt", kernel="linear_attention", shape=[B, n, 384],
                    dtype=str(dtype).split(".")[-1], max_rel_err=err,
                    max_abs_err=float((got.float() - want).abs().max()), limit=limit,
+                   repeats_bitwise=repeats,
                    kernel_ms=time_ms(lambda: la.linear_attention(qkv)),
                    device_ms=device_ms(lambda: la.linear_attention(qkv), "daclip::wrap::"),
                    plain_ms=time_ms(lambda: la.linear_attention_reference(qkv)),
@@ -514,6 +530,7 @@ def run_kernels_alt():
         rows["core"].append(row)
         check(torch.isfinite(got).all().item(), f"core {B, n, dtype} not finite")
         check(err <= limit, f"core {B, n, dtype} rel err {err}")
+        check(repeats, f"core {B, n, dtype}: two calls differ")
     del qkvs, outs
 
     for R, cx, cs, O, dtype in DUAL_SHAPES:
@@ -557,6 +574,7 @@ def run_kernels_alt():
         del x, g_pre
         got = la.linear_attention_fused(*args)
         torch.cuda.synchronize()
+        repeats = torch.equal(la.linear_attention_fused(*args), got)
         fargs = [a.float() for a in args]
         want = la.fused_composition_reference(*fargs)
         err = (got.float() - want).abs()
@@ -565,7 +583,7 @@ def run_kernels_alt():
         row = dict(phase="kernels_alt", kernel="linear_attention_fused", path="train",
                    shape=[B, n, C], dtype=str(dtype).split(".")[-1], balanced=balanced,
                    max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
-                   limit=limit, attention_share=share)
+                   limit=limit, repeats_bitwise=repeats, attention_share=share)
         if not balanced:
             bms, by = linattn_bound(B, n, C, args[0].element_size(), dtype)
             row.update(kernel_ms=time_ms(lambda: la.linear_attention_fused(*args), iters=10),
@@ -576,6 +594,7 @@ def run_kernels_alt():
         rows["fused_v4"].append(row)
         what = f"linear_attention_fused {B, n, C, dtype}" + (" balanced" if balanced else "")
         check(torch.isfinite(got).all().item(), f"{what} not finite")
+        check(repeats, f"{what}: two calls differ")
         check(row["max_abs_err"] <= limit, f"{what} max err {row['max_abs_err']}")
         check(row["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16,
               f"{what} mean err {row['mean_abs_err']}")
@@ -1030,6 +1049,31 @@ def wrap_grads(grads):
                 dw_v=dw_qkv[:, 256:], dw_out=dw_out, db_out=db_out, dg_out=dg_out)
 
 
+def wgrad_yardstick(la, B, n, C, dtype, gen):
+    """The weight-gradient launch alone at a wrap site, dW_qkv = xnᵀ·dqkv over
+    the B·n rows (the larger of its two products), beside its one-call
+    yardstick torch.matmul(xn.T, dqkv) on the same inputs (timed here only;
+    device ms from torch.profiler)."""
+    from daclip_torch.ops import _build
+
+    xn = torch.randn(B * n, C, generator=gen, device="cuda").to(dtype)
+    dqkv = torch.randn(B * n, 3 * la.HID, generator=gen, device="cuda").to(dtype)
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel = lambda: la._wgrad(lib, xn, dqkv, stream)
+    library = lambda: torch.matmul(xn.t(), dqkv)
+    got = kernel()
+    want = torch.matmul(xn.float().t(), dqkv.float())  # f32, TF32 off
+    err = rel_err(got, want)
+    del want
+    check(err <= WGRAD_LIMIT, f"wgrad {B * n, C, 3 * la.HID} rel err {err}")
+    return dict(wgrad_rel_err=err,
+                wgrad_ms=time_ms(kernel, iters=10),
+                wgrad_device_ms=device_ms(kernel, "wgrad"),
+                wgrad_library_ms=time_ms(library, iters=10),
+                wgrad_library_device_ms=device_ms(library, ""))
+
+
 def run_kernels_bwd():
     from daclip_torch.ops import flash_attention as fa
     from daclip_torch.ops import linear_attention as la
@@ -1042,12 +1086,19 @@ def run_kernels_bwd():
         out, stats = la._forward_kernel(*args, keep_stats=True)
         got = wrap_grads(la.attn_wrap_bwd(*args, dout, stats=stats))
         torch.cuda.synchronize()
+        # both calls again: forward (output and kept statistics) and backward
+        out2, stats2 = la._forward_kernel(*args, keep_stats=True)
+        again = wrap_grads(la.attn_wrap_bwd(*args, dout, stats=stats2))
+        fwd_repeats = torch.equal(out, out2) and all(
+            torch.equal(a, b) for a, b in zip(stats, stats2))
+        repeats = all(torch.equal(got[k], again[k]) for k in got)
+        del out2, stats2, again
         fargs = [a.float() for a in args]
         want_out = la.attn_wrap_reference(*fargs)
         fwd_err = (out.float() - want_out).abs()
         share = attention_share(want_out, fargs[0], fargs[4], fargs[5])
         fwd = dict(max_abs_err=float(fwd_err.max()), mean_abs_err=float(fwd_err.mean()),
-                   limit=LIMITS[("wrap", dtype)])
+                   limit=LIMITS[("wrap", dtype)], repeats_bitwise=fwd_repeats)
         del out, want_out, fwd_err
         want = wrap_grads(la.attn_wrap_bwd_reference(*fargs, dout.float()))
         errs = {k: rel_err(got[k], want[k]) for k in got}
@@ -1058,8 +1109,9 @@ def run_kernels_bwd():
         row = dict(phase="kernels_bwd", kernel="attn_wrap_bwd", shape=[B, n, C],
                    dtype=str(dtype).split(".")[-1], balanced=balanced, forward=fwd,
                    rel_err=errs, max_rel_err=max(errs.values()), max_abs_err=abs_err,
-                   limit=limit, attention_share=share)
+                   limit=limit, repeats_bitwise=repeats, attention_share=share)
         if not balanced:
+            row.update(wgrad_yardstick(la, B, n, C, dtype, gen))
             esize = args[0].element_size()
             nbytes = (3 * B * n * C + 2 * (C * 384 + 128 * C + 3 * C)) * esize
             bms, by = bound_ms(nbytes, 2 * B * n * (1536 * C + 20480), dtype)
@@ -1074,6 +1126,8 @@ def run_kernels_bwd():
         rows["wrap_bwd"].append(row)
         what = f"wrap bwd {B, n, C, dtype}" + (" balanced" if balanced else "")
         check(fwd["max_abs_err"] <= fwd["limit"], f"{what}: forward max err {fwd}")
+        check(fwd_repeats, f"{what}: two forward calls differ")
+        check(repeats, f"{what}: two backward calls differ")
         if dtype == torch.bfloat16:
             check(fwd["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16, f"{what}: forward mean err {fwd}")
         check(finite, f"{what} not finite")
@@ -1365,8 +1419,14 @@ def main():
     t0 = time.perf_counter()
     lib = _build.library()
     log = pathlib.Path(lib._name).with_suffix(".log")  # this library's build
-    emit(phase="build", seconds=time.perf_counter() - t0, library=str(lib._name),
-         ptxas=ptxas_summary(log.read_text() if log.exists() else ""))
+    ptxas = ptxas_summary(log.read_text() if log.exists() else "")
+    emit(phase="build", seconds=time.perf_counter() - t0, library=str(lib._name), ptxas=ptxas)
+    # no instantiation of the linear-attention kernels may spill registers
+    linattn = [ln for ln in ptxas if ln.startswith(("wrap::", "wrap_bwd::"))]
+    spills = [ln for ln in linattn if not (re.search(r"(?<!\d)0 bytes spill stores", ln)
+                                           and re.search(r"(?<!\d)0 bytes spill loads", ln))]
+    check(linattn, "the build log names no linear-attention kernel")
+    check(not spills, f"linear-attention kernels spill: {spills}")
 
     rows = run_kernels()
     alt_rows, core_path = run_kernels_alt()
@@ -1442,6 +1502,9 @@ def main():
                 rels += [x["forward"]["max_rel_err"] for x in bf16("flash_bwd")]
             entry.update(max_rel_err=max(rels), rel_err_is="max |kernel - plain| / max |plain|")
         check(entry["launches"] > 0, f"{name_} was launched no time on its path")
+        if key == "wrap_bwd":  # its weight-gradient launch beside torch.matmul
+            entry.update({k: r[k] for k in ("wgrad_ms", "wgrad_device_ms", "wgrad_library_ms",
+                                            "wgrad_library_device_ms")})
         summary.append(dict(entry, ms=r["kernel_ms"], device_ms=r.get("device_ms"),
                             plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
