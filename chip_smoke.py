@@ -54,6 +54,20 @@ Phases, each printing JSON lines:
              the module's own output, exactly 44 launches, the forward against
              serve_alt's plain one (limit: 3× the v5 bf16 forward's distance
              from its f32 forward)
+  4d text    DA-CLIP's text side at full width on the serve phase's bf16
+             DaCLIP (text tower: width 512, 12 layers, 8 heads, context 77)
+             with seeded level-predictor regressors: the tokenizer's host ms
+             for the 10 class names and the 28 level prompts; text_features
+             cold and cached; encode_text at B = 28, 256 and 1024 (median ms,
+             prompts/s, peak memory beside what was resident);
+             classify_degradation on four seeded 256² images (median ms,
+             top-1); DaCLIP(use_predictor=True).forward on 16 images with
+             both banks; the zero-shot classifier over the 10 classes × the
+             80 templates; no hand kernel launched. Then an f32 copy on the
+             card (TF32 off) against the same on the CPU, ≤ 1e-4: the 38
+             prompts' unit-norm features, the four images' probabilities,
+             the predictor's outputs (of their max); and each bf16 text
+             feature's cosine to its f32 one ≥ 0.99
   5 profile  one sampler step (a UNet forward at 256²): wall time, device
              kernel time by name, by the port's kernel namespaces and that of
              the 3×3 convs (torch.profiler)
@@ -981,6 +995,154 @@ def run_forward_conv(unet, fwd):
     return launches
 
 
+# -- phase 4d ------------------------------------------------------------------
+TEXT_BATCHES = (28, 256, 1024)   # the level prompts, and two prompt banks
+TEXT_LIMIT = 1e-4      # f32 on the card vs f32 on the CPU, max abs (the predictor's of its max)
+TEXT_COS_MIN = 0.99    # bf16 vs f32 on the card, each text feature's cosine
+
+
+def run_text(restorer, daclip_sd):
+    """DA-CLIP's text side at full width (ViT-B-32: text width 512, 12
+    layers, 8 heads, context 77): the serve phase's bf16 DaCLIP, and the
+    same weights in f32 on the card (TF32 off) and on the CPU, with seeded
+    level-predictor regressors."""
+    import dataclasses
+
+    from daclip_torch.data.csv_dataset import build_banks
+    from daclip_torch.eval.zero_shot import build_zero_shot_classifier, load_imagenet_metadata
+    from daclip_torch.models.clip import DaCLIP, MultiTypeDegradationPredictor
+    from daclip_torch.pipeline import DEGRADATION_CLASSES, DACLIPRestorer
+    from daclip_torch.tokenizer import _default_tokenizer, tokenize
+
+    model = restorer.daclip
+    L = model.cfg.text.context_length
+    tok = lambda texts: tokenize(texts, context_length=L)
+    reset_counts()
+    t0 = time.perf_counter()
+    _default_tokenizer()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cls_toks = tok(DEGRADATION_CLASSES)
+    bank, lvl_toks = build_banks(tok)
+    tok_ms = (time.perf_counter() - t0) * 1e3
+    emit(phase="text", what="tokenize", prompts=len(cls_toks) + len(lvl_toks),
+         host_ms=tok_ms, tokenizer_load_ms=load_ms)
+
+    # text_features of the restorer (bf16), cold then cached
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        feats_bf16_cls = restorer.text_features(DEGRADATION_CLASSES)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    emit(phase="text", what="text_features", classes=len(DEGRADATION_CLASSES),
+         cold_ms=ms[0], cached_ms=ms[1], shape=list(feats_bf16_cls.shape))
+    check(feats_bf16_cls.shape == (10, 512), "text_features shape")
+
+    # encode_text at three batch sizes, bf16
+    classnames, templates = load_imagenet_metadata()
+    prompts = [t.format(c) for c in classnames for t in templates][:max(TEXT_BATCHES)]
+    bank_toks = torch.from_numpy(tok(prompts)).cuda()
+    for B in TEXT_BATCHES:
+        toks = torch.from_numpy(lvl_toks).cuda() if B == 28 else bank_toks[:B]
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            out = model.encode_text(toks, normalize=True)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            t = time_ms(lambda: model.encode_text(toks, normalize=True), iters=10)
+        emit(phase="text", what="encode_text", batch=B, dtype="bfloat16", median_ms=t,
+             prompts_per_s=B / (t / 1e3), max_memory_allocated=peak,
+             memory_allocated_before=resident)
+        check(out.shape == (B, 512) and bool(torch.isfinite(out).all()),
+              f"encode_text at B={B}: shape {tuple(out.shape)} or not finite")
+
+    # classify_degradation on four seeded 256² images, bf16
+    rng = np.random.RandomState(5)
+    images = [rng.rand(256, 256, 3).astype(np.float32) for _ in range(4)]
+    restorer.classify_degradation(images[0])  # warm-up
+    ms, top1 = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        name, probs = restorer.classify_degradation(img)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        top1.append(name)
+        check(name in DEGRADATION_CLASSES and abs(sum(probs.values()) - 1) < 1e-3,
+              "classify_degradation's result")
+    emit(phase="text", what="classify_degradation", images=4, median_ms=float(np.median(ms)),
+         ms=ms, top1=top1)
+
+    # DaCLIP(use_predictor=True).forward: 16 images with both banks, bf16
+    pred_sd = {f"predictor.{k}": v for k, v in
+               seeded_state_dict(MultiTypeDegradationPredictor, seed=3).items()}
+    sd = dict(daclip_sd, **pred_sd)
+    cfg = model.cfg
+
+    def predictor_model(dtype, device):
+        m = DaCLIP(cfg, dtype=dtype, use_predictor=True)
+        m.load_state_dict({k: v.to(device) for k, v in sd.items()}, strict=True)
+        return m.to(device).eval()
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    imgs = torch.randn(16, 3, 224, 224, generator=gen, device="cuda")
+    banks = dict(all_d_type_tokens=torch.from_numpy(lvl_toks).cuda(),
+                 bin_center_bank=torch.from_numpy(bank).cuda())
+    pred_bf16 = predictor_model(torch.bfloat16, "cuda")
+    with torch.no_grad():
+        out = pred_bf16(image=imgs, **banks)
+        t = time_ms(lambda: pred_bf16(image=imgs, **banks), iters=10)
+    emit(phase="text", what="daclip_forward_predictor", images=16, dtype="bfloat16",
+         median_ms=t, pred_shape=list(out["pred"].shape),
+         pred_mean=[float(x) for x in out["pred"].float().mean(0)])
+    check(out["pred"].shape == (16, 4) and bool(torch.isfinite(out["pred"]).all()),
+          "the predictor's output shape or values")
+    del pred_bf16
+
+    # build_zero_shot_classifier: the 10 classes × the 80 templates, bf16
+    t0 = time.perf_counter()
+    clf = build_zero_shot_classifier(lambda t: model.encode_text(t, normalize=True), tok,
+                                     DEGRADATION_CLASSES, templates, device="cuda")
+    torch.cuda.synchronize()
+    emit(phase="text", what="build_zero_shot_classifier", classes=10, templates=len(templates),
+         ms=(time.perf_counter() - t0) * 1e3, shape=list(clf.shape))
+    check(clf.shape == (512, 10) and bool(torch.isfinite(clf).all()), "the classifier")
+    counts = read_counts()
+    emit(phase="text", what="hand_kernel_launches", launches=counts)
+    check(not any(counts.values()), f"the text path launched hand kernels: {counts}")
+
+    # the card against the port's CPU path, in f32: the 38 prompts' features,
+    # the four images' probabilities, the predictor's outputs
+    f32cfg = dataclasses.replace(restorer.cfg, dtype="float32")
+    unet_sd = restorer.unet.state_dict()
+    prompts38 = torch.from_numpy(np.concatenate([cls_toks, lvl_toks]))
+    feats, probs, preds = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        r = DACLIPRestorer(f32cfg, unet_sd, daclip_sd, device=device)
+        with torch.no_grad():
+            feats[device] = r.daclip.encode_text(prompts38.to(device), normalize=True).cpu()
+        probs[device] = np.array([[p[n] for n in DEGRADATION_CLASSES]
+                                  for p in (r.classify_degradation(im)[1] for im in images)])
+        m = predictor_model(torch.float32, device)
+        with torch.no_grad():
+            preds[device] = m(image=imgs.to(device),
+                              **{k: v.to(device) for k, v in banks.items()})["pred"].cpu()
+        del r, m
+    with torch.no_grad():
+        feats_bf16 = model.encode_text(prompts38.cuda(), normalize=True).float().cpu()
+    feat_err = float((feats["cuda"] - feats["cpu"]).abs().max())
+    prob_err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+    pred_err = float((preds["cuda"] - preds["cpu"]).abs().max() / preds["cpu"].abs().max())
+    cos = torch.nn.functional.cosine_similarity(feats_bf16, feats["cuda"], dim=-1)
+    emit(phase="text", what="check", features_f32_card_vs_cpu=feat_err,
+         probs_f32_card_vs_cpu=prob_err, pred_f32_card_vs_cpu_of_max=pred_err, limit=TEXT_LIMIT,
+         min_cos_bf16_vs_f32=float(cos.min()), cos_min=TEXT_COS_MIN)
+    check(feat_err <= TEXT_LIMIT, f"text features: f32 card vs CPU {feat_err}")
+    check(prob_err <= TEXT_LIMIT, f"classify probabilities: f32 card vs CPU {prob_err}")
+    check(pred_err <= TEXT_LIMIT, f"predictor: f32 card vs CPU {pred_err} of its max")
+    check(float(cos.min()) >= TEXT_COS_MIN, f"bf16 text feature cosine {float(cos.min())}")
+
+
 def run_profile(restorer, forwards=5, wiring="v5"):
     """Where one sampler step's time goes: one ConditionalUNet forward at 256²,
     B=1, bf16 — host wall time unprofiled, then the device kernels that
@@ -1438,6 +1600,7 @@ def main():
     run_profile(restorer)
     serve_alt_totals, fwd = run_serve_alt(restorer, sds)
     forward_conv = run_forward_conv(restorer.unet, fwd)
+    run_text(restorer, sds[1])
     del restorer, sds, fwd
     rows.update(run_kernels_bwd())
     for wiring in TRAIN_KERNELS:

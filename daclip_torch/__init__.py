@@ -1,10 +1,12 @@
-"""daclip_torch — the PyTorch/CUDA port of daclip_tpu's restore path.
+"""daclip_torch — the PyTorch/CUDA port of daclip_tpu.
 
 DaCLIP `encode_image(control=True)` → IR-SDE posterior sampler through the
-ConditionalUNet, with hand-written Hopper kernels for the UNet's
-linear-attention wrap and flash self-attention (`daclip_torch.ops`). It
-imports torch, never jax, and nothing of daclip_tpu; entry points run on
-CUDA unless given `device="cpu"`.
+ConditionalUNet, and the restoration training step, with hand-written Hopper
+kernels for the UNet's linear attention, flash self-attention, dual 1×1 and
+3×3 conv (`daclip_torch.ops`); DA-CLIP's text side (tokenizer, text tower,
+zero-shot degradation classification, the level predictor), PSNR/SSIM and
+the JAX package's `.npz` params. It imports torch, never jax, and nothing of
+daclip_tpu; entry points run on CUDA unless given `device="cpu"`.
 """
 from daclip_torch.models import CLIPCfg, ConditionalUNet, DaCLIP, get_model_config
 from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig

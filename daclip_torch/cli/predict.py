@@ -5,8 +5,10 @@ Usage:
       --unet pretrained/universal-ir.pth --daclip pretrained/daclip_ViT-B-32.pt
 
 The flags are those of `daclip_tpu.cli.predict`, plus `--device` (default
-CUDA). Flags for what is not ported yet (orbax train dirs: --checkpoint,
---no-ema, --step; --classify) are accepted and refused with an error.
+CUDA). `--unet` and `--daclip` take reference torch checkpoints or the JAX
+package's flat .npz params. The orbax train-dir flags (--checkpoint,
+--no-ema, --step) are accepted and refused with an error. Images are decoded
+with cv2.
 """
 from __future__ import annotations
 
@@ -21,11 +23,11 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="DA-CLIP universal image restoration")
     p.add_argument("-i", "--input", required=True, help="image file or folder")
     p.add_argument("-o", "--output", default="results", help="output folder")
-    p.add_argument("--unet", default=None, help="UNet weights: reference torch .pth")
+    p.add_argument("--unet", default=None, help="UNet weights: torch .pth or .npz")
     p.add_argument("--checkpoint", default=None,
                    help="orbax train dir (not ported yet)")
     p.add_argument("--daclip", default=None,
-                   help="DA-CLIP weights: reference torch .pt; omit for "
+                   help="DA-CLIP weights: torch .pt or .npz; omit for "
                         "context-free UNets")
     p.add_argument("--no-ema", action="store_true",
                    help="raw params from a train dir (not ported yet)")
@@ -42,14 +44,12 @@ def main(argv=None):
     p.add_argument("--wild-ir", action="store_true",
                    help="wild-ir variant (ViT-L-14 contexts, scale 0.5 UNet)")
     p.add_argument("--classify", action="store_true",
-                   help="zero-shot degradation classification (not ported yet)")
+                   help="also print zero-shot degradation classification")
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     args = p.parse_args(argv)
 
     if args.checkpoint or args.no_ema or args.step is not None:
-        p.error("orbax train dirs are not ported yet; pass --unet <torch .pth>")
-    if args.classify:
-        p.error("--classify needs the text tower, which is not ported yet")
+        p.error("orbax train dirs are not ported yet; pass --unet <torch .pth or .npz>")
     if not args.unet:
         p.error("--unet is required")
 
@@ -75,6 +75,10 @@ def main(argv=None):
         if img is None:
             continue
         rgb = img[:, :, ::-1].astype(np.float32) / 255.0
+        if args.classify:
+            name, probs = restorer.classify_degradation(rgb)
+            top = ", ".join(f"{k}={v:.2f}" for k, v in list(probs.items())[:3])
+            print(f"{os.path.basename(path)}: degradation={name} ({top})")
         t0 = time.perf_counter()
         out_bgr = restorer.restore(rgb, seed=args.seed)
         dt = time.perf_counter() - t0

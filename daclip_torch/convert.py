@@ -2,9 +2,11 @@
 
 `unet_state_dict_from_jax` and `daclip_state_dict_from_jax` are the exact
 inverses of `daclip_tpu/utils/torch_convert.py`'s `convert_unet` (:745-788)
-and `convert_daclip` (:590-610): they take the JAX package's parameter trees
-as nested dicts of numpy arrays and give reference-named torch state dicts
-that this package's modules load with `strict=True`.
+and `convert_daclip` (:590-610, with `convert_predictor` :579): they take the
+JAX package's parameter trees as nested dicts of numpy arrays and give
+reference-named torch state dicts that this package's modules load with
+`strict=True`. `resize_pos_embed` is `torch_convert.resize_pos_embed` (:407)
+without jax.
 
 Layouts: flax Conv kernel HWIO ↔ torch OIHW; flax Dense kernel (in, out) ↔
 torch Linear weight (out, in); ChannelLayerNorm g (C,) ↔ (1, C, 1, 1); the
@@ -14,10 +16,13 @@ p, p).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from daclip_torch.transforms import _bicubic
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -239,4 +244,40 @@ def daclip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             transformer_sub="transformer.transformer.resblocks",
             zero_prefix="visual_control.transformer.zero_modules")
     w.put("logit_scale", params["logit_scale"])
+    if "predictor" in params:
+        p = params["predictor"]
+        for i in range(np.asarray(p["reg_w1"]).shape[0]):
+            k = f"predictor.regressors.{i}"
+            w.put(f"{k}.0.weight", _t(p["reg_w1"][i]))
+            w.put(f"{k}.0.bias", p["reg_b1"][i])
+            w.put(f"{k}.2.weight", _t(p["reg_w2"][i]))
+            w.put(f"{k}.2.bias", p["reg_b2"][i])
     return w.sd
+
+
+def _cubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of `jax.image.resize(method="cubic",
+    antialias=True)` along one axis: Keys' a = -0.5 kernel at half-pixel
+    centres, widened by n_in / n_out when shrinking, each row normalised
+    over the input's extent."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    w = _bicubic((sample[:, None] - np.arange(n_in)[None, :]) / kernel_scale)
+    return w / w.sum(axis=1, keepdims=True)
+
+
+def resize_pos_embed(pos_embed, image_size: int, patch_size: int) -> torch.Tensor:
+    """A ViT's (1 + g·g, D) position embedding on an (image_size //
+    patch_size)² grid (model.py:451-483): the class token is kept and the
+    grid resized as `torch_convert.resize_pos_embed` does (bicubic with
+    antialias); unchanged when the grid already fits."""
+    pos = torch.as_tensor(pos_embed, dtype=torch.float32)
+    g_new = image_size // patch_size
+    if g_new * g_new + 1 == pos.shape[0]:
+        return pos
+    tok, grid = pos[:1], pos[1:].double().numpy()
+    g_old = int(math.sqrt(grid.shape[0]))
+    m = _cubic_resize_matrix(g_old, g_new)
+    grid = np.einsum("ai,ijd,bj->abd", m, grid.reshape(g_old, g_old, -1), m)
+    return torch.cat([tok, torch.from_numpy(grid.reshape(g_new * g_new, -1)).float()])

@@ -1,11 +1,12 @@
-"""CLIP and DaCLIP image towers, in PyTorch, plus the model-config registry.
+"""CLIP and DaCLIP in PyTorch, the fork's degradation-level predictor, and
+the model-config registry.
 
 Counterpart of `daclip_tpu/models/clip.py` (open_clip model.py:187-264,
-daclip_model.py:17-76). The port serves the restore path, so it computes
-`DaCLIP.encode_image(control=True)` only. The text tower's modules
-(`transformer`, `token_embedding`, `positional_embedding`, `ln_final`,
-`text_projection`) are defined so a released `daclip_ViT-B-32.pt` loads with
-`load_state_dict(strict=True)`; text encoding is not ported yet.
+daclip_model.py:17-76; the predictor da-clip/src/open_clip/daclip_model.py:
+17-169). Plain ViT image towers and the inlined CLIP text tower, under the
+reference's parameter names (`transformer`, `token_embedding`,
+`positional_embedding`, `ln_final`, `text_projection`), so a released
+`daclip_ViT-B-32.pt` loads with `load_state_dict(strict=True)`.
 """
 from __future__ import annotations
 
@@ -17,10 +18,11 @@ import pathlib
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from daclip_torch.models.layers import LayerNorm
-from daclip_torch.models.transformer import Transformer, VisionTransformer
+from daclip_torch.models.transformer import Transformer, VisionTransformer, causal_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,16 +187,27 @@ def _check_vit(cfg: CLIPCfg) -> None:
         raise NotImplementedError(
             "daclip_torch builds plain ViT towers only; ResNet, timm and CoCa "
             "towers are not ported yet")
+    if cfg.text.embed_cls:
+        raise NotImplementedError("CoCa's CLS text tower (embed_cls) is not ported yet")
+
+
+def _normalize(x, normalize: bool):
+    """x / ‖x‖ with the norm in float32, cast back to x's dtype."""
+    if not normalize:
+        return x
+    return x / torch.linalg.vector_norm(x.float(), dim=-1, keepdim=True).to(x.dtype)
 
 
 class CLIP(nn.Module):
-    """Dual-tower CLIP with the reference's (model.py:187-264) parameter names."""
+    """Dual-tower CLIP with the reference's (model.py:187-264) parameter
+    names; activations in `dtype`, parameters in float32."""
 
-    def __init__(self, cfg: CLIPCfg):
+    def __init__(self, cfg: CLIPCfg, dtype: torch.dtype = torch.float32):
         super().__init__()
         _check_vit(cfg)
         v, t = cfg.vision, cfg.text
         self.cfg = cfg
+        self.dtype = dtype
         self.visual = VisionTransformer(
             image_size=v.image_size, patch_size=v.patch_size, width=v.width,
             layers=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
@@ -208,22 +221,81 @@ class CLIP(nn.Module):
         self.text_projection = nn.Parameter(t.width ** -0.5 * torch.randn(t.width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
+    def encode_image(self, image, normalize: bool = False, control=None):
+        return _normalize(self.visual(image, control=control, dtype=self.dtype), normalize)
 
-def _normalize(x, normalize: bool):
-    if not normalize:
-        return x
-    return x / torch.linalg.vector_norm(x.float(), dim=-1, keepdim=True).to(x.dtype)
+    def encode_text(self, text, normalize: bool = False):
+        """text (B, L) token ids → (B, embed_dim): causal stack, ln_final on
+        every token, pooled at the EOT token (the highest id)."""
+        text = text.long()
+        L = text.shape[1]
+        x = F.embedding(text, self.token_embedding.weight).to(self.dtype)
+        x = x + self.positional_embedding[:L].to(self.dtype)
+        x = self.ln_final(self.transformer(x, mask=causal_mask(L, x.device)))
+        pooled = x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
+        return _normalize(pooled @ self.text_projection.to(self.dtype), normalize)
+
+    def forward(self, image=None, text=None):
+        return {
+            "image_features": (self.encode_image(image, normalize=True)
+                               if image is not None else None),
+            "text_features": (self.encode_text(text, normalize=True)
+                              if text is not None else None),
+            "logit_scale": self.logit_scale.exp(),
+        }
+
+
+class MultiTypeDegradationPredictor(nn.Module):
+    """The fork's degradation-level head (da-clip/src/open_clip/
+    daclip_model.py:17-81), in float32: cosine similarity of the degradation
+    feature to the 28 = 4 types × 7 bins level-prompt features, softmax at
+    temperature 0.07, a Linear(7→14)-ReLU-Linear(14→7)-Tanh delta per type,
+    and the expectation over the bin centers adjusted by 1 / (1 + delta)."""
+
+    def __init__(self, num_bins: int = 7, num_types: int = 4, temperature: float = 0.07):
+        super().__init__()
+        self.num_bins, self.num_types, self.temperature = num_bins, num_types, temperature
+        self.regressors = nn.ModuleList(
+            [nn.Sequential(nn.Linear(num_bins, 2 * num_bins), nn.ReLU(),
+                           nn.Linear(2 * num_bins, num_bins), nn.Tanh())
+             for _ in range(num_types)])
+
+    def forward(self, image_degra_features, all_d_type_tokens_features,
+                bin_center_features):
+        """(B, D) degradation features; (28, D) or (B, 28, D) prompt
+        features; (4, 7) or (B, 4, 7) bin centers → (B, 4)."""
+        B = image_degra_features.shape[0]
+        nt, nb = self.num_types, self.num_bins
+        f = image_degra_features.float()
+        tokf = all_d_type_tokens_features.float()
+        f = f / (torch.linalg.vector_norm(f, dim=-1, keepdim=True) + 1e-8)
+        tokf = tokf / (torch.linalg.vector_norm(tokf, dim=-1, keepdim=True) + 1e-8)
+        if tokf.ndim == 2:
+            sim = torch.einsum("bd,kd->bk", f, tokf)
+        else:
+            sim = torch.einsum("bd,bkd->bk", f, tokf)
+        probs = torch.softmax(sim / self.temperature, dim=-1).reshape(B, nt, nb)
+        sim_t = sim.reshape(B, nt, nb)
+        delta = torch.stack([reg(sim_t[:, i]) for i, reg in enumerate(self.regressors)],
+                            dim=1)
+        centers = torch.as_tensor(bin_center_features, dtype=torch.float32,
+                                  device=f.device)
+        adjusted = centers.expand(B, nt, nb) / (1.0 + delta)
+        return (probs * adjusted).sum(dim=-1)
 
 
 class DaCLIP(nn.Module):
-    """Frozen CLIP plus the controller vision tower (daclip_model.py:17-76).
-    `visual` is the same module as `clip.visual`, as in the reference."""
+    """Frozen CLIP plus the controller vision tower (daclip_model.py:17-76),
+    and with `use_predictor` the fork's level predictor (da-clip/src/
+    open_clip/daclip_model.py:83-169). `visual` is the same module as
+    `clip.visual`, as in the reference."""
 
-    def __init__(self, cfg: CLIPCfg, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: CLIPCfg, dtype: torch.dtype = torch.float32,
+                 use_predictor: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.clip = CLIP(cfg)
+        self.clip = CLIP(cfg, dtype=dtype)
         self.visual = self.clip.visual
         v = cfg.vision
         self.visual_control = VisionTransformer(
@@ -232,6 +304,7 @@ class DaCLIP(nn.Module):
             output_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu, controller=True,
             global_average_pool=v.global_average_pool)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+        self.predictor = MultiTypeDegradationPredictor() if use_predictor else None
 
     def encode_image(self, image, control: bool = False, normalize: bool = False):
         """image (B, 3, H, W), CLIP-normalised. With `control`, returns
@@ -240,6 +313,39 @@ class DaCLIP(nn.Module):
         if control:
             degra, hiddens = self.visual_control(image, output_hiddens=True,
                                                  dtype=self.dtype)
-            feats = self.clip.visual(image, control=hiddens, dtype=self.dtype)
-            return _normalize(feats, normalize), _normalize(degra, normalize)
-        return _normalize(self.clip.visual(image, dtype=self.dtype), normalize)
+            feats = self.clip.encode_image(image, normalize, control=hiddens)
+            return feats, _normalize(degra, normalize)
+        return self.clip.encode_image(image, normalize)
+
+    def encode_text(self, text, normalize: bool = False):
+        return self.clip.encode_text(text, normalize)
+
+    def forward(self, image=None, text=None, gt_images=None, deg_type=None, gt_val=None,
+                bin_center_bank=None, all_d_type_tokens=None):
+        """The training forward's outputs, without a loss
+        (daclip_tpu/models/clip.py:424-467). `text` is caption‖degradation
+        tokens, split in half along the token axis. With the predictor,
+        `all_d_type_tokens` (28, L) or a constant (B, 28, L) bank is encoded
+        once and `bin_center_bank` is (4, 7)."""
+        out = {"logit_scale": self.logit_scale.exp()}
+        if image is not None:
+            out["image_features"], out["image_degra_features"] = self.encode_image(
+                image, control=True, normalize=True)
+        if text is not None:
+            caption, degradation = text.chunk(2, dim=-1)
+            out["text_features"] = self.encode_text(caption, normalize=True)
+            out["text_degra_features"] = self.encode_text(degradation, normalize=True)
+        if gt_images is not None:
+            out["gt_image_features"] = self.encode_image(gt_images, normalize=True)
+        if self.predictor is not None and all_d_type_tokens is not None:
+            toks = all_d_type_tokens
+            if toks.ndim == 3:  # a constant (B, 28, L) bank: encode it once
+                toks = toks[0]
+            tok_f = self.encode_text(toks, normalize=True)
+            out["all_d_type_tokens_features"] = tok_f
+            out["bin_center_features"] = bin_center_bank
+            out["pred"] = self.predictor(out["image_degra_features"], tok_f,
+                                         bin_center_bank)
+            out["deg_type"] = deg_type
+            out["gt_val"] = gt_val
+        return out

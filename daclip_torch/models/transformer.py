@@ -1,4 +1,4 @@
-"""Transformer stacks for the CLIP vision tower and the DA-CLIP controller.
+"""Transformer stacks for the CLIP towers and the DA-CLIP controller.
 
 Counterpart of `daclip_tpu/models/transformer.py` (open_clip/transformer.py).
 The JAX package scans stacked (L, …) block parameters; here the blocks are an
@@ -56,6 +56,12 @@ class Transformer(nn.Module):
             if control is not None:
                 x = x + control.pop().to(x.dtype)
         return x
+
+
+def causal_mask(n: int, device=None) -> torch.Tensor:
+    """Additive (n, n) float32 causal mask, -inf above the diagonal
+    (open_clip/transformer.py:631-637)."""
+    return torch.full((n, n), float("-inf"), device=device).triu(1)
 
 
 class ControlTransformer(nn.Module):

@@ -8,6 +8,8 @@ Counterpart of `daclip_tpu/pipeline.py`. Per image:
   3. device: x_T = LQ + σ_max·ε, then the IR-SDE sampler (100 posterior
      steps by default), one ConditionalUNet forward per step,
   4. host: tensor2img rounding (`utils.metrics.array2img`).
+`classify_degradation` is DA-CLIP's zero-shot degradation classification:
+the degradation feature against the text features of the class names.
 
 Images are reflect-padded up to a 64-multiple bucket and cropped back; inputs
 larger than `tile_size` are restored in overlapping tiles with a feathered
@@ -30,12 +32,18 @@ import numpy as np
 import torch
 
 from daclip_torch import flags
-from daclip_torch.convert import infer_unet_arch, load_torch_state_dict
 from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
 from daclip_torch.models.unet import ConditionalUNet
 from daclip_torch.sde.irsde import IRSDE
+from daclip_torch.tokenizer import tokenize
 from daclip_torch.transforms import clip_transform
 from daclip_torch.utils.metrics import array2img
+from daclip_torch.utils.native_checkpoint import load_daclip_any, load_unet_any
+
+# 10 distortion types of the universal-ir model (options/train.yml:5)
+DEGRADATION_CLASSES = ["motion-blurry", "hazy", "jpeg-compressed", "low-light",
+                       "noisy", "raindrop", "rainy", "shadowed", "snowy",
+                       "uncompleted"]
 
 
 def default_buckets(max_size: int = 1024, step: int = 64):
@@ -116,6 +124,8 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+_NO_DACLIP = ("this restorer was loaded without a DA-CLIP checkpoint; classification "
+              "needs one")
 _NO_IMAGE_CONTEXT = ("the UNet has image-context modules (SpatialTransformers that attend "
                      "to DA-CLIP's image features), and no DA-CLIP weights were given: pass "
                      "the DA-CLIP checkpoint, or a UNet without image context")
@@ -153,23 +163,27 @@ class DACLIPRestorer:
         self.sde = IRSDE(max_sigma=cfg.max_sigma, T=cfg.T, sample_T=cfg.sample_T,
                          schedule=cfg.schedule, eps=cfg.eps)
         self.buckets = default_buckets(step=cfg.buckets_step)
+        self._text_feature_cache: Dict[tuple, np.ndarray] = {}
 
     @classmethod
     def load(cls, unet: str, daclip: Optional[str] = None,
              cfg: Optional[RestorerConfig] = None, device=None) -> "DACLIPRestorer":
         """Build from reference torch checkpoints (universal-ir.pth +
-        daclip_ViT-B-32.pt), as predict.py:34-56 does. The UNet architecture
-        is inferred from its checkpoint and overrides `cfg`. Without `daclip`
-        both contexts are off (as daclip_tpu's `load`), and a UNet with image
-        context is refused with a ValueError."""
+        daclip_ViT-B-32.pt), as predict.py:34-56 does, or from the JAX
+        package's flat .npz params (`utils/native_checkpoint.py`), each file
+        either. The UNet architecture is inferred from its checkpoint and
+        overrides `cfg`; a torch DA-CLIP's position embeddings are resized to
+        the config's grid. The fork's `predictor.*` is dropped. Without
+        `daclip` both contexts are off (as daclip_tpu's `load`), and a UNet
+        with image context is refused with a ValueError."""
         for path in (unet, daclip):
             if path is not None and os.path.isdir(path):
                 raise NotImplementedError(
                     f"{path!r} is a directory: daclip_torch loads reference torch "
-                    "checkpoints only; orbax train dirs and .npz are not ported yet")
+                    "checkpoints and flat .npz params; orbax train dirs are not "
+                    "ported yet")
         cfg = cfg or RestorerConfig()
-        unet_sd = load_torch_state_dict(unet)
-        arch = infer_unet_arch(unet_sd)
+        unet_sd, arch = load_unet_any(unet)
         cfg = dataclasses.replace(
             cfg, nf=arch["nf"], ch_mult=arch["ch_mult"],
             context_dim=arch["context_dim"],
@@ -178,8 +192,10 @@ class DACLIPRestorer:
             spatial_attn_min_level=arch["spatial_attn_min_level"])
         daclip_sd = None
         if daclip is not None:
+            vision = CLIPCfg.from_dict(get_model_config(cfg.model_name)).vision
             # the fork's regression head is not used in restoration
-            daclip_sd = {k: v for k, v in load_torch_state_dict(daclip).items()
+            daclip_sd = {k: v for k, v in load_daclip_any(daclip, vision.image_size,
+                                                          vision.patch_size).items()
                          if not k.startswith("predictor.")}
         elif arch["use_image_context"]:
             raise ValueError(f"{unet!r}: {_NO_IMAGE_CONTEXT}")
@@ -232,6 +248,40 @@ class DACLIPRestorer:
                                                     for im in images_rgb]))
         return (degra_ctx if self.cfg.use_degra_context else None,
                 img_ctx if self.cfg.use_image_context else None)
+
+    @torch.no_grad()
+    def text_features(self, class_names) -> np.ndarray:
+        """Normalised float32 text features of `class_names`, encoded once
+        per restorer and tuple of names."""
+        if self.daclip is None:
+            raise ValueError(_NO_DACLIP)
+        key = tuple(class_names)
+        if key not in self._text_feature_cache:
+            toks = tokenize(list(class_names),
+                            context_length=self.daclip.cfg.text.context_length)
+            feats = self.daclip.encode_text(torch.from_numpy(toks).to(self.device),
+                                            normalize=True)
+            self._text_feature_cache[key] = feats.float().cpu().numpy()
+        return self._text_feature_cache[key]
+
+    @torch.no_grad()
+    def classify_degradation(self, image_rgb: np.ndarray, class_names=None):
+        """Zero-shot degradation classification of one [0,1] float RGB HWC
+        image (evaluate_daclip.py:63-104): softmax(100 · cos) of its
+        degradation feature against the class names' text features, in
+        float32. Returns (best name, {name: probability} in descending
+        order)."""
+        if self.daclip is None:
+            raise ValueError(_NO_DACLIP)
+        class_names = class_names or DEGRADATION_CLASSES
+        res = self.daclip.cfg.vision.image_size
+        _, degra = self._encode(clip_transform(image_rgb, res)[None])
+        text_f = torch.from_numpy(self.text_features(class_names)).to(self.device)
+        d = degra[0]
+        probs = torch.softmax(100.0 * (text_f @ (d / torch.linalg.vector_norm(d))), dim=0)
+        probs = probs.cpu().numpy()
+        order = np.argsort(-probs)
+        return class_names[int(order[0])], {class_names[i]: float(probs[i]) for i in order}
 
     def restore(self, image_rgb: np.ndarray, seed: int = 0, return_uint8: bool = True):
         """Restore one [0,1] float RGB HWC image of any size."""

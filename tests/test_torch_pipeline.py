@@ -166,13 +166,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "need = ['daclip_torch.train.restoration', 'daclip_torch.train.schedules',\n"
         "        'daclip_torch.losses.matching', 'daclip_torch.utils.ema',\n"
         "        'daclip_torch.utils.checkpoint', 'daclip_torch.flags',\n"
-        "        'daclip_torch.ops.pointwise', 'daclip_torch.ops.conv3x3']\n"
+        "        'daclip_torch.ops.pointwise', 'daclip_torch.ops.conv3x3',\n"
+        "        'daclip_torch.tokenizer', 'daclip_torch.data.csv_dataset',\n"
+        "        'daclip_torch.data.util', 'daclip_torch.eval.zero_shot',\n"
+        "        'daclip_torch.eval.retrieval', 'daclip_torch.utils.metrics',\n"
+        "        'daclip_torch.utils.native_checkpoint']\n"
         "assert all(m in sys.modules for m in need), need\n"
+        "# the card's machine has none of these\n"
+        "absent = [m for m in sys.modules if m.split('.')[0] in ('regex', 'cv2', 'PIL', 'ftfy')]\n"
+        "assert not absent, absent\n"
         "print(len([m for m in sys.modules if m.startswith('daclip_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 22
+    assert int(res.stdout.strip()) >= 39
 
 
 # -- a restore without DA-CLIP, as daclip_tpu's `load` serves it ------------------
