@@ -40,8 +40,9 @@ Phases, each printing JSON lines:
              in the default wiring and in (v4, pointwise) and (v3, pointwise)
   4 serve    the production restore path at full width (ViT-B-32 DaCLIP, UNet
              nf=64 ch_mult 1,2,4,8, context 512, bf16, 100 posterior steps) on
-             seeded random weights: four requests through DACLIPRestorer, with
-             the kernels' launch counts per request
+             seeded random weights: four requests through DACLIPRestorer (the
+             first through serve/predictor.py from a PNG file to a PNG file),
+             with the kernels' launch counts per request
   4b serve_alt  the same weights in (v4, pointwise), (v3, pointwise) and (v5,
              pointwise): one full-width bf16 UNet forward each against the v5
              wiring's (limit: 3× the v5 bf16 forward's own distance from its
@@ -96,6 +97,18 @@ Phases, each printing JSON lines:
  10 train_alt  the same step in the (v4, pointwise) wiring: 2 warm-up and 3
              timed steps, peak memory, kernel calls per step, a profile of
              one step
+ 11 train_cli  `cli.train_restoration -opt train.yml` in process: the
+             production options (configs/daclip-sde/train.yml, distortion cut
+             to the tree's two types) on seeded PNG folders (2 × 8 pairs at
+             288 × 320, half with Up rows and half with Paeth; 2 val pairs at
+             256 × 272) with a seeded ViT-B-32 DA-CLIP .pt: 12 steps with
+             validation (2 images, 10 sampler steps) and checkpoints every 6,
+             a resume to 16, the exact launches of kernels #1-#4 (steps and
+             validation), the step function timed by a hook; before it, PNG
+             decode ms per row filter and the DataLoader's samples/s alone at
+             0 and 8 workers; after it, `cli.test_restoration` on the saved
+             EMA UNet over 2 LQGT pairs (256²) in an LMDB packed by
+             `tools.create_lmdb`, at T=100
 (train_check runs the default wiring, then (v4, pointwise) and (v3, pointwise).)
 Then each kernel's device time over its library call's (kernels_vs_library),
 the per-kernel summary line, the nvidia-smi line, and as the last line
@@ -103,10 +116,12 @@ the per-kernel summary line, the nvidia-smi line, and as the last line
 without a CUDA device it exits non-zero before printing any result.
 """
 import json
+import os
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -819,8 +834,20 @@ def run_serve():
             restorer.unet(x, x, torch.full((b,), 50.0, device="cuda"), c, c)
     torch.cuda.synchronize()
 
+    # the first request goes through serve/predictor.py from a PNG on disk to a
+    # PNG on disk (the port's own codec; the card's machine needs no cv2 for it)
+    from daclip_torch.data import png
+    from daclip_torch.serve.predictor import Predictor
+
+    tmp = tempfile.TemporaryDirectory()
+    in_png, out_png = os.path.join(tmp.name, "in.png"), os.path.join(tmp.name, "out.png")
+    png.write(in_png, (img(256, 256) * 255).round().astype(np.uint8))
+    predictor = Predictor()
+    predictor.restorer = restorer
     requests = [
-        ("restore_256x256", lambda: [restorer.restore(img(256, 256), seed=1)], [(256, 256, 3)]),
+        ("predict_png_256x256", lambda: [png.read(predictor.predict(in_png, seed=1,
+                                                                    out_path=out_png))],
+         [(256, 256, 3)]),
         ("restore_200x300", lambda: [restorer.restore(img(200, 300), seed=2)], [(200, 300, 3)]),
         ("restore_batch_2x256x256",
          lambda: restorer.restore_batch([img(256, 256), img(256, 256)], seed=3),
@@ -852,6 +879,7 @@ def run_serve():
         check(wrap_n == 6 * steps and flash_n == 3 * steps,
               f"{name}: {wrap_n} wrap / {flash_n} flash launches, expected "
               f"{6 * steps} / {3 * steps} for one {steps}-step sampler run")
+    tmp.cleanup()
     return restorer, totals, (unet_sd, daclip_sd)
 
 
@@ -1560,6 +1588,230 @@ def run_profile_train(full_step, step_ms, wiring="v5"):
          top=[dict(name=k[:90], ms=v / 1e3) for k, v in top])
 
 
+# -- phase 11 ------------------------------------------------------------------
+CLI_MD_SHAPE = (288, 320)      # (H, W) of the MD tree's images: H != W, both past the patch
+CLI_VAL_SHAPE = (256, 272)
+CLI_TEST_SHAPE = (256, 256)
+CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ, CLI_VAL_T = 12, 16, 6, 10
+
+
+def write_md_tree(root, types, pairs, shape, seed):
+    """`root/<type>/{GT,LQ}/<i>.png`: seeded GT and GT + noise as LQ, the
+    even pairs written with Up row filters and the odd ones with Paeth."""
+    from daclip_torch.data import png
+
+    rng = np.random.RandomState(seed)
+    for t in types:
+        for sub in ("GT", "LQ"):
+            (root / t / sub).mkdir(parents=True)
+        for i in range(pairs):
+            gt = rng.rand(*shape, 3)
+            lq = np.clip(gt + 0.1 * rng.randn(*shape, 3), 0, 1)
+            for sub, img in (("GT", gt), ("LQ", lq)):
+                png.write(str(root / t / sub / f"{i:03d}.png"),
+                          (img * 255).round().astype(np.uint8), ("up", "paeth")[i % 2])
+
+
+def png_decode_ms(shape=CLI_MD_SHAPE, repeats=3, seed=0):
+    """Median host ms of `data/png.decode` on one seeded BGR image of `shape`
+    encoded with each row filter."""
+    from daclip_torch.data import png
+
+    img = (np.random.RandomState(seed).rand(*shape, 3) * 255).astype(np.uint8)
+    out = {}
+    for filt in ("none", "sub", "up", "average", "paeth"):
+        data = png.encode(img, filt)
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            dec = png.decode(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(dec, img), f"PNG with {filt} rows does not decode to its image")
+        out[filt] = float(np.median(times))
+    return out
+
+
+def loader_samples_per_s(dataset_opt, workers, batches=2):
+    """Samples/s of the port's DataLoader over an MD dataset (decode, crop,
+    flip/rot, CLIP view; no model): `batches` batches after the loader is
+    built, threads started inside the timing."""
+    from daclip_torch.data import DataLoader, IterSampler, create_dataset
+
+    ds = create_dataset(dict(dataset_opt))
+    loader = DataLoader(ds, batch_size=dataset_opt["batch_size"],
+                        sampler=IterSampler(len(ds), ratio=200), num_workers=workers)
+    t0 = time.perf_counter()
+    n = 0
+    for i, batch in enumerate(loader):
+        n += len(batch["GT"])
+        if i + 1 == batches:
+            break
+    return n / (time.perf_counter() - t0)
+
+
+def run_train_cli(train_step_ms):
+    """`python -m daclip_torch.cli.train_restoration -opt train.yml` in process
+    on seeded PNG folders: configs/daclip-sde/train.yml at full width (B=16,
+    256², nf 64, ch_mult 1,2,4,8, context 512, both contexts, AdamW, bf16)
+    with a seeded ViT-B-32 DA-CLIP .pt; 12 steps (validation and checkpoints
+    every 6), a resume to 16, then `cli.test_restoration` over an LMDB at
+    T=100. The step function is timed by a hook around the CLI's
+    `make_step`."""
+    import gc
+    import logging
+    import tempfile
+
+    import yaml
+
+    from daclip_torch import config as cfg_mod
+    from daclip_torch.cli import test_restoration as cli_test
+    from daclip_torch.cli import train_restoration as cli_train
+    from daclip_torch.data import png
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+    from daclip_torch.tools.create_lmdb import create_lmdb
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    types = ["noisy", "rainy"]
+    records = []
+    real_make_step = cli_train.make_step
+
+    def timed_make_step(*args, **kw):
+        step = real_make_step(*args, **kw)
+
+        def timed(state, batch, generator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = state.step
+            out = step(state, batch, generator)
+            torch.cuda.synchronize()
+            records.append(dict(step=before, start=t0, ms=(time.perf_counter() - t0) * 1e3))
+            return out
+
+        return timed
+
+    with tempfile.TemporaryDirectory() as d:
+        root = pathlib.Path(d)
+        t0 = time.perf_counter()
+        write_md_tree(root / "train", types, 8, CLI_MD_SHAPE, seed=21)
+        write_md_tree(root / "val", types, 1, CLI_VAL_SHAPE, seed=22)
+        write_md_tree(root / "test_png", ["set"], 2, CLI_TEST_SHAPE, seed=23)
+        for sub in ("GT", "LQ"):
+            create_lmdb(str(root / "test_png" / "set" / sub), str(root / "lmdb" / sub),
+                        verbose=False)
+        clip_cfg = CLIPCfg.from_dict(get_model_config("daclip_ViT-B-32"))
+        daclip_pt = root / "daclip_ViT-B-32.pt"
+        torch.save({k: v.cpu() for k, v in seeded_state_dict(lambda: DaCLIP(clip_cfg),
+                                                             seed=12).items()}, daclip_pt)
+        opt = yaml.safe_load((REPO / "configs" / "daclip-sde" / "train.yml").read_text())
+        opt["distortion"] = types       # the tree's two types
+        opt["datasets"]["train"]["dataroot"] = str(root / "train")
+        opt["datasets"]["val"]["dataroot"] = str(root / "val")
+        opt["path"].update(root=str(root / "out"), daclip=str(daclip_pt))
+        opt["train"].update(niter=CLI_STEPS, val_freq=CLI_VAL_FREQ)
+        opt["logger"].update(print_freq=4, save_checkpoint_freq=CLI_VAL_FREQ)
+        train_yml = root / "train.yml"
+        train_yml.write_text(yaml.safe_dump(opt))
+        test_opt = yaml.safe_load((REPO / "configs" / "daclip-sde" / "test.yml").read_text())
+        test_opt["datasets"] = {"test1": dict(
+            name="Test", mode="LQGT", data_type="lmdb",
+            dataroot_GT=str(root / "lmdb" / "GT"), dataroot_LQ=str(root / "lmdb" / "LQ"))}
+        test_opt["path"].update(root=str(root / "out"))
+        test_yml = root / "test.yml"
+        test_yml.write_text(yaml.safe_dump(test_opt))
+        setup_s = time.perf_counter() - t0
+
+        decode_ms = png_decode_ms()
+        dataset_opt = cfg_mod.parse(str(train_yml))["datasets"]["train"]
+        loader = {f"workers_{w}": loader_samples_per_s(dataset_opt, w, batches=1)
+                  for w in (0, 8)}
+
+        logging.getLogger("train").setLevel(logging.INFO)
+        cli_train.make_step = timed_make_step
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            first = cli_train.main(["-opt", str(train_yml), "--val-sample-T", str(CLI_VAL_T),
+                                    "--device", "cuda"])
+            n_first = len(records)
+            second = cli_train.main(["-opt", str(train_yml), "--max-steps",
+                                     str(CLI_RESUME_STEPS), "--val-sample-T", str(CLI_VAL_T),
+                                     "--device", "cuda"])
+        finally:
+            cli_train.make_step = real_make_step
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        calls = {k: v for k, v in read_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        ckpt_dir = root / "out" / "experiments" / opt["name"] / "training_state"
+        ckpts = sorted(os.listdir(ckpt_dir))
+
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = cli_test.main(["-opt", str(test_yml), "--checkpoint", str(ckpt_dir),
+                                 "--daclip", str(daclip_pt), "--device", "cuda"])["test1"]
+        test_s = time.perf_counter() - t0
+        test_calls = {k: v for k, v in read_counts().items() if v}
+
+    # validations: every val_freq-th step of each run, and one at each run's end
+    n_val = (CLI_STEPS // CLI_VAL_FREQ + 1
+             + sum(1 for s in range(CLI_STEPS + 1, CLI_RESUME_STEPS + 1)
+                   if s % CLI_VAL_FREQ == 0) + 1)
+    val_steps = n_val * len(types) * CLI_VAL_T     # two val images, CLI_VAL_T sampler steps
+    n_steps = CLI_RESUME_STEPS
+    want = {"wrap": 12 * n_steps + 6 * val_steps, "flash": 6 * n_steps + 3 * val_steps,
+            "wrap_bwd": 6 * n_steps, "flash_bwd": 3 * n_steps}
+    test_steps = 2 * 100
+    want_test = {"wrap": 6 * test_steps, "flash": 3 * test_steps}
+    step_ms = [r["ms"] for r in records]
+    # host time from one step's start to the next's within a run: the step,
+    # the wait for the loader and, after steps 6 and 12, validation and a save
+    gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
+            if b["step"] == a["step"] + 1]
+    B = opt["datasets"]["train"]["batch_size"]
+    row = dict(phase="train_cli", what="cli.train_restoration -opt train.yml (12 steps, resume "
+               "to 16), then cli.test_restoration over an LMDB at T=100",
+               config=dict(B=B, patch=opt["datasets"]["train"]["patch_size"],
+                           n_workers=opt["datasets"]["train"]["n_workers"],
+                           distortion=types, md_images=f"{len(types)}x8 pairs "
+                           f"{CLI_MD_SHAPE[0]}x{CLI_MD_SHAPE[1]} (half Up, half Paeth)",
+                           val_images=f"2 at {CLI_VAL_SHAPE[0]}x{CLI_VAL_SHAPE[1]}",
+                           val_sample_T=CLI_VAL_T, unet=opt["network_G"]["setting"]),
+               setup_s=setup_s, train_s=train_s, test_s=test_s,
+               first=first, second=second, steps_run=[r["step"] for r in records],
+               checkpoints=ckpts, ms_per_step=step_ms,
+               median_ms_per_step=float(np.median(step_ms)),
+               samples_per_s=B * 1e3 / float(np.median(step_ms)),
+               median_ms_step_to_step=float(np.median(gaps)),
+               samples_per_s_step_to_step=B * 1e3 / float(np.median(gaps)),
+               train_phase_median_ms_per_step=train_step_ms,
+               over_train_phase=float(np.median(step_ms)) / train_step_ms,
+               loader_samples_per_s=loader, png_decode_ms_320x288=decode_ms,
+               validations=n_val, launches=calls, want_launches=want,
+               max_memory_allocated=peak,
+               test=dict(images=len(summary["psnr"]), psnr=summary["psnr"],
+                         ssim=summary["ssim"], psnr_y=summary["psnr_y"],
+                         ssim_y=summary["ssim_y"],
+                         ms_per_image=float(np.mean(summary["time"])) * 1e3,
+                         launches=test_calls))
+    emit(**row)
+    check(all(np.isfinite([r["best_psnr"]]).all() for r in (first, second)),
+          "train_cli: a validation PSNR is not finite")
+    check(first["final_step"] == CLI_STEPS and second["final_step"] == CLI_RESUME_STEPS,
+          f"train_cli ended at {first['final_step']} and {second['final_step']}")
+    check(records[0]["step"] == 0 and records[n_first]["step"] == CLI_STEPS,
+          f"train_cli: the resumed run started at {records[n_first]['step']}, not {CLI_STEPS}")
+    check(len(records) == CLI_RESUME_STEPS, f"train_cli ran {len(records)} steps")
+    check({"6.pt", "12.pt", "16.pt"} <= set(ckpts), f"train_cli checkpoints: {ckpts}")
+    check(calls == want, f"train_cli: kernel calls {calls}, expected {want}")
+    check(len(summary["psnr"]) == 2 and all(np.isfinite(v).all() for v in summary.values()),
+          "test_restoration: metrics not finite")
+    check(test_calls == want_test, f"test_restoration: kernel calls {test_calls}, "
+          f"expected {want_test}")
+    return {k: calls[k] for k in ("wrap", "flash", "wrap_bwd", "flash_bwd")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1605,20 +1857,23 @@ def main():
     rows.update(run_kernels_bwd())
     for wiring in TRAIN_KERNELS:
         run_train_check(wiring)
-    full_step, step_ms, train_totals = run_train()
-    run_profile_train(full_step, step_ms)
+    full_step, train_step_ms, train_totals = run_train()
+    run_profile_train(full_step, train_step_ms)
     del full_step
     full_step, step_ms, train_alt_totals = run_train(steps=3, wiring="v4_pointwise")
     run_profile_train(full_step, step_ms, wiring="v4_pointwise")
     del full_step
+    train_cli_totals = run_train_cli(train_step_ms)
 
     # launches on each main path, each counted from 0 just before its run:
     # serve (the four requests), serve_alt (two requests per other wiring),
-    # train (five timed steps), train_alt (three); for the attention core and
+    # train (five timed steps), train_alt (three), train_cli (the CLI's two
+    # runs, 16 steps and 4 validations); for the attention core and
     # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
     # and kernels_conv phases, and the conv's in the hooked forward_conv
     paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, train=train_totals,
-                 train_alt=train_alt_totals, kernels=dict(core=core_path),
+                 train_alt=train_alt_totals, train_cli=train_cli_totals,
+                 kernels=dict(core=core_path),
                  kernels_conv=dict(conv3x3=conv_path), forward_conv=dict(conv3x3=forward_conv))
     by_path = {key: {path: n[key] for path, n in paths.items() if n.get(key)}
                for key in kernel_counters()}

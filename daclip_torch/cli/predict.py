@@ -6,9 +6,10 @@ Usage:
 
 The flags are those of `daclip_tpu.cli.predict`, plus `--device` (default
 CUDA). `--unet` and `--daclip` take reference torch checkpoints or the JAX
-package's flat .npz params. The orbax train-dir flags (--checkpoint,
---no-ema, --step) are accepted and refused with an error. Images are decoded
-with cv2.
+package's flat .npz params; `--checkpoint` takes the port's train dir
+(`cli/train_restoration.py`'s `training_state`, EMA parameters unless
+`--no-ema`, the latest step unless `--step`). PNG is read and written by
+the port's own codec (`data/png.py`); other formats need cv2.
 """
 from __future__ import annotations
 
@@ -25,14 +26,15 @@ def main(argv=None):
     p.add_argument("-o", "--output", default="results", help="output folder")
     p.add_argument("--unet", default=None, help="UNet weights: torch .pth or .npz")
     p.add_argument("--checkpoint", default=None,
-                   help="orbax train dir (not ported yet)")
+                   help="the port's train dir (cli/train_restoration.py's "
+                        "training_state); orbax dirs are refused")
     p.add_argument("--daclip", default=None,
                    help="DA-CLIP weights: torch .pt or .npz; omit for "
                         "context-free UNets")
     p.add_argument("--no-ema", action="store_true",
-                   help="raw params from a train dir (not ported yet)")
+                   help="raw (non-EMA) params from a train dir")
     p.add_argument("--step", type=int, default=None,
-                   help="step of a train dir (not ported yet)")
+                   help="step of a train dir (default: latest)")
     p.add_argument("--model-name", default="daclip_ViT-B-32")
     p.add_argument("--sampling-mode", default="posterior",
                    choices=["posterior", "sde", "ode"])
@@ -48,12 +50,15 @@ def main(argv=None):
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     args = p.parse_args(argv)
 
-    if args.checkpoint or args.no_ema or args.step is not None:
-        p.error("orbax train dirs are not ported yet; pass --unet <torch .pth or .npz>")
-    if not args.unet:
-        p.error("--unet is required")
+    unet = args.checkpoint or args.unet
+    if not unet:
+        p.error("--unet or --checkpoint is required")
+    from daclip_torch.utils.checkpoint import steps
+    if args.checkpoint and not steps(args.checkpoint):
+        p.error(f"--checkpoint {args.checkpoint!r} holds no <step>.pt files of "
+                "daclip_torch's trainer (orbax train dirs are not ported)")
 
-    import cv2
+    from daclip_torch.data.util import imread_color, is_image_file, save_img
     from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
 
     cfg = RestorerConfig(model_name=args.model_name, sampling_mode=args.sampling_mode,
@@ -65,16 +70,16 @@ def main(argv=None):
                              sampling_mode=args.sampling_mode, T=args.T,
                              sample_T=args.sample_T, max_sigma=args.max_sigma,
                              tile_size=args.tile_size)
-    restorer = DACLIPRestorer.load(args.unet, args.daclip, cfg, device=args.device)
+    restorer = DACLIPRestorer.load(unet, args.daclip, cfg, use_ema=not args.no_ema,
+                                   step=args.step, device=args.device)
 
     paths = ([os.path.join(args.input, f) for f in sorted(os.listdir(args.input))]
              if os.path.isdir(args.input) else [args.input])
     os.makedirs(args.output, exist_ok=True)
     for path in paths:
-        img = cv2.imread(path)
-        if img is None:
+        if not is_image_file(path):
             continue
-        rgb = img[:, :, ::-1].astype(np.float32) / 255.0
+        rgb = imread_color(path)[:, :, ::-1].astype(np.float32) / 255.0
         if args.classify:
             name, probs = restorer.classify_degradation(rgb)
             top = ", ".join(f"{k}={v:.2f}" for k, v in list(probs.items())[:3])
@@ -83,7 +88,7 @@ def main(argv=None):
         out_bgr = restorer.restore(rgb, seed=args.seed)
         dt = time.perf_counter() - t0
         out_path = os.path.join(args.output, os.path.basename(path))
-        cv2.imwrite(out_path, out_bgr)
+        save_img(out_bgr, out_path)
         print(f"{path} -> {out_path} ({dt:.2f}s)")
 
 

@@ -1,0 +1,230 @@
+"""PNG decode and encode with the stdlib's zlib and numpy: the PNG half of
+`cv2.imread` / `cv2.imwrite`, for machines without cv2 or PIL.
+
+`decode` returns what `cv2.imread(path, cv2.IMREAD_UNCHANGED)` returns for
+an 8-bit, non-interlaced PNG: uint8, a 2-D array for gray, BGR for colour,
+BGRA where the file has alpha (gray+alpha gives four channels, the gray
+value in each of B, G and R), palette images expanded to BGR, or to BGRA
+when a tRNS chunk gives the palette alpha; a tRNS colour key on a truecolour
+image becomes an alpha channel too, as libpng's `tRNS_to_alpha` makes it.
+Interlaced (Adam7) and 1/2/4/16-bit files raise `ValueError`.
+
+Row filters: None and Up are one operation a row, Sub a per-channel
+`np.cumsum(..., dtype=np.uint8)` (a sum modulo 256). Average and Paeth take
+the pixel to their left, already unfiltered, so they loop over the row's
+pixels, each step vectorised across the channels; they are far slower than
+the others (PERF.md records the cost per filter).
+
+`encode` writes 8-bit gray, BGR or BGRA (colour types 0, 2 and 6) with one
+filter for every row: "none", "sub", "up", "average" or "paeth" (no
+adaptive choice).
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+FILTERS = {"none": 0, "sub": 1, "up": 2, "average": 3, "paeth": 4}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def is_png(data: bytes) -> bool:
+    return data[:8] == SIGNATURE
+
+
+def _chunks(data: bytes, name: str):
+    pos = 8
+    while pos + 12 <= len(data):
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        body = data[pos + 8: pos + 8 + length]
+        if len(body) != length:
+            break
+        crc, = struct.unpack_from(">I", data, pos + 8 + length)
+        if zlib.crc32(kind + body) != crc:
+            raise ValueError(f"{name}: PNG chunk {kind!r} fails its CRC")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError(f"{name}: PNG ends before its IEND chunk")
+
+
+def _paeth_row(d: np.ndarray, up: np.ndarray) -> np.ndarray:
+    """Undo Paeth on one (W, C) row: out[x] = d[x] + paeth(out[x-1], up[x],
+    up[x-1]). pa = |b - c| needs no left pixel, so it is taken for the row
+    at once; pb = |a - c| and pc = |a - c + b - c| per pixel."""
+    W = d.shape[0]
+    b = up.astype(np.int16)
+    c = np.zeros_like(b)
+    c[1:] = b[:-1]
+    bc = b - c
+    pa = np.abs(bc)
+    d = d.astype(np.int16)
+    out = np.empty_like(d)
+    out[0] = (d[0] + b[0]) & 0xFF        # a = c = 0: the predictor is b
+    for x in range(1, W):
+        ac = out[x - 1] - c[x]
+        pb = np.abs(ac)
+        pc = np.abs(ac + bc[x])
+        pred = np.where((pa[x] <= pb) & (pa[x] <= pc), out[x - 1],
+                        np.where(pb <= pc, b[x], c[x]))
+        out[x] = (d[x] + pred) & 0xFF
+    return out.astype(np.uint8)
+
+
+def _average_row(d: np.ndarray, up: np.ndarray) -> np.ndarray:
+    """Undo Average on one (W, C) row: out[x] = d[x] + (out[x-1] + up[x]) // 2."""
+    W = d.shape[0]
+    b = up.astype(np.int16)
+    d = d.astype(np.int16)
+    out = np.empty_like(d)
+    out[0] = (d[0] + (b[0] >> 1)) & 0xFF
+    for x in range(1, W):
+        out[x] = (d[x] + ((out[x - 1] + b[x]) >> 1)) & 0xFF
+    return out.astype(np.uint8)
+
+
+def _unfilter(rows: np.ndarray, W: int, C: int, name: str) -> np.ndarray:
+    H = rows.shape[0]
+    out = np.empty((H, W, C), np.uint8)
+    prev = np.zeros((W, C), np.uint8)
+    for y in range(H):
+        kind = int(rows[y, 0])
+        d = rows[y, 1:].reshape(W, C)
+        if kind == 0:
+            cur = d
+        elif kind == 1:
+            cur = np.cumsum(d, axis=0, dtype=np.uint8)
+        elif kind == 2:
+            cur = d + prev              # uint8 arithmetic wraps modulo 256
+        elif kind == 3:
+            cur = _average_row(d, prev)
+        elif kind == 4:
+            cur = _paeth_row(d, prev)
+        else:
+            raise ValueError(f"{name}: row {y} has unknown PNG filter type {kind}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """PNG bytes → uint8 array as `cv2.imread(..., IMREAD_UNCHANGED)` gives it."""
+    if not is_png(data):
+        raise ValueError(f"{name}: not a PNG file (bad signature)")
+    header = palette = trns = None
+    idat = []
+    for kind, body in _chunks(data, name):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind != b"IEND" and not kind[0] & 0x20:
+            raise ValueError(f"{name}: unknown critical PNG chunk {kind!r}")
+    if header is None:
+        raise ValueError(f"{name}: PNG has no IHDR chunk")
+    W, H, depth, ctype, _, _, interlace = header
+    if ctype not in _CHANNELS:
+        raise ValueError(f"{name}: PNG colour type {ctype} is not valid")
+    if interlace:
+        raise ValueError(f"{name}: interlaced (Adam7) PNG is not supported")
+    if depth != 8:
+        raise ValueError(f"{name}: {depth}-bit PNG is not supported (8-bit only)")
+    C = _CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < H * (W * C + 1):
+        raise ValueError(f"{name}: PNG image data is truncated")
+    img = _unfilter(raw[:H * (W * C + 1)].reshape(H, W * C + 1), W, C, name)
+
+    if ctype == 0:                     # gray; a tRNS key is dropped, as cv2 does
+        return img[:, :, 0]
+    if ctype == 2:
+        bgr = img[:, :, ::-1]
+        if trns is None:
+            return np.ascontiguousarray(bgr)
+        key = np.asarray(struct.unpack(">HHH", trns[:6]), np.int64)
+        alpha = np.where((img == key).all(axis=2), 0, 255).astype(np.uint8)
+        return np.concatenate([bgr, alpha[:, :, None]], axis=2)
+    if ctype == 3:
+        if palette is None:
+            raise ValueError(f"{name}: palette PNG has no PLTE chunk")
+        idx = img[:, :, 0]
+        if int(idx.max(initial=0)) >= len(palette):
+            raise ValueError(f"{name}: palette index out of range")
+        bgr = palette[idx][:, :, ::-1]
+        if trns is None:
+            return np.ascontiguousarray(bgr)
+        lut = np.full(256, 255, np.uint8)
+        lut[:len(trns)] = np.frombuffer(trns, np.uint8)
+        return np.concatenate([bgr, lut[idx][:, :, None]], axis=2)
+    if ctype == 4:                     # gray + alpha → B = G = R = gray, A
+        return np.ascontiguousarray(img[:, :, [0, 0, 0, 1]])
+    return np.ascontiguousarray(img[:, :, [2, 1, 0, 3]])   # RGBA → BGRA
+
+
+def read(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode(f.read(), path)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def _filter_rows(img: np.ndarray, kind: int) -> np.ndarray:
+    """(H, W, C) uint8 → (H, W·C) filtered bytes, one filter for every row."""
+    x = img.astype(np.int16)
+    left = np.zeros_like(x)
+    left[:, 1:] = x[:, :-1]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    if kind == 0:
+        pred = np.zeros_like(x)
+    elif kind == 1:
+        pred = left
+    elif kind == 2:
+        pred = up
+    elif kind == 3:
+        pred = (left + up) >> 1
+    else:
+        upleft = np.zeros_like(x)
+        upleft[1:, 1:] = x[:-1, :-1]
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    return ((x - pred) & 0xFF).astype(np.uint8).reshape(img.shape[0], -1)
+
+
+def encode(img: np.ndarray, filter: str = "up", level: int = 6) -> bytes:
+    """uint8 gray (H, W) or (H, W, 1), BGR or BGRA → PNG bytes, each row
+    filtered with `filter` (a key of FILTERS)."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"PNG encode takes uint8, got {img.dtype}")
+    if filter not in FILTERS:
+        raise ValueError(f"PNG encode filter must be one of {sorted(FILTERS)}, got {filter!r}")
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.ndim != 3 or img.shape[2] not in (1, 3, 4):
+        raise ValueError(f"PNG encode takes gray, BGR or BGRA, got shape {img.shape}")
+    H, W, C = img.shape
+    ctype = {1: 0, 3: 2, 4: 6}[C]
+    rgb = img[:, :, [2, 1, 0, 3][:C]] if C > 1 else img
+    kind = FILTERS[filter]
+    rows = np.concatenate([np.full((H, 1), kind, np.uint8), _filter_rows(rgb, kind)], axis=1)
+    return (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def write(path: str, img: np.ndarray, filter: str = "up", level: int = 6) -> None:
+    with open(path, "wb") as f:
+        f.write(encode(img, filter, level))

@@ -38,7 +38,7 @@ from daclip_torch.sde.irsde import IRSDE
 from daclip_torch.tokenizer import tokenize
 from daclip_torch.transforms import clip_transform
 from daclip_torch.utils.metrics import array2img
-from daclip_torch.utils.native_checkpoint import load_daclip_any, load_unet_any
+from daclip_torch.utils.native_checkpoint import _ORBAX, load_daclip_any, load_unet_any
 
 # 10 distortion types of the universal-ir model (options/train.yml:5)
 DEGRADATION_CLASSES = ["motion-blurry", "hazy", "jpeg-compressed", "low-light",
@@ -167,23 +167,24 @@ class DACLIPRestorer:
 
     @classmethod
     def load(cls, unet: str, daclip: Optional[str] = None,
-             cfg: Optional[RestorerConfig] = None, device=None) -> "DACLIPRestorer":
+             cfg: Optional[RestorerConfig] = None, use_ema: bool = True,
+             step: Optional[int] = None, device=None) -> "DACLIPRestorer":
         """Build from reference torch checkpoints (universal-ir.pth +
-        daclip_ViT-B-32.pt), as predict.py:34-56 does, or from the JAX
+        daclip_ViT-B-32.pt), as predict.py:34-56 does, from the JAX
         package's flat .npz params (`utils/native_checkpoint.py`), each file
-        either. The UNet architecture is inferred from its checkpoint and
-        overrides `cfg`; a torch DA-CLIP's position embeddings are resized to
-        the config's grid. The fork's `predictor.*` is dropped. Without
-        `daclip` both contexts are off (as daclip_tpu's `load`), and a UNet
-        with image context is refused with a ValueError."""
-        for path in (unet, daclip):
-            if path is not None and os.path.isdir(path):
-                raise NotImplementedError(
-                    f"{path!r} is a directory: daclip_torch loads reference torch "
-                    "checkpoints and flat .npz params; orbax train dirs are not "
-                    "ported yet")
+        either, or with `unet` the port's train dir (its `<step>.pt` files:
+        `step`, default the latest, and the EMA parameters unless
+        `use_ema=False`), as daclip_tpu's `load` takes its orbax dir. The
+        UNet architecture is inferred from its checkpoint and overrides
+        `cfg`; a torch DA-CLIP's position embeddings are resized to the
+        config's grid. The fork's `predictor.*` is dropped. Without `daclip`
+        both contexts are off (as daclip_tpu's `load`), and a UNet with image
+        context is refused with a ValueError. Orbax dirs are refused."""
+        if daclip is not None and os.path.isdir(daclip):
+            raise NotImplementedError(f"{daclip!r} is a directory: DA-CLIP weights load "
+                                      f"from a file; {_ORBAX}")
         cfg = cfg or RestorerConfig()
-        unet_sd, arch = load_unet_any(unet)
+        unet_sd, arch = load_unet_any(unet, step=step, use_ema=use_ema)
         cfg = dataclasses.replace(
             cfg, nf=arch["nf"], ch_mult=arch["ch_mult"],
             context_dim=arch["context_dim"],

@@ -1,8 +1,9 @@
 """Cog-compatible Predictor — reference predict.py:33-91, on the port.
 
 The same setup()/predict() surface as `daclip_tpu/serve/predictor.py`; the
-work is done by `daclip_torch.pipeline.DACLIPRestorer`. cv2 is imported only
-inside `predict`, to read and write the image files.
+work is done by `daclip_torch.pipeline.DACLIPRestorer`. Images are read and
+written by `data/util.py`: PNG by the port's own codec, other formats
+through cv2 where it is installed.
 """
 from __future__ import annotations
 
@@ -31,15 +32,13 @@ class Predictor:
 
     def predict(self, image: str, seed: Optional[int] = None,
                 out_path: Optional[str] = None) -> str:
-        """predict.py:58-91: path in → restored image path out."""
-        import cv2
+        """predict.py:58-91: path in → restored image path out (PNG by
+        default)."""
+        from daclip_torch.data.util import imread_color, save_img
 
-        img = cv2.imread(str(image))
-        if img is None:
-            raise FileNotFoundError(f"cannot read image {image!r}")
-        rgb = img[:, :, ::-1].astype(np.float32) / 255.0
+        rgb = imread_color(str(image))[:, :, ::-1].astype(np.float32) / 255.0
         out_bgr = self.restorer.restore(rgb, seed=seed or 0)
         if out_path is None:
             out_path = os.path.join(tempfile.gettempdir(), "out.png")
-        cv2.imwrite(out_path, out_bgr)
+        save_img(out_bgr, out_path)
         return out_path

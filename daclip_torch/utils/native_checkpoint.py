@@ -8,7 +8,9 @@ Counterpart of `daclip_tpu/utils/native_checkpoint.py` (`checkpoint_kind`
 `save_params_npz` is the bridge from a JAX train dir. The trees are the JAX
 modules' own: the UNet's as `unet_state_dict_from_jax` reads it, DaCLIP's
 with its transformer blocks stacked (L, …) along the first axis as
-`daclip_state_dict_from_jax` reads them. Orbax train dirs are refused:
+`daclip_state_dict_from_jax` reads them. The port's own train dir (the
+`<step>.pt` files of `utils/checkpoint.py`) loads as a UNet, as the JAX
+package loads its orbax train dir. Orbax train dirs are refused:
 `orbax.checkpoint` imports jax.
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from daclip_torch.convert import (daclip_state_dict_from_jax, infer_unet_arch,
                                   load_torch_state_dict, resize_pos_embed,
                                   unet_state_dict_from_jax)
+from daclip_torch.utils import checkpoint as train_checkpoint
 
 _ORBAX = ("orbax train dirs are not ported (orbax.checkpoint imports jax); "
           "write the params with daclip_tpu's save_params_npz and pass the .npz")
@@ -36,12 +39,15 @@ def _has_orbax_step_dirs(path: str) -> bool:
 
 def checkpoint_kind(path: str) -> str:
     """'orbax' (a train dir with numeric step subdirs), 'orbax_step' (one
-    step dir), 'npz', or 'torch'."""
+    step dir), 'train_dir' (the port's `<step>.pt` files), 'npz', or
+    'torch'."""
     if _has_orbax_step_dirs(path):
         return "orbax"
     if os.path.isdir(path):
         if os.path.basename(os.path.normpath(path)).isdigit():
             return "orbax_step"
+        if train_checkpoint.steps(path):
+            return "train_dir"
         raise FileNotFoundError(
             f"{path!r} is a directory but contains no orbax step checkpoints")
     if str(path).endswith(".npz"):
@@ -111,14 +117,20 @@ def _refuse_orbax(path: str) -> str:
     return kind
 
 
-def load_unet_any(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
+def load_unet_any(path: str, step: Optional[int] = None,
+                  use_ema: bool = True) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """(reference-named UNet state dict, constructor arguments) from a torch
-    .pth or a flat .npz."""
-    if _refuse_orbax(path) == "npz":
+    .pth, a flat .npz, or the port's train dir (`step`, default the latest;
+    the EMA parameters unless `use_ema=False`)."""
+    kind = _refuse_orbax(path)
+    if kind == "npz":
         params = load_params_npz(path)
         arch = infer_unet_arch_from_params(params)
         return unet_state_dict_from_jax(params, depth=len(arch["ch_mult"])), arch
-    sd = load_torch_state_dict(path)
+    if kind == "train_dir":
+        sd = train_checkpoint.load_params(path, step=step, use_ema=use_ema)
+    else:
+        sd = load_torch_state_dict(path)
     return sd, infer_unet_arch(sd)
 
 
@@ -128,7 +140,11 @@ def load_daclip_any(path: str, image_size: Optional[int] = None,
     A torch checkpoint's ViT position embeddings are resized to the
     (image_size // patch_size)² grid, as `convert_daclip` does; an .npz is
     already in the JAX package's layout and is taken as it is."""
-    if _refuse_orbax(path) == "npz":
+    kind = _refuse_orbax(path)
+    if kind == "train_dir":
+        raise NotImplementedError(f"{path!r} is a restoration train dir (UNet weights), "
+                                  "not DA-CLIP weights")
+    if kind == "npz":
         return daclip_state_dict_from_jax(load_params_npz(path))
     sd = load_torch_state_dict(path)
     if image_size is not None and patch_size is not None:
