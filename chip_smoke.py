@@ -101,20 +101,42 @@ Phases, each printing JSON lines:
              production options (configs/daclip-sde/train.yml, distortion cut
              to the tree's two types) on seeded PNG folders (2 × 8 pairs at
              288 × 320, half with Up rows and half with Paeth; 2 val pairs at
-             256 × 272) with a seeded ViT-B-32 DA-CLIP .pt: 12 steps with
-             validation (2 images, 10 sampler steps) and checkpoints every 6,
-             a resume to 16, the exact launches of kernels #1-#4 (steps and
+             256 × 272) with a seeded ViT-B-32 DA-CLIP .pt: 4 steps with
+             validation (2 images, 10 sampler steps) and checkpoints every 2,
+             a resume to 6, the exact launches of kernels #1-#4 (steps and
              validation), the step function timed by a hook; before it, PNG
              decode ms per row filter and the DataLoader's samples/s alone at
              0 and 8 workers; after it, `cli.test_restoration` on the saved
              EMA UNet over 2 LQGT pairs (256²) in an LMDB packed by
              `tools.create_lmdb`, at T=100
+12 train_daclip  the fork's DA-CLIP training step at full width
+             (daclip_ViT-B-32 with the level predictor, bf16, B = 512, AdamW
+             lr 2e-5 wd 0.2 betas 0.9/0.98 eps 1e-6, cosine with warm-up) on
+             seeded weights and a seeded batch (224² LQ and GT, caption‖
+             degradation tokens, every degradation type present): 2 warm-up
+             and 5 timed steps, peak memory, each loss term, a profile of one
+             step; every term finite, FCRC > 0, the frozen CLIP unchanged bit
+             for bit, logit_scale in [1, 100]; then one accum_freq 2 step at
+             2 × 256 and one f32 step at B = 8 on the card against the same
+             on the CPU (loss and parameters within 1e-4 of their max); no
+             hand kernel launched
+13 train_daclip_cli  `cli.train_daclip.main` in process on a seeded CSV of 24
+             LQ/GT PNG pairs (224-288 px sides, half Up and half Paeth rows)
+             and a val CSV of 8: --da, daclip_ViT-B-32, --precision amp,
+             batch 8, 4 workers, 2 epochs, then --resume latest to 3; the
+             loader's samples/s alone, the step by a hook on the trainer's
+             `make_train_step`; the epochs' checkpoints, best/, finite val
+             metrics, and the last checkpoint through DACLIPRestorer.load
+             with a seeded production UNet, which classifies one image; no
+             hand kernel launched. Cut: the batch (8, not 512) and the tree,
+             for the host's PNG decode
 (train_check runs the default wiring, then (v4, pointwise) and (v3, pointwise).)
 Then each kernel's device time over its library call's (kernels_vs_library),
 the per-kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
 without a CUDA device it exits non-zero before printing any result.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -123,6 +145,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -1561,13 +1584,16 @@ def run_train(steps=5, warmup=2, wiring="v5"):
 
 
 # -- phase 9 -------------------------------------------------------------------
-def run_profile_train(full_step, step_ms, wiring="v5"):
-    """Where one full-width training step's device time goes (torch.profiler)."""
+def profile_one(step, wall_ms, n_top=15):
+    """Where one call of `step` spends device time (torch.profiler): the
+    device events' sum and its share of `wall_ms` (the unprofiled wall
+    time), the event count, the port's kernels by namespace, the top
+    names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        full_step()
+        step()
         torch.cuda.synchronize()
     by_name, launches, ours = {}, 0, {}
     for e in prof.events():
@@ -1578,21 +1604,31 @@ def run_profile_train(full_step, step_ms, wiring="v5"):
                 ns = e.name.split("daclip::", 1)[1].split("::", 1)[0]
                 ours[ns] = ours.get(ns, 0.0) + e.time_range.elapsed_us() / 1e3
     kernel_ms = sum(by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    return dict(device_kernel_ms=kernel_ms if launches else None,
+                device_busy_share=kernel_ms / wall_ms if launches else None,
+                kernels=launches, daclip_ms_by_namespace=ours,
+                top=[dict(name=k[:90], ms=v / 1e3) for k, v in top])
+
+
+def run_profile_train(full_step, step_ms, wiring="v5"):
+    """Where one full-width training step's device time goes (torch.profiler)."""
+    p = profile_one(full_step, step_ms)
     emit(phase="profile_train", wiring=wiring,
          what="one training step, B=16, 256x256, bf16, remat",
          wall_ms_per_step_unprofiled=step_ms,
-         device_kernel_ms_per_step=kernel_ms if launches else None,
-         device_busy_share=kernel_ms / step_ms if launches else None,
-         kernels_per_step=launches, daclip_ms_by_namespace=ours,
-         top=[dict(name=k[:90], ms=v / 1e3) for k, v in top])
+         device_kernel_ms_per_step=p["device_kernel_ms"],
+         device_busy_share=p["device_busy_share"], kernels_per_step=p["kernels"],
+         daclip_ms_by_namespace=p["daclip_ms_by_namespace"], top=p["top"])
 
 
 # -- phase 11 ------------------------------------------------------------------
 CLI_MD_SHAPE = (288, 320)      # (H, W) of the MD tree's images: H != W, both past the patch
 CLI_VAL_SHAPE = (256, 272)
 CLI_TEST_SHAPE = (256, 256)
-CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ, CLI_VAL_T = 12, 16, 6, 10
+# depth cut from 12 steps and a resume to 16 (validation every 6) to keep the script
+# well inside its time limit: the steps wait on the host's PNG decode
+CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ, CLI_VAL_T = 4, 6, 2, 10
 
 
 def write_md_tree(root, types, pairs, shape, seed):
@@ -1653,8 +1689,8 @@ def run_train_cli(train_step_ms):
     """`python -m daclip_torch.cli.train_restoration -opt train.yml` in process
     on seeded PNG folders: configs/daclip-sde/train.yml at full width (B=16,
     256², nf 64, ch_mult 1,2,4,8, context 512, both contexts, AdamW, bf16)
-    with a seeded ViT-B-32 DA-CLIP .pt; 12 steps (validation and checkpoints
-    every 6), a resume to 16, then `cli.test_restoration` over an LMDB at
+    with a seeded ViT-B-32 DA-CLIP .pt; CLI_STEPS steps (validation and
+    checkpoints every CLI_VAL_FREQ), a resume to CLI_RESUME_STEPS, then `cli.test_restoration` over an LMDB at
     T=100. The step function is timed by a hook around the CLI's
     `make_step`."""
     import gc
@@ -1766,12 +1802,14 @@ def run_train_cli(train_step_ms):
     want_test = {"wrap": 6 * test_steps, "flash": 3 * test_steps}
     step_ms = [r["ms"] for r in records]
     # host time from one step's start to the next's within a run: the step,
-    # the wait for the loader and, after steps 6 and 12, validation and a save
+    # the wait for the loader and, after every CLI_VAL_FREQ-th step, validation
+    # and a save
     gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
             if b["step"] == a["step"] + 1]
     B = opt["datasets"]["train"]["batch_size"]
-    row = dict(phase="train_cli", what="cli.train_restoration -opt train.yml (12 steps, resume "
-               "to 16), then cli.test_restoration over an LMDB at T=100",
+    row = dict(phase="train_cli", what=f"cli.train_restoration -opt train.yml ({CLI_STEPS} steps, "
+               f"resume to {CLI_RESUME_STEPS}), then cli.test_restoration over an LMDB at "
+               "T=100",
                config=dict(B=B, patch=opt["datasets"]["train"]["patch_size"],
                            n_workers=opt["datasets"]["train"]["n_workers"],
                            distortion=types, md_images=f"{len(types)}x8 pairs "
@@ -1803,13 +1841,365 @@ def run_train_cli(train_step_ms):
     check(records[0]["step"] == 0 and records[n_first]["step"] == CLI_STEPS,
           f"train_cli: the resumed run started at {records[n_first]['step']}, not {CLI_STEPS}")
     check(len(records) == CLI_RESUME_STEPS, f"train_cli ran {len(records)} steps")
-    check({"6.pt", "12.pt", "16.pt"} <= set(ckpts), f"train_cli checkpoints: {ckpts}")
+    want_ckpts = {f"{s}.pt" for s in (CLI_VAL_FREQ, CLI_STEPS, CLI_RESUME_STEPS)}
+    check(want_ckpts <= set(ckpts), f"train_cli checkpoints: {ckpts}")
     check(calls == want, f"train_cli: kernel calls {calls}, expected {want}")
     check(len(summary["psnr"]) == 2 and all(np.isfinite(v).all() for v in summary.values()),
           "test_restoration: metrics not finite")
     check(test_calls == want_test, f"test_restoration: kernel calls {test_calls}, "
           f"expected {want_test}")
     return {k: calls[k] for k in ("wrap", "flash", "wrap_bwd", "flash_bwd")}
+
+
+# -- phase 12 ------------------------------------------------------------------
+DACLIP_MODEL = "daclip_ViT-B-32"   # vision 768 × 12, patch 32, 224²; text 512 × 12, 77 tokens
+DACLIP_B, DACLIP_ACCUM = 512, 2
+DACLIP_F32_B = 8
+DACLIP_F32_LIMIT = 1e-4   # f32 card vs f32 CPU, one step: loss and params, of their max
+# the same step's update p_after - p_before, of its max: 2.4e-3 read on an NVIDIA
+# H100 80GB HBM3 at 700 W; a skipped step reads 1
+DACLIP_UPDATE_LIMIT = 1e-2
+
+
+def clip_batch(B, seed, device, res=224, L=77):
+    """A seeded DA-CLIP batch: 224² CLIP-normalised LQ and GT images,
+    tokenised "caption| degradation" texts, deg_type / gt_val with every
+    type present."""
+    from daclip_torch.tokenizer import tokenize
+    from daclip_torch.transforms import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    mean = torch.tensor(OPENAI_DATASET_MEAN, device=device).view(1, 3, 1, 1)
+    std = torch.tensor(OPENAI_DATASET_STD, device=device).view(1, 3, 1, 1)
+    image = lambda: (torch.rand(B, 3, res, res, generator=gen, device=device) - mean) / std
+    types = ["blur", "noisy", "resize", "jpeg"]
+    lows, highs = np.array([0.5, 5, 0.5, 10]), np.array([4, 40, 4, 80])
+    deg_type = (rng.rand(B, 4) > 0.5).astype(np.float32)
+    deg_type[np.arange(B), np.arange(B) % 4] = 1.0          # every type present
+    gt_val = (deg_type * (lows + rng.rand(B, 4) * (highs - lows))).astype(np.float32)
+    caps = [f"a photo of scene {i}, outdoors" for i in range(B)]
+    degs = [", ".join(f"{t} with parameter {v:.1f}" for t, v, m in zip(types, g, d) if m)
+            for g, d in zip(gt_val, deg_type)]
+    texts = np.concatenate([tokenize(caps, context_length=L),
+                            tokenize(degs, context_length=L)], axis=1)
+    return {"images": image(), "gt_images": image(),
+            "texts": torch.from_numpy(texts).to(device),
+            "deg_type": torch.from_numpy(deg_type).to(device),
+            "gt_val": torch.from_numpy(gt_val).to(device)}
+
+
+def daclip_model(dtype_name, device, sd):
+    from daclip_torch.factory import create_model
+
+    model = create_model(DACLIP_MODEL, precision=dtype_name, use_predictor=True)
+    model.load_state_dict(sd, strict=True)
+    return model.to(device)
+
+
+def run_train_daclip(steps=5, warmup=2):
+    """The fork's DA-CLIP training step at full width: daclip_ViT-B-32 with
+    the level predictor, bf16 (--precision amp), B = 512, AdamW lr 2e-5,
+    wd 0.2, betas 0.9/0.98, eps 1e-6, cosine with warm-up (README's launch
+    line), seeded weights and batch; then one f32 step at B = 8 on the card
+    against the same on the CPU, and one accum_freq 2 step at 2 × 256."""
+    import gc
+
+    from daclip_torch.data.csv_dataset import build_banks
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+    from daclip_torch.tokenizer import tokenize
+    from daclip_torch.train.clip_train import (ClipTrainConfig, init_state,
+                                               make_accum_train_step, make_train_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    clip_cfg = CLIPCfg.from_dict(get_model_config(DACLIP_MODEL))
+    sd = seeded_state_dict(lambda: DaCLIP(clip_cfg, use_predictor=True), seed=31)
+    banks = build_banks(partial(tokenize, context_length=clip_cfg.text.context_length))
+    cfg = ClipTrainConfig(lr=2e-5, wd=0.2, beta1=0.9, beta2=0.98, eps=1e-6, variant="fork")
+    t0 = time.perf_counter()
+    model = daclip_model("amp", "cuda", sd)
+    state = init_state(model, cfg, device="cuda")
+    step_fn = make_train_step(model, cfg, banks, device="cuda")
+    setup_s = time.perf_counter() - t0
+    frozen0 = {k: v.clone() for k, v in model.state_dict().items()
+               if k.startswith(("clip.", "visual."))}
+    shape = dict(res=clip_cfg.vision.image_size, L=clip_cfg.text.context_length)
+    batch = clip_batch(DACLIP_B, seed=32, device="cuda", **shape)
+    for _ in range(warmup):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ms, metrics = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(ms))
+    prof = profile_one(lambda: step_fn(state, batch), step_ms, n_top=12)
+    frozen_same = all(torch.equal(v, model.state_dict()[k]) for k, v in frozen0.items())
+    last = metrics[-1]
+    emit(phase="train_daclip", what=f"the fork's training step, {DACLIP_MODEL} with the "
+         f"predictor, bf16, B={DACLIP_B} ({warmup} warm-up, {steps} timed steps, host clock "
+         "to a synchronize)",
+         config=dict(model=DACLIP_MODEL, B=DACLIP_B, precision="amp", lr=cfg.lr, wd=cfg.wd,
+                     betas=[cfg.beta1, cfg.beta2], eps=cfg.eps, warmup=cfg.warmup,
+                     scheduler=cfg.lr_scheduler),
+         trainable_params=sum(p.numel() for _, p in state.params),
+         params=sum(p.numel() for p in model.parameters()), setup_s=setup_s,
+         ms_per_step=ms, median_ms_per_step=step_ms, samples_per_s=DACLIP_B * 1e3 / step_ms,
+         max_memory_allocated=peak, memory_allocated_before=resident, metrics=metrics,
+         frozen_clip_unchanged=frozen_same, profile=prof)
+    check(all(np.isfinite(list(m.values())).all() for m in metrics),
+          "train_daclip: a loss term is not finite")
+    check(last["fcrc_loss"] > 0, f"train_daclip: FCRC {last['fcrc_loss']}")
+    check(frozen_same, "train_daclip: the frozen CLIP changed")
+    check(1.0 <= last["logit_scale"] <= 100.0, f"logit_scale {last['logit_scale']}")
+
+    # the accumulation two-pass at 2 × 256, on the same model and batch
+    accum_cfg = dataclasses.replace(cfg, accum_freq=DACLIP_ACCUM)
+    accum_fn = make_accum_train_step(model, accum_cfg, banks, device="cuda")
+    half = DACLIP_B // DACLIP_ACCUM
+    micro = [{k: v[i * half:(i + 1) * half] for k, v in batch.items()}
+             for i in range(DACLIP_ACCUM)]
+    accum_fn(state, micro)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, m = accum_fn(state, micro)
+    torch.cuda.synchronize()
+    accum_ms = (time.perf_counter() - t0) * 1e3
+    accum = {k: float(v) for k, v in m.items()}
+    emit(phase="train_daclip", what=f"accum_freq {DACLIP_ACCUM} two-pass step at "
+         f"{DACLIP_ACCUM} x {half}", ms=accum_ms, metrics=accum,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         max_memory_allocated_b512=peak)
+    check(np.isfinite(list(accum.values())).all(), "the accum step is not finite")
+    counts = read_counts()
+    check(not any(counts.values()), f"train_daclip launched hand kernels: {counts}")
+    del model, state, step_fn, accum_fn, batch, micro, frozen0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f32 = daclip_f32_step(cfg, sd, banks, shape)
+    emit(phase="train_daclip", what=f"one f32 step, card vs CPU, B={DACLIP_F32_B}", **f32,
+         limit=DACLIP_F32_LIMIT, update_limit=DACLIP_UPDATE_LIMIT)
+    check(f32["loss_rel_err"] <= DACLIP_F32_LIMIT,
+          f"train_daclip f32 loss: card vs CPU {f32['loss_rel_err']}")
+    check(f32["params_err_of_max"] <= DACLIP_F32_LIMIT,
+          f"train_daclip f32 params: {f32['params_err_of_max']} of their max")
+    check(f32["update_err_of_max"] <= DACLIP_UPDATE_LIMIT,
+          f"train_daclip f32 update: {f32['update_err_of_max']} of its max "
+          f"(worst {f32['update_worst']})")
+    counts = read_counts()
+    check(not any(counts.values()), f"train_daclip launched hand kernels: {counts}")
+    return step_ms
+
+
+
+def daclip_f32_step(cfg, sd, banks, shape):
+    """One f32 step (TF32 off) from the seeded weights on a seeded B = 8
+    batch, on the card and on the CPU: the loss, the trainable parameters
+    and the update (p_after - p_before), card against CPU, each as a share
+    of its max. A card step that changed nothing reads an update error of 1.
+
+    The step runs at lr 1e-3 and Adam eps 1e-3, as the CPU tests do. The
+    key projection's bias has a gradient that is 0 up to rounding; at eps
+    1e-6 Adam's first step turns its sign into +-lr on either device. At
+    lr 1e-3 the update is ~4000 ulps of the largest parameter (logit_scale,
+    2.66), so rounding p + u adds ~2.4e-4 of the update's max; the f32
+    gradients' different sums on the two devices add the rest."""
+    from daclip_torch.train.clip_train import init_state, make_train_step
+
+    f32 = dataclasses.replace(cfg, lr=1e-3, eps=1e-3, warmup=1)  # the first step at full lr
+    small = clip_batch(DACLIP_F32_B, seed=33, device="cpu", **shape)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = daclip_model("fp32", device, {k: v.to(device) for k, v in sd.items()})
+        state = init_state(model, f32, device=device)
+        _, m = make_train_step(model, f32, banks, device=device)(
+            state, {k: v.to(device) for k, v in small.items()})
+        out[device] = (float(m["total_loss"]),
+                       {n: p.detach().float().cpu() for n, p in state.params})
+        del model, state
+    card, cpu = out["cuda"][1], out["cpu"][1]
+    update = {n: (card[n] - sd[n].float().cpu(), p - sd[n].float().cpu())
+              for n, p in cpu.items()}
+    u_err = {n: float((uc - u).abs().max()) for n, (uc, u) in update.items()}
+    u_max = max(float(u.abs().max()) for _, u in update.values())
+    p_err = max(float((card[n] - p).abs().max()) for n, p in cpu.items())
+    p_max = max(float(p.abs().max()) for p in cpu.values())
+    worst = max(u_err, key=u_err.get)
+    return dict(lr=f32.lr, eps=f32.eps, loss_card=out["cuda"][0], loss_cpu=out["cpu"][0],
+                loss_rel_err=abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0]),
+                params_max_abs_err=p_err, params_max=p_max, params_err_of_max=p_err / p_max,
+                update_max_abs_err=u_err[worst], update_max=u_max,
+                update_err_of_max=u_err[worst] / u_max, update_worst=worst)
+
+# -- phase 13 ------------------------------------------------------------------
+CLIP_TREE = (24, 8)            # train and val LQ/GT pairs
+CLIP_SIDES = (224, 288)        # image sides, drawn per image
+CLIP_CLI_B, CLIP_CLI_WORKERS = 8, 4
+
+
+def write_clip_tree(root, pairs, seed):
+    """`root/{LQ,GT}/<i>.png` (sides drawn from CLIP_SIDES, the even pairs
+    with Up rows, the odd with Paeth) and a TSV of their paths and
+    "caption| degradation" titles."""
+    from daclip_torch.data import png
+
+    rng = np.random.RandomState(seed)
+    types = ["blur", "noisy", "resize", "jpeg"]
+    lows, highs = np.array([0.5, 5, 0.5, 10]), np.array([4, 40, 4, 80])
+    for sub in ("LQ", "GT"):
+        (root / sub).mkdir(parents=True)
+    rows = []
+    for i in range(pairs):
+        h, w = rng.randint(CLIP_SIDES[0], CLIP_SIDES[1] + 1, 2)
+        gt = rng.rand(h, w, 3)
+        lq = np.clip(gt + 0.1 * rng.randn(h, w, 3), 0, 1)
+        for sub, img in (("GT", gt), ("LQ", lq)):
+            png.write(str(root / sub / f"{i:03d}.png"), (img * 255).round().astype(np.uint8),
+                      ("up", "paeth")[i % 2])
+        present = rng.rand(4) > 0.5
+        present[i % 4] = True
+        vals = lows + rng.rand(4) * (highs - lows)
+        deg = ", ".join(f"{t} with parameter {v:.1f}" for t, v, m in zip(types, vals, present)
+                        if m)
+        rows.append(f"{root / 'LQ' / f'{i:03d}.png'}\ta photo of scene {i}| {deg}")
+    (root / "data.csv").write_text("filepath\ttitle\n" + "\n".join(rows) + "\n")
+    return str(root / "data.csv")
+
+
+def run_train_daclip_cli(train_daclip_ms):
+    """`daclip_torch.cli.train_daclip.main` in process: --da, daclip_ViT-B-32,
+    --precision amp, seeded weights, a seeded CSV of 24 LQ/GT PNG pairs and a
+    val CSV of 8, batch 8, 4 workers, 2 epochs, then --resume latest to 3;
+    the step timed by a hook on the trainer's `make_train_step`; the
+    loader's samples/s alone before; the last checkpoint through
+    DACLIPRestorer.load with a seeded production UNet, which classifies."""
+    import gc
+    import json as json_mod
+    import tempfile
+
+    from daclip_torch.cli import train_daclip as cli
+    from daclip_torch.data.csv_dataset import CsvDataset
+    from daclip_torch.data.loader import DataLoader
+    from daclip_torch.models.clip import CLIPCfg, get_model_config
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.pipeline import DEGRADATION_CLASSES, DACLIPRestorer, RestorerConfig
+    from daclip_torch.tokenizer import tokenize
+    from daclip_torch.train import clip_train
+    from daclip_torch.transforms import image_transform
+    from daclip_torch.utils import checkpoint as ckpt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    records = []
+    real_make = clip_train.make_train_step
+
+    def timed_make(*args, **kw):
+        step = real_make(*args, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = state.step
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            records.append(dict(step=before, start=t0, ms=(time.perf_counter() - t0) * 1e3))
+            return out
+
+        return timed
+
+    with tempfile.TemporaryDirectory() as d:
+        root = pathlib.Path(d)
+        t0 = time.perf_counter()
+        train_csv = write_clip_tree(root / "train", CLIP_TREE[0], seed=41)
+        val_csv = write_clip_tree(root / "val", CLIP_TREE[1], seed=42)
+        unet_kw = dict(nf=64, ch_mult=(1, 2, 4, 8), context_dim=512, use_degra_context=True,
+                       use_image_context=True)
+        unet_pth = root / "unet.pth"
+        torch.save({k: v.cpu() for k, v in seeded_state_dict(
+            lambda: ConditionalUNet(**unet_kw), seed=1).items()}, unet_pth)
+        setup_s = time.perf_counter() - t0
+
+        res = CLIPCfg.from_dict(get_model_config(DACLIP_MODEL)).vision.image_size
+        ds = CsvDataset(train_csv, image_transform(res, is_train=True), da=True, seed=0)
+        loader = DataLoader(ds, batch_size=CLIP_CLI_B, shuffle=True,
+                            num_workers=CLIP_CLI_WORKERS)
+        t0 = time.perf_counter()
+        n = sum(len(b["images"]) for b in loader)
+        loader_sps = n / (time.perf_counter() - t0)
+
+        argv = ["--train-data", train_csv, "--val-data", val_csv, "--da", "--model",
+                DACLIP_MODEL, "--precision", "amp", "--batch-size", str(CLIP_CLI_B),
+                "--workers", str(CLIP_CLI_WORKERS), "--logs", str(root / "logs"),
+                "--name", "cli", "--lr", "2e-5", "--device", "cuda"]
+        reset_counts()
+        clip_train.make_train_step = timed_make
+        t0 = time.perf_counter()
+        try:
+            first = cli.main(argv + ["--epochs", "2"])
+            n_first = len(records)
+            second = cli.main(argv + ["--epochs", "3", "--resume", "latest"])
+        finally:
+            clip_train.make_train_step = real_make
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = read_counts()
+        ckpt_dir = root / "logs" / "cli" / "checkpoints"
+        epochs = ckpt.steps(str(ckpt_dir), ckpt.EPOCH)
+        best = ckpt.steps(str(ckpt_dir / "best"), ckpt.EPOCH)
+        rows = [json_mod.loads(x) for x in
+                (root / "logs" / "cli" / "results.jsonl").read_text().splitlines()]
+        val_rows = [r for r in rows if "val/image_to_text_R@1" in r]
+        last = torch.load(ckpt.checkpoint_path(str(ckpt_dir), 3, ckpt.EPOCH), map_location="cpu",
+                          weights_only=False)
+        restorer = DACLIPRestorer.load(str(unet_pth), ckpt.checkpoint_path(
+            str(ckpt_dir), 3, ckpt.EPOCH), RestorerConfig(model_name=DACLIP_MODEL, linear_attention="v5",
+                                pointwise=False), device="cuda")
+        name, probs = restorer.classify_degradation(
+            np.random.RandomState(43).rand(256, 256, 3).astype(np.float32))
+        counts_after = read_counts()
+        del restorer
+    step_ms = [r["ms"] for r in records]
+    gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
+            if b["step"] == a["step"] + 1]
+    emit(phase="train_daclip_cli", what="cli.train_daclip.main: 2 epochs, then --resume "
+         "latest to 3, val every epoch",
+         config=dict(model=DACLIP_MODEL, precision="amp", B=CLIP_CLI_B,
+                     workers=CLIP_CLI_WORKERS, train_pairs=CLIP_TREE[0],
+                     val_pairs=CLIP_TREE[1], sides=list(CLIP_SIDES),
+                     png_rows="half Up, half Paeth"),
+         cuts=dict(batch=f"{CLIP_CLI_B}, not {DACLIP_B} (the host's PNG decode; the "
+                   "full-width step is train_daclip's)",
+                   tree=f"{CLIP_TREE[0]} + {CLIP_TREE[1]} pairs"),
+         setup_s=setup_s, train_s=train_s, first=first, second=second,
+         steps_run=[r["step"] for r in records], ms_per_step=step_ms,
+         median_ms_per_step=float(np.median(step_ms)),
+         median_ms_step_to_step=float(np.median(gaps)),
+         samples_per_s_step_to_step=CLIP_CLI_B * 1e3 / float(np.median(gaps)),
+         loader_samples_per_s_alone=loader_sps, train_daclip_median_ms_b512=train_daclip_ms,
+         checkpoints=epochs, best=best, last_step=last["step"], val_rows=val_rows,
+         classified=name, top_probability=max(probs.values()), launches=counts)
+    steps_per_epoch = CLIP_TREE[0] // CLIP_CLI_B
+    check(epochs == [1, 2, 3] and len(best) == 1, f"checkpoints {epochs}, best {best}")
+    check(last["step"] == 3 * steps_per_epoch and len(records) == 3 * steps_per_epoch
+          and records[n_first]["step"] == 2 * steps_per_epoch,
+          f"train_daclip_cli ran steps {[r['step'] for r in records]}")
+    check(len(val_rows) == 3 and all(np.isfinite(list(r.values())).all() for r in val_rows),
+          "train_daclip_cli: val metrics missing or not finite")
+    check(np.isfinite([first["best_loss"], second["best_loss"]]).all(),
+          "train_daclip_cli: a train loss is not finite")
+    check(name in DEGRADATION_CLASSES, f"classified as {name}")
+    check(not any(counts.values()) and not any(counts_after.values()),
+          f"train_daclip_cli launched hand kernels: {counts} / {counts_after}")
 
 
 def main():
@@ -1864,11 +2254,12 @@ def main():
     run_profile_train(full_step, step_ms, wiring="v4_pointwise")
     del full_step
     train_cli_totals = run_train_cli(train_step_ms)
+    run_train_daclip_cli(run_train_daclip())
 
     # launches on each main path, each counted from 0 just before its run:
     # serve (the four requests), serve_alt (two requests per other wiring),
     # train (five timed steps), train_alt (three), train_cli (the CLI's two
-    # runs, 16 steps and 4 validations); for the attention core and
+    # runs, 6 steps and 5 validations); for the attention core and
     # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
     # and kernels_conv phases, and the conv's in the hooked forward_conv
     paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, train=train_totals,

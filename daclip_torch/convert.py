@@ -226,20 +226,32 @@ def _visual(w: _Writer, prefix, p, transformer_sub="transformer.resblocks",
                zero_prefix)
 
 
+def _clip(w: _Writer, prefix: str, clip: Mapping):
+    _visual(w, f"{prefix}visual", clip["visual"])
+    text = clip["text"]
+    w.put(f"{prefix}token_embedding.weight", text["token_embedding"])
+    w.put(f"{prefix}positional_embedding", text["positional_embedding"])
+    w.norm(f"{prefix}ln_final", text["ln_final"])
+    w.put(f"{prefix}text_projection", text["text_projection"])
+    _resblocks(w, f"{prefix}transformer.resblocks", text["transformer"]["resblocks"])
+    w.put(f"{prefix}logit_scale", clip["logit_scale"])
+
+
+def clip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX CLIP params (`visual`, `text`, `logit_scale`) → reference CLIP
+    state dict (inverse of `convert_clip`), the text tower inlined."""
+    w = _Writer()
+    _clip(w, "", params)
+    return w.sd
+
+
 def daclip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX DaCLIP params → reference DaCLIP state dict (inverse of
     `convert_daclip`), with both the `clip.visual.*` and `visual.*` aliases."""
     w = _Writer()
     clip = params["clip"]
-    for prefix in ("clip.visual", "visual"):
-        _visual(w, prefix, clip["visual"])
-    text = clip["text"]
-    w.put("clip.token_embedding.weight", text["token_embedding"])
-    w.put("clip.positional_embedding", text["positional_embedding"])
-    w.norm("clip.ln_final", text["ln_final"])
-    w.put("clip.text_projection", text["text_projection"])
-    _resblocks(w, "clip.transformer.resblocks", text["transformer"]["resblocks"])
-    w.put("clip.logit_scale", clip["logit_scale"])
+    _clip(w, "clip.", clip)
+    _visual(w, "visual", clip["visual"])
     _visual(w, "visual_control", params["visual_control"],
             transformer_sub="transformer.transformer.resblocks",
             zero_prefix="visual_control.transformer.zero_modules")

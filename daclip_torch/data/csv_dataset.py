@@ -1,19 +1,32 @@
-"""The degradation types, level prompts and bin-center banks of DA-CLIP's
-level predictor.
+"""DA-CLIP's CSV dataset, with the degradation types, level prompts and
+bin-center banks of the fork's level predictor.
 
-Counterpart of `daclip_tpu/data/csv_dataset.py:26-75` (da-clip/src/training/
-data.py:55-156). Bin centers are integers, as the reference builds the bank
-with torch.long (data.py:88), truncating blur/resize centers like 0.75 → 0;
-`exact_bins=True` keeps the float centers. The 28 level prompts and the bank
-are constants, built once.
+Counterpart of `daclip_tpu/data/csv_dataset.py` (da-clip/src/training/
+data.py:29-156, 588-635). Bin centers are integers, as the reference builds
+the bank with torch.long (data.py:88), truncating blur/resize centers like
+0.75 → 0; `exact_bins=True` keeps the float centers. The 28 level prompts
+and the bank are constants, built once (`banks()`), not copied into every
+sample.
+
+A sample is a dict of numpy arrays: `images` and `gt_images` (H, W, 3)
+float32 from the transform, `texts` (L,) token ids, or (2·L,) caption‖
+degradation with `da`, `deg_type` and `gt_val` (4,) float32. The GT image's
+path is the LQ path with `LQ` replaced by `GT`. Images are decoded to RGB as
+PIL's `convert("RGB")` gives them (`data/util.imread_rgb`). With `crop`, the
+LQ image is cropped by `_random_crop` from the dataset's own
+`random.Random(seed)` before the transform draws for the LQ image and then,
+anew, for the GT image.
 """
 from __future__ import annotations
 
+import csv
+import random
 import re
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from daclip_torch.data.util import imread_rgb
 from daclip_torch.tokenizer import tokenize as default_tokenize
 
 DEGRADATION_TYPES = ["blur", "noisy", "resize", "jpeg"]
@@ -68,3 +81,100 @@ def parse_degradations(degradation: str) -> Dict[str, float]:
     (data.py:55)."""
     matches = re.findall(r"(\w+)\s+with parameter\s+([\d.]+)", degradation)
     return {d_type: float(val) for d_type, val in matches}
+
+
+def _random_crop(img: np.ndarray, low_size: int = 64, rng=None) -> np.ndarray:
+    """data.py:29-34 on an HWC array. The reference names PIL's (width,
+    height) size (h, w) and crops the box (rnd_h, rnd_w, rnd_h + size,
+    rnd_w + size); kept, so the draws and the box are the JAX package's."""
+    rng = rng or random
+    h, w = img.shape[1], img.shape[0]
+    size = rng.randint(low_size, min(h, w))
+    rnd_h = rng.randint(0, max(0, h - size))
+    rnd_w = rng.randint(0, max(0, w - size))
+    return img[rnd_w:rnd_w + size, rnd_h:rnd_h + size]
+
+
+def _tokens(tokenize, caption: str, degradation: Optional[str] = None) -> np.ndarray:
+    """(L,) ids of the caption, or (2·L,) caption‖degradation."""
+    if degradation is None:
+        return tokenize([caption])[0].astype(np.int32)
+    return np.concatenate([tokenize([caption])[0], tokenize([degradation])[0]]).astype(np.int32)
+
+
+class CsvDataset:
+    """Rows of `img_key` (the LQ image's path) and `caption_key`
+    ("<caption>| <degradation>") of a CSV/TSV file."""
+
+    def __init__(self, input_filename: str, transforms: Callable, img_key: str = "filepath",
+                 caption_key: str = "title", sep: str = "\t",
+                 tokenizer: Callable = default_tokenize, da: bool = False, crop: bool = False,
+                 exact_bins: bool = False, seed: Optional[int] = None):
+        self.transforms = transforms
+        self.tokenize = tokenizer
+        self.da = da
+        self.crop = crop
+        self.rng = random.Random(seed)
+        self.images: List[str] = []
+        self.captions: List[str] = []
+        with open(input_filename, newline="") as f:
+            for row in csv.DictReader(f, delimiter=sep):
+                self.images.append(row[img_key])
+                self.captions.append(row[caption_key])
+        self.degradations = [parse_degradations(c.split("| ")[1]) for c in self.captions]
+        self.bin_center_bank, self.all_d_type_tokens = build_banks(tokenizer, exact_bins)
+
+    def banks(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.bin_center_bank, self.all_d_type_tokens
+
+    def __len__(self):
+        return len(self.captions)
+
+    def __getitem__(self, idx: int) -> Dict:
+        path = str(self.images[idx])
+        image = imread_rgb(path)
+        gt_image = imread_rgb(path.replace("LQ", "GT"))
+        deg_type = np.zeros(4, np.float32)
+        gt_val = np.zeros(4, np.float32)
+        for k, v in self.degradations[idx].items():
+            deg_type[DEG_TYPE_TO_ID[k]] = 1
+            gt_val[DEG_TYPE_TO_ID[k]] = v
+        text = str(self.captions[idx])
+        tok = _tokens(self.tokenize, *text.split("| ")) if self.da else _tokens(self.tokenize,
+                                                                                  text)
+        if self.da and self.crop and self.rng.random() > 0.2:
+            image = _random_crop(image, rng=self.rng)
+        return {"images": self.transforms(image).astype(np.float32), "texts": tok,
+                "gt_images": self.transforms(gt_image).astype(np.float32),
+                "deg_type": deg_type, "gt_val": gt_val}
+
+
+class SyntheticDataset:
+    """A black image and one caption (training/data.py:588-635): the
+    pipeline without data. `image_size` is (width, height)."""
+
+    def __init__(self, transforms: Optional[Callable] = None, image_size=(224, 224),
+                 caption: str = "Dummy caption", dataset_size: int = 100,
+                 tokenizer: Callable = default_tokenize, da: bool = False):
+        self.image = np.zeros((image_size[1], image_size[0], 3), np.uint8)
+        self.transforms = transforms
+        self.caption = caption
+        self.dataset_size = dataset_size
+        self.tokenize = tokenizer
+        self.da = da
+        self.bin_center_bank, self.all_d_type_tokens = build_banks(tokenizer)
+
+    def banks(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.bin_center_bank, self.all_d_type_tokens
+
+    def __len__(self):
+        return self.dataset_size
+
+    def __getitem__(self, idx: int) -> Dict:
+        img = (self.transforms(self.image) if self.transforms
+               else np.zeros((224, 224, 3), np.float32))
+        tok = _tokens(self.tokenize, self.caption, "noisy with parameter 25" if self.da else None)
+        return {"images": img.astype(np.float32), "texts": tok,
+                "gt_images": img.astype(np.float32),
+                "deg_type": np.array([0, 1, 0, 0], np.float32),
+                "gt_val": np.array([0, 25, 0, 0], np.float32)}

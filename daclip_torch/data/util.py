@@ -5,6 +5,8 @@ Counterpart of `daclip_tpu/data/util.py` (reference
 universal-image-restoration/data/util.py):
   read_img          — util.py:89-115: float32 HWC BGR in [0, 1], gray with a
                       channel axis, alpha dropped
+  imread_rgb        — the CSV dataset's decode: uint8 RGB as PIL's
+                      convert("RGB") gives it
   read_imgs_cropped — util.py:118-156: one random crop shared by same-sized
                       images, decoded in full and then cropped
   augment           — util.py:98-116: random hflip + rot90 family
@@ -13,14 +15,15 @@ universal-image-restoration/data/util.py):
   imresize_np       — util.py:231-299: MATLAB bicubic with antialiasing
 
 PNG is decoded and encoded by `data/png.py`, which needs neither cv2 nor
-PIL. Any other format goes through cv2, imported only when such a file is
-read; without cv2 that raises an ImportError that says how to get the data
+PIL. Any other format goes through cv2 (through PIL for `imread_rgb`),
+imported only when such a file is read; without cv2 that raises an ImportError that says how to get the data
 in (PNG, or an LMDB packed where cv2 exists: `tools/create_lmdb.py`). The
 JAX package's native decoder (`DACLIP_TPU_NATIVE_IO`, `data/native_io.py`)
 is not carried over.
 """
 from __future__ import annotations
 
+import io
 import os
 import pickle
 import random
@@ -120,6 +123,24 @@ def imread_color(path: str) -> np.ndarray:
     if img.shape[2] == 1:
         img = np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[:, :, :3])
+
+
+def imread_rgb(path: str) -> np.ndarray:
+    """uint8 RGB (H, W, 3), as PIL's `Image.open(path).convert("RGB")` gives
+    it: alpha is dropped without compositing, gray replicated, a palette
+    expanded. PNG by `data/png.py` (8-bit files only: a 16-bit one raises
+    `ValueError`); any other format by PIL, imported here."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if png.is_png(data):
+        img = png.decode(data, path)
+        if img.ndim == 2:
+            return np.repeat(img[:, :, None], 3, axis=2)
+        return np.ascontiguousarray(img[:, :, 2::-1])   # BGR(A) → RGB
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def read_img(env, path: str, size=None) -> np.ndarray:

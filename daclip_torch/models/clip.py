@@ -200,9 +200,11 @@ def _normalize(x, normalize: bool):
 
 class CLIP(nn.Module):
     """Dual-tower CLIP with the reference's (model.py:187-264) parameter
-    names; activations in `dtype`, parameters in float32."""
+    names; activations in `dtype`, parameters in float32; `remat`
+    checkpoints every residual block of both towers."""
 
-    def __init__(self, cfg: CLIPCfg, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: CLIPCfg, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         _check_vit(cfg)
         v, t = cfg.vision, cfg.text
@@ -212,9 +214,9 @@ class CLIP(nn.Module):
             image_size=v.image_size, patch_size=v.patch_size, width=v.width,
             layers=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
             output_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu,
-            global_average_pool=v.global_average_pool)
+            global_average_pool=v.global_average_pool, remat=remat)
         self.transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
-                                       cfg.quick_gelu)
+                                       cfg.quick_gelu, remat)
         self.token_embedding = nn.Embedding(t.vocab_size, t.width)
         self.positional_embedding = nn.Parameter(0.01 * torch.randn(t.context_length, t.width))
         self.ln_final = LayerNorm(t.width)
@@ -288,21 +290,21 @@ class DaCLIP(nn.Module):
     """Frozen CLIP plus the controller vision tower (daclip_model.py:17-76),
     and with `use_predictor` the fork's level predictor (da-clip/src/
     open_clip/daclip_model.py:83-169). `visual` is the same module as
-    `clip.visual`, as in the reference."""
+    `clip.visual`, as in the reference; `remat` as CLIP's."""
 
     def __init__(self, cfg: CLIPCfg, dtype: torch.dtype = torch.float32,
-                 use_predictor: bool = False):
+                 use_predictor: bool = False, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.clip = CLIP(cfg, dtype=dtype)
+        self.clip = CLIP(cfg, dtype=dtype, remat=remat)
         self.visual = self.clip.visual
         v = cfg.vision
         self.visual_control = VisionTransformer(
             image_size=v.image_size, patch_size=v.patch_size, width=v.width,
             layers=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
             output_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu, controller=True,
-            global_average_pool=v.global_average_pool)
+            global_average_pool=v.global_average_pool, remat=remat)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
         self.predictor = MultiTypeDegradationPredictor() if use_predictor else None
 

@@ -4,6 +4,10 @@ Counterpart of `daclip_tpu/models/transformer.py` (open_clip/transformer.py).
 The JAX package scans stacked (L, …) block parameters; here the blocks are an
 `nn.ModuleList` named `resblocks`, as in the reference state dict.
 
+`remat=True` recomputes each residual block's activations in the backward
+pass (`torch.utils.checkpoint`, as the JAX towers' `nn.remat`;
+`--grad-checkpointing`).
+
 Control injection keeps the reference's `control.pop()` semantics exactly
 (transformer.py:359-368): the main tower's block i adds the controller's
 hidden from block L-1-i after the block. Do not "fix" the order — the
@@ -16,6 +20,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from daclip_torch.models.layers import MLP, LayerNorm, Linear, MultiheadAttention
 
@@ -43,16 +48,23 @@ class Transformer(nn.Module):
     adds control[L-1-i] after itself."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
-                 quick_gelu: bool = False):
+                 quick_gelu: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             [ResidualAttentionBlock(width, heads, mlp_ratio, quick_gelu)
              for _ in range(layers)])
 
+    def run_block(self, block, x, mask=None):
+        """One block, recomputed in the backward pass when remat is on."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, mask, use_reentrant=False)
+        return block(x, mask)
+
     def forward(self, x, mask=None, control: Optional[List[torch.Tensor]] = None):
         control = None if control is None else list(control)
         for block in self.resblocks:
-            x = block(x, mask)
+            x = self.run_block(block, x, mask)
             if control is not None:
                 x = x + control.pop().to(x.dtype)
         return x
@@ -81,7 +93,7 @@ class ControlTransformer(nn.Module):
     def forward(self, x, mask=None):
         hiddens = []
         for block, zero in zip(self.transformer.resblocks, self.zero_modules):
-            x = block(x, mask)
+            x = self.transformer.run_block(block, x, mask)
             hiddens.append(zero(x))
         return x, hiddens
 
@@ -94,7 +106,8 @@ class VisionTransformer(nn.Module):
     def __init__(self, image_size: int = 224, patch_size: int = 32, width: int = 768,
                  layers: int = 12, heads: int = 12, mlp_ratio: float = 4.0,
                  output_dim: int = 512, quick_gelu: bool = False,
-                 controller: bool = False, global_average_pool: bool = False):
+                 controller: bool = False, global_average_pool: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.patch_size = patch_size
         self.global_average_pool = global_average_pool
@@ -104,7 +117,7 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(scale * torch.randn(width))
         self.positional_embedding = nn.Parameter(scale * torch.randn(grid * grid + 1, width))
         self.ln_pre = LayerNorm(width)
-        transformer = Transformer(width, layers, heads, mlp_ratio, quick_gelu)
+        transformer = Transformer(width, layers, heads, mlp_ratio, quick_gelu, remat)
         self.transformer = ControlTransformer(transformer, width) if controller else transformer
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(scale * torch.randn(width, output_dim))

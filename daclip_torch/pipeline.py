@@ -37,6 +37,7 @@ from daclip_torch.models.unet import ConditionalUNet
 from daclip_torch.sde.irsde import IRSDE
 from daclip_torch.tokenizer import tokenize
 from daclip_torch.transforms import clip_transform
+from daclip_torch.utils import checkpoint as train_checkpoint
 from daclip_torch.utils.metrics import array2img
 from daclip_torch.utils.native_checkpoint import _ORBAX, load_daclip_any, load_unet_any
 
@@ -174,15 +175,18 @@ class DACLIPRestorer:
         package's flat .npz params (`utils/native_checkpoint.py`), each file
         either, or with `unet` the port's train dir (its `<step>.pt` files:
         `step`, default the latest, and the EMA parameters unless
-        `use_ema=False`), as daclip_tpu's `load` takes its orbax dir. The
+        `use_ema=False`), as daclip_tpu's `load` takes its orbax dir; with
+        `daclip` an `epoch_<n>.pt` of the port's DA-CLIP trainer or its
+        train dir (the latest epoch). The
         UNet architecture is inferred from its checkpoint and overrides
         `cfg`; a torch DA-CLIP's position embeddings are resized to the
         config's grid. The fork's `predictor.*` is dropped. Without `daclip`
         both contexts are off (as daclip_tpu's `load`), and a UNet with image
         context is refused with a ValueError. Orbax dirs are refused."""
-        if daclip is not None and os.path.isdir(daclip):
+        if (daclip is not None and os.path.isdir(daclip)
+                and not train_checkpoint.steps(daclip, train_checkpoint.EPOCH)):
             raise NotImplementedError(f"{daclip!r} is a directory: DA-CLIP weights load "
-                                      f"from a file; {_ORBAX}")
+                                      f"from a file or the port's DA-CLIP train dir; {_ORBAX}")
         cfg = cfg or RestorerConfig()
         unet_sd, arch = load_unet_any(unet, step=step, use_ema=use_ema)
         cfg = dataclasses.replace(

@@ -1,17 +1,27 @@
-"""The CLIP view of an LQ image, in numpy, without PIL or cv2.
+"""CLIP's image transforms, in numpy, without PIL or cv2.
 
-Counterpart of `daclip_tpu/transforms.py:clip_transform` (predict.py:94-106;
-open_clip/transform.py:124-133): [0,1] float RGB → uint8 → resize the shorter
-side to `resolution` with PIL's antialiased bicubic filter → center crop →
-normalise with the OpenAI mean/std.
+Counterpart of `daclip_tpu/transforms.py`'s PIL path:
+  * `clip_transform` (predict.py:94-106; open_clip/transform.py:124-133):
+    [0,1] float RGB → uint8 → resize the shorter side to `resolution` with
+    PIL's antialiased bicubic filter → center crop → normalise with the
+    OpenAI mean/std;
+  * `image_transform(is_train=True)` (open_clip/transform.py:105-114):
+    torchvision's RandomResizedCrop, scale (0.9, 1.0), drawn from a
+    `random.Random`, resized as PIL's `resize(box=…)` → normalise.
 
 `_resample_bicubic` is PIL's two-pass 8-bit resampler (Pillow
 `libImaging/Resample.c`): bicubic a = −0.5, support scaled by the
 downscaling factor, coefficients normalised per output pixel and quantised
 to 22-bit fixed point, the horizontal pass first, the intermediate rounded
-and clipped to uint8. It gives PIL's bytes.
+and clipped to uint8. With a box, the filter's centres span the box's
+extent while its taps reach any pixel of the image, as PIL's do (so the
+result is not crop-then-resize). It gives PIL's bytes.
 """
 from __future__ import annotations
+
+import math
+import random
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,15 +38,17 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _coeffs(in_size: int, out_size: int):
+def _coeffs(in_size: int, out_size: int, in0: float = 0.0, in1: Optional[float] = None):
     """PIL's fixed-point filter weights of each output pixel (precompute_coeffs
-    + normalize_coeffs_8bpc), as a dense (out_size, in_size) int64 matrix."""
-    scale = in_size / out_size
+    over the input span [in0, in1) + normalize_coeffs_8bpc), as a dense
+    (out_size, in_size) int64 matrix."""
+    in1 = in_size if in1 is None else in1
+    scale = (in1 - in0) / out_size
     filterscale = max(scale, 1.0)
     support = 2.0 * filterscale
     mat = np.zeros((out_size, in_size), np.int64)
     for xx in range(out_size):
-        center = (xx + 0.5) * scale
+        center = in0 + (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
         w = _bicubic((np.arange(xmax) + xmin - center + 0.5) * (1.0 / filterscale))
@@ -59,13 +71,18 @@ def _apply(mat: np.ndarray, img: np.ndarray, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def _resample_bicubic(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
-    """PIL `Image.resize((out_w, out_h), Image.BICUBIC)` of a uint8 HWC image."""
+def _resample_bicubic(img: np.ndarray, out_w: int, out_h: int,
+                      box: Optional[Tuple[float, float, float, float]] = None) -> np.ndarray:
+    """PIL `Image.resize((out_w, out_h), Image.BICUBIC, box=box)` of a uint8
+    HWC image; `box` (left, upper, right, lower) defaults to the image. A
+    pass runs when PIL's `ImagingResample` runs it: the output size differs,
+    or the box starts past 0 or ends elsewhere than the output size."""
     h, w = img.shape[:2]
-    if out_w != w:
-        img = _apply(_coeffs(w, out_w), img, axis=1)
-    if out_h != h:
-        img = _apply(_coeffs(h, out_h), img, axis=0)
+    x0, y0, x1, y1 = (0, 0, w, h) if box is None else box
+    if out_w != w or x0 or x1 != out_w:
+        img = _apply(_coeffs(w, out_w, x0, x1), img, axis=1)
+    if out_h != h or y0 or y1 != out_h:
+        img = _apply(_coeffs(h, out_h, y0, y1), img, axis=0)
     return img
 
 
@@ -100,9 +117,65 @@ def _center_crop(img: np.ndarray, size: int) -> np.ndarray:
     return img[top:top + size, left:left + size]
 
 
-def clip_transform(np_image: np.ndarray, resolution: int = 224,
-                   mean=OPENAI_DATASET_MEAN, std=OPENAI_DATASET_STD) -> np.ndarray:
-    """[0,1] float RGB HWC → normalised (resolution, resolution, 3) float32."""
-    img = _center_crop(_resize_shorter(_to_uint8(np_image), resolution), resolution)
+def _normalize(img: np.ndarray, mean, std) -> np.ndarray:
     arr = img.astype(np.float32) / 255.0
     return (arr - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+
+
+def clip_transform(np_image: np.ndarray, resolution: int = 224,
+                   mean=OPENAI_DATASET_MEAN, std=OPENAI_DATASET_STD) -> np.ndarray:
+    """[0,1] float or uint8 RGB HWC → normalised (resolution, resolution, 3)
+    float32."""
+    img = _center_crop(_resize_shorter(_to_uint8(np_image), resolution), resolution)
+    return _normalize(img, mean, std)
+
+
+def _random_resized_crop(img: np.ndarray, size: int, scale=(0.9, 1.0), ratio=(3 / 4, 4 / 3),
+                         rng: Optional[random.Random] = None) -> np.ndarray:
+    """torchvision's RandomResizedCrop on a uint8 HWC image: 10 draws of an
+    area share and a log aspect, then the center fallback; the box resized
+    to size × size as PIL's `resize(box=…)`."""
+    rng = rng or random
+    h, w = img.shape[:2]
+    area = w * h
+    log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
+    for _ in range(10):
+        target_area = area * rng.uniform(scale[0], scale[1])
+        aspect = math.exp(rng.uniform(log_ratio[0], log_ratio[1]))
+        cw = int(round(math.sqrt(target_area * aspect)))
+        ch = int(round(math.sqrt(target_area / aspect)))
+        if 0 < cw <= w and 0 < ch <= h:
+            left = rng.randint(0, w - cw)
+            top = rng.randint(0, h - ch)
+            return _resample_bicubic(img, size, size, (left, top, left + cw, top + ch))
+    in_ratio = w / h
+    if in_ratio < ratio[0]:
+        cw, ch = w, int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        cw, ch = int(round(h * ratio[1])), h
+    else:
+        cw, ch = w, h
+    left, top = (w - cw) // 2, (h - ch) // 2
+    return _resample_bicubic(img, size, size, (left, top, left + cw, top + ch))
+
+
+def image_transform(image_size=224, is_train: bool = False,
+                    mean: Optional[Sequence[float]] = None,
+                    std: Optional[Sequence[float]] = None,
+                    rng: Optional[random.Random] = None):
+    """fn(image) → normalised (size, size, 3) float32 HWC, for a uint8 RGB
+    or [0,1] float RGB HWC image: the train transform (random resized crop,
+    its draws from `rng`, the `random` module's stream when None, as
+    daclip_tpu's) or the val transform (`clip_transform`)."""
+    mean = tuple(mean or OPENAI_DATASET_MEAN)
+    std = tuple(std or OPENAI_DATASET_STD)
+    if isinstance(image_size, (tuple, list)):
+        image_size = image_size[0]
+
+    def train_fn(img):
+        return _normalize(_random_resized_crop(_to_uint8(img), image_size, rng=rng), mean, std)
+
+    def val_fn(img):
+        return clip_transform(img, image_size, mean, std)
+
+    return train_fn if is_train else val_fn

@@ -8,9 +8,10 @@ Counterpart of `daclip_tpu/utils/native_checkpoint.py` (`checkpoint_kind`
 `save_params_npz` is the bridge from a JAX train dir. The trees are the JAX
 modules' own: the UNet's as `unet_state_dict_from_jax` reads it, DaCLIP's
 with its transformer blocks stacked (L, …) along the first axis as
-`daclip_state_dict_from_jax` reads them. The port's own train dir (the
-`<step>.pt` files of `utils/checkpoint.py`) loads as a UNet, as the JAX
-package loads its orbax train dir. Orbax train dirs are refused:
+`daclip_state_dict_from_jax` reads them. The port's own restoration train
+dir (the `<step>.pt` files of `utils/checkpoint.py`) loads as a UNet, and
+its DA-CLIP train dir (the `epoch_<n>.pt` files) as a DA-CLIP, as the JAX
+package loads its orbax train dirs. Orbax train dirs are refused:
 `orbax.checkpoint` imports jax.
 """
 from __future__ import annotations
@@ -39,8 +40,8 @@ def _has_orbax_step_dirs(path: str) -> bool:
 
 def checkpoint_kind(path: str) -> str:
     """'orbax' (a train dir with numeric step subdirs), 'orbax_step' (one
-    step dir), 'train_dir' (the port's `<step>.pt` files), 'npz', or
-    'torch'."""
+    step dir), 'train_dir' (the port's `<step>.pt` files), 'clip_train_dir'
+    (its `epoch_<n>.pt` files), 'npz', or 'torch'."""
     if _has_orbax_step_dirs(path):
         return "orbax"
     if os.path.isdir(path):
@@ -48,6 +49,8 @@ def checkpoint_kind(path: str) -> str:
             return "orbax_step"
         if train_checkpoint.steps(path):
             return "train_dir"
+        if train_checkpoint.steps(path, train_checkpoint.EPOCH):
+            return "clip_train_dir"
         raise FileNotFoundError(
             f"{path!r} is a directory but contains no orbax step checkpoints")
     if str(path).endswith(".npz"):
@@ -136,17 +139,21 @@ def load_unet_any(path: str, step: Optional[int] = None,
 
 def load_daclip_any(path: str, image_size: Optional[int] = None,
                     patch_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Reference-named DaCLIP state dict from a torch .pt or a flat .npz.
-    A torch checkpoint's ViT position embeddings are resized to the
-    (image_size // patch_size)² grid, as `convert_daclip` does; an .npz is
-    already in the JAX package's layout and is taken as it is."""
+    """Reference-named DaCLIP state dict from a torch .pt, a flat .npz, or
+    the port's DA-CLIP train dir (its latest epoch). A torch checkpoint's
+    ViT position embeddings are resized to the (image_size // patch_size)²
+    grid, as `convert_daclip` does; an .npz is already in the JAX package's
+    layout and is taken as it is."""
     kind = _refuse_orbax(path)
     if kind == "train_dir":
         raise NotImplementedError(f"{path!r} is a restoration train dir (UNet weights), "
                                   "not DA-CLIP weights")
     if kind == "npz":
         return daclip_state_dict_from_jax(load_params_npz(path))
-    sd = load_torch_state_dict(path)
+    if kind == "clip_train_dir":
+        sd = train_checkpoint.load_clip_state_dict(path)
+    else:
+        sd = load_torch_state_dict(path)
     if image_size is not None and patch_size is not None:
         for key in ("clip.visual.positional_embedding", "visual.positional_embedding",
                     "visual_control.positional_embedding"):
