@@ -3,7 +3,8 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printing JSON lines:
-  0 device   the card (nvidia-smi name and power limit), torch and CUDA versions
+  0 device   the card (nvidia-smi name and power limit), torch and CUDA versions,
+             and whether matplotlib, sklearn and scipy import (their versions)
   1 build    nvcc builds daclip_torch/csrc/*.cu (one process per source); no
              instantiation of the linear-attention kernels may spill
   2 kernels  each kernel against its plain PyTorch version at every shape the
@@ -106,9 +107,11 @@ Phases, each printing JSON lines:
              a resume to 6, the exact launches of kernels #1-#4 (steps and
              validation), the step function timed by a hook; before it, PNG
              decode ms per row filter and the DataLoader's samples/s alone at
-             0 and 8 workers; after it, `cli.test_restoration` on the saved
-             EMA UNet over 2 LQGT pairs (256²) in an LMDB packed by
-             `tools.create_lmdb`, at T=100
+             0 and 8 workers; after it, `cli.test_restoration
+             --lpips-weights` on the saved EMA UNet over 2 LQGT pairs (256²)
+             in an LMDB packed by `tools.create_lmdb`, at T=100, with the
+             lpips phase's weights: a finite LPIPS a pair, and the exact
+             launches of #1 and #2 (its path: test_lpips)
 12 train_daclip  the fork's DA-CLIP training step at full width
              (daclip_ViT-B-32 with the level predictor, bf16, B = 512, AdamW
              lr 2e-5 wd 0.2 betas 0.9/0.98 eps 1e-6, cosine with warm-up) on
@@ -129,7 +132,34 @@ Phases, each printing JSON lines:
              metrics, and the last checkpoint through DACLIPRestorer.load
              with a seeded production UNet, which classifies one image; no
              hand kernel launched. Cut: the batch (8, not 512) and the tree,
-             for the host's PNG decode
+             for the host's PNG decode; inspect_checkpoint on its train dir
+14 eval     the eval CLIs and tools at full width on a seeded daclip_ViT-B-32
+             with the level predictor, saved as a port .pt and as a
+             daclip_tpu .npz, over a seeded tree of 4 classes × 16 LQ PNGs
+             (224-288 px sides, Up rows), bf16 on the card:
+             eval.evaluate_daclip with both checkpoints (so
+             compare_checkpoints runs; the two must give equal predictions),
+             eval.evaluate_numclip at B = 32 (its image loop timed by hooks:
+             host decode and transform, device encode), imagenet_zero_shot.
+             evaluate on a 3-class tree with the 80 templates, tools.
+             encode_folder on the class tree and on a flat folder, tools.
+             inspect_checkpoint on the .pt and the .npz; the files each
+             writes, accuracies in [0, 1], a finite regression MAE, unit-norm
+             features (2e-2), the plots written where matplotlib imports
+             (each returning False where it does not); then the f32 features
+             of 4 images on the card against the CPU (1e-4 of their max); no
+             hand kernel launched
+15 lpips    LPIPS(alex) on seeded AlexNet-shaped weights in daclip_tpu's
+             layout: the card against the CPU, f32, 4 pairs at 256² (1e-5
+             relative), and its ms a pair (run before train_cli, whose
+             test_restoration scores LPIPS with these weights)
+16 stage_profile  utils.stage_profile at B = 4, 256², bf16 on the card: each
+             row's ms, every row finite and positive, the exact launches of
+             #1 (the three linear wraps, 31 calls each) and #2 (the level-3
+             SpatialTransformer); then utils.profile for daclip_ViT-B-32 and
+             the 256² UNet on the card, whose parameter counts and FLOPs must
+             equal those on the CPU, and encode_image(control=True)'s ms at
+             B = 1 beside its FLOPs
 (train_check runs the default wiring, then (v4, pointwise) and (v3, pointwise).)
 Then each kernel's device time over its library call's (kernels_vs_library),
 the per-kernel summary line, the nvidia-smi line, and as the last line
@@ -1685,14 +1715,15 @@ def loader_samples_per_s(dataset_opt, workers, batches=2):
     return n / (time.perf_counter() - t0)
 
 
-def run_train_cli(train_step_ms):
+def run_train_cli(train_step_ms, lpips_weights):
     """`python -m daclip_torch.cli.train_restoration -opt train.yml` in process
     on seeded PNG folders: configs/daclip-sde/train.yml at full width (B=16,
     256², nf 64, ch_mult 1,2,4,8, context 512, both contexts, AdamW, bf16)
     with a seeded ViT-B-32 DA-CLIP .pt; CLI_STEPS steps (validation and
-    checkpoints every CLI_VAL_FREQ), a resume to CLI_RESUME_STEPS, then `cli.test_restoration` over an LMDB at
-    T=100. The step function is timed by a hook around the CLI's
-    `make_step`."""
+    checkpoints every CLI_VAL_FREQ), a resume to CLI_RESUME_STEPS, then
+    `cli.test_restoration --lpips-weights` over an LMDB at T=100. The step
+    function is timed by a hook around the CLI's `make_step`. Returns the
+    launches of the training runs and of the test run."""
     import gc
     import logging
     import tempfile
@@ -1786,7 +1817,8 @@ def run_train_cli(train_step_ms):
         reset_counts()
         t0 = time.perf_counter()
         summary = cli_test.main(["-opt", str(test_yml), "--checkpoint", str(ckpt_dir),
-                                 "--daclip", str(daclip_pt), "--device", "cuda"])["test1"]
+                                 "--daclip", str(daclip_pt), "--lpips-weights", lpips_weights,
+                                 "--device", "cuda"])["test1"]
         test_s = time.perf_counter() - t0
         test_calls = {k: v for k, v in read_counts().items() if v}
 
@@ -1830,7 +1862,7 @@ def run_train_cli(train_step_ms):
                max_memory_allocated=peak,
                test=dict(images=len(summary["psnr"]), psnr=summary["psnr"],
                          ssim=summary["ssim"], psnr_y=summary["psnr_y"],
-                         ssim_y=summary["ssim_y"],
+                         ssim_y=summary["ssim_y"], lpips=summary["lpips"],
                          ms_per_image=float(np.mean(summary["time"])) * 1e3,
                          launches=test_calls))
     emit(**row)
@@ -1846,9 +1878,10 @@ def run_train_cli(train_step_ms):
     check(calls == want, f"train_cli: kernel calls {calls}, expected {want}")
     check(len(summary["psnr"]) == 2 and all(np.isfinite(v).all() for v in summary.values()),
           "test_restoration: metrics not finite")
+    check(len(summary["lpips"]) == 2, f"test_restoration: LPIPS {summary['lpips']}")
     check(test_calls == want_test, f"test_restoration: kernel calls {test_calls}, "
           f"expected {want_test}")
-    return {k: calls[k] for k in ("wrap", "flash", "wrap_bwd", "flash_bwd")}
+    return {k: calls[k] for k in ("wrap", "flash", "wrap_bwd", "flash_bwd")}, test_calls
 
 
 # -- phase 12 ------------------------------------------------------------------
@@ -2168,6 +2201,11 @@ def run_train_daclip_cli(train_daclip_ms):
             np.random.RandomState(43).rand(256, 256, 3).astype(np.float32))
         counts_after = read_counts()
         del restorer
+        from daclip_torch.tools import inspect_checkpoint as insp
+
+        tree, fmt = insp.load_tree(str(ckpt_dir))
+        inspected = dict(insp.describe(tree, fmt, limit=3, _print=lambda line: None), format=fmt)
+        del tree
     step_ms = [r["ms"] for r in records]
     gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
             if b["step"] == a["step"] + 1]
@@ -2200,6 +2238,400 @@ def run_train_daclip_cli(train_daclip_ms):
     check(name in DEGRADATION_CLASSES, f"classified as {name}")
     check(not any(counts.values()) and not any(counts_after.values()),
           f"train_daclip_cli launched hand kernels: {counts} / {counts_after}")
+    return inspected
+
+
+# -- phase 14 ------------------------------------------------------------------
+EVAL_CLASSES = ["blur05", "noisy25", "jpeg30", "resize10"]
+# the eval CLIs batch within each class, so a class holds EVAL_B images:
+# every batch is full
+EVAL_PER_CLASS, EVAL_SIDES, EVAL_B = 32, (224, 288), 32
+EVAL_NORM_TOL = 2e-2       # bf16 features' unit norm (tests/test_eval.py's tolerance)
+EVAL_F32_LIMIT = 1e-4      # f32 features on the card vs the CPU, of their max
+
+
+def daclip_jax_tree(cfg, seed, predictor=True):
+    """A DaCLIP's parameter tree in daclip_tpu's layout (what its
+    `save_params_npz` writes and `convert.daclip_state_dict_from_jax`
+    reads; the transformer blocks stacked along a first axis), with the
+    level predictor, filled from a numpy seed: fan-in scaled kernels and
+    embeddings, LayerNorm scales near 1, small biases, no zero tensor."""
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    w = lambda *s, fan=None: f32(rng.randn(*s) * (fan or s[-2]) ** -0.5)
+    b = lambda *s: f32(0.02 * rng.randn(*s))
+    ln = lambda *s: {"scale": f32(1 + 0.1 * rng.randn(*s)), "bias": b(*s)}
+
+    def blocks(L, d, hidden, zero=False):
+        out = {"ln_1": ln(L, d), "ln_2": ln(L, d),
+               "attn": {"in_proj": {"kernel": w(L, d, 3 * d), "bias": b(L, 3 * d)},
+                        "out_proj": {"kernel": w(L, d, d), "bias": b(L, d)}},
+               "mlp": {"c_fc": {"kernel": w(L, d, hidden), "bias": b(L, hidden)},
+                       "c_proj": {"kernel": w(L, hidden, d), "bias": b(L, d)}}}
+        if zero:
+            out["zero_module"] = {"kernel": w(L, d, d), "bias": b(L, d)}
+        return out
+
+    v, t = cfg.vision, cfg.text
+    grid = (v.image_size // v.patch_size) ** 2 + 1
+
+    def visual(zero):
+        return {"conv1": w(v.patch_size ** 2 * 3, v.width), "class_embedding": w(v.width, fan=v.width),
+                "positional_embedding": w(grid, v.width, fan=v.width),
+                "ln_pre": ln(v.width), "ln_post": ln(v.width), "proj": w(v.width, cfg.embed_dim),
+                "transformer": {"resblocks": blocks(v.layers, v.width,
+                                                    int(v.width * v.mlp_ratio), zero)}}
+
+    scale = f32(np.log(1 / 0.07))
+    tree = {"clip": {"visual": visual(False),
+                     "text": {"token_embedding": f32(0.02 * rng.randn(t.vocab_size, t.width)),
+                              "positional_embedding": f32(0.01 * rng.randn(t.context_length,
+                                                                           t.width)),
+                              "ln_final": ln(t.width), "text_projection": w(t.width, cfg.embed_dim),
+                              "transformer": {"resblocks": blocks(t.layers, t.width,
+                                                                  int(t.width * t.mlp_ratio))}},
+                     "logit_scale": scale},
+            "visual_control": visual(True), "logit_scale": scale}
+    if predictor:
+        tree["predictor"] = {"reg_w1": w(4, 7, 14), "reg_b1": b(4, 14),
+                             "reg_w2": w(4, 14, 7), "reg_b2": b(4, 7)}
+    return tree
+
+
+def write_class_tree(root, classes, per_class, sides, seed, layout="LQ"):
+    """`root/<class>/LQ/<i>.png` (`layout="LQ"`) or `root/<class>/<i>.png`
+    (a class "" and no layout: a flat folder `root/<i>.png`):
+    seeded images with sides drawn from `sides`, a class-dependent level of
+    noise on a smooth scene, every row Up-filtered (PERF.md §5: the port's
+    Paeth unfilter would set the phase's time)."""
+    from daclip_torch.data import png
+
+    rng = np.random.RandomState(seed)
+    for ci, c in enumerate(classes):
+        d = root / c / layout
+        d.mkdir(parents=True)
+        for i in range(per_class):
+            h, w = rng.randint(sides[0], sides[1] + 1, 2)
+            yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+            scene = 0.5 + 0.4 * np.sin(6 * np.stack([yy, xx, yy + xx], -1) + rng.rand(3))
+            img = np.clip(scene + (0.05 + 0.1 * ci) * rng.randn(h, w, 3), 0, 1)
+            png.write(str(d / f"{i:03d}.png"), (img * 255).round().astype(np.uint8), "up")
+
+
+def optional_packages():
+    """Whether matplotlib, sklearn and scipy import here, with versions:
+    the eval plots and tools/visualize need them."""
+    import importlib
+
+    out = {}
+    for name in ("matplotlib", "sklearn", "scipy"):
+        try:
+            out[name] = importlib.import_module(name).__version__
+        except ImportError:
+            out[name] = None
+    return out
+
+
+class _Timed:
+    """Host seconds spent in `owner.name` while installed, and its calls."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.real = owner, name, getattr(owner, name)
+        self.seconds, self.calls = 0.0, 0
+
+    def __enter__(self):
+        real = self.real
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+def _unit_norm_err(a):
+    return float(np.abs(np.linalg.norm(a, axis=-1) - 1).max())
+
+
+def run_eval(train_dir_inspect, model_name=DACLIP_MODEL, device="cuda", per_class=EVAL_PER_CLASS,
+             sides=EVAL_SIDES, batch=EVAL_B):
+    """The eval CLIs and tools at full width: a seeded daclip_ViT-B-32 with
+    the level predictor, saved as a port .pt and as a daclip_tpu .npz, over
+    a seeded 4-class tree of Up-filtered PNGs. evaluate_daclip with both
+    checkpoints (so compare_checkpoints runs), evaluate_numclip at
+    `batch`, imagenet_zero_shot.evaluate on a 3-class tree (the 80
+    templates), encode_folder on both layouts, inspect_checkpoint on the
+    .pt, the .npz and `train_dir_inspect` (train_daclip_cli's train dir,
+    inspected there); then the f32 features of 4 images on the card
+    against the CPU's. No hand kernel may launch."""
+    import tempfile
+
+    from daclip_torch.convert import daclip_state_dict_from_jax
+    from daclip_torch.eval import DaclipEncoders
+    from daclip_torch.eval import evaluate_daclip as ev_daclip
+    from daclip_torch.eval import evaluate_numclip as ev_numclip
+    from daclip_torch.eval import imagenet_zero_shot as zs
+    from daclip_torch.models.clip import CLIPCfg, get_model_config
+    from daclip_torch.tools import encode_folder as enc
+    from daclip_torch.tools import inspect_checkpoint as insp
+    from daclip_torch.utils.native_checkpoint import save_params_npz
+
+    have = optional_packages()
+    cfg = CLIPCfg.from_dict(get_model_config(model_name))
+    n_img = len(EVAL_CLASSES) * per_class
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        root = pathlib.Path(d)
+        t0 = time.perf_counter()
+        tree = daclip_jax_tree(cfg, seed=51)
+        pt, npz = root / "daclip.pt", root / "daclip.npz"
+        torch.save(daclip_state_dict_from_jax(tree), pt)
+        save_params_npz(str(npz), tree)
+        del tree
+        write_class_tree(root / "tree", EVAL_CLASSES, per_class, sides, seed=52)
+        write_class_tree(root / "zs", EVAL_CLASSES[:3], 4, sides, seed=53, layout="")
+        write_class_tree(root / "flat", [""], 8, sides, seed=54, layout="")
+        out["setup_s"] = time.perf_counter() - t0
+        reset_counts()
+
+        # evaluate_daclip over both checkpoints
+        t0 = time.perf_counter()
+        res = ev_daclip.main(["--dataset", str(root / "tree"), "--checkpoint", f"pt={pt}",
+                              "--checkpoint", f"npz={npz}", "--model", model_name,
+                              "--batch-size", str(batch), "--out-dir", str(root / "daclip"),
+                              "--device", device])
+        s = time.perf_counter() - t0
+        files = sorted(os.listdir(root / "daclip"))
+        same = all((root / "daclip" / f"{kind}_pt.csv").read_text()
+                   == (root / "daclip" / f"{kind}_npz.csv").read_text()
+                   for kind in ("per_class_accuracy", "confusion_matrix"))
+        pngs = [f for f in files if f.endswith(".png")]
+        out["evaluate_daclip"] = dict(
+            images=2 * n_img, seconds=s, images_per_s=2 * n_img / s,
+            accuracy={k: r["accuracy"] for k, r in res.items()},
+            base_accuracy={k: r["base_accuracy"] for k, r in res.items()},
+            pt_equals_npz=same, files=files, pngs_written=pngs)
+        check(same and res["pt"] == res["npz"],
+              "evaluate_daclip: the .pt and the .npz gave different predictions")
+        check(all(0 <= r[k] <= 1 for r in res.values() for k in ("accuracy", "base_accuracy")),
+              f"evaluate_daclip accuracies {out['evaluate_daclip']['accuracy']}")
+        want = {f"{kind}_{k}.csv" for k in ("pt", "npz")
+                for kind in ("per_class_accuracy", "confusion_matrix")}
+        check(want <= set(files), f"evaluate_daclip wrote {files}")
+        plots = {"confusion_matrix_pt.png", "confusion_matrix_npz.png",
+                 "base_class_accuracy_table.png", "compare_base_class_accuracy.png",
+                 "compare_full_class_accuracy.png"}
+        if have["matplotlib"]:
+            check(plots <= set(files), f"evaluate_daclip's plots: {pngs}")
+        else:
+            check(not pngs and ev_daclip.compare_checkpoints(res, str(root / "daclip"))
+                  == [False] * 3, "without matplotlib the plots must return False")
+
+        # evaluate_numclip at B = batch, the image loop timed by hooks
+        t0 = time.perf_counter()
+        with _Timed(ev_numclip, "read_views") as host, _Timed(DaclipEncoders, "image") as dev:
+            res = ev_numclip.main(["--dataset", str(root / "tree"), "--checkpoint", f"pt={pt}",
+                                   "--model", model_name, "--batch-size", str(batch),
+                                   "--out-dir", str(root / "numclip"), "--device", device])["pt"]
+        s = time.perf_counter() - t0
+        emb = np.load(root / "numclip" / "embeddings" / "all_embeddings.npy")
+        files = sorted(os.listdir(root / "numclip"))
+        loop = host.seconds + dev.seconds
+        out["evaluate_numclip"] = dict(
+            images=n_img, batch=batch, seconds=s, images_per_s_cli=n_img / s,
+            images_per_s=n_img / loop, host_ms_per_image=host.seconds / n_img * 1e3,
+            encode_ms_per_batch=dev.seconds / dev.calls * 1e3, batches=dev.calls,
+            accuracy=res["accuracy"], base_accuracy=res["base_accuracy"],
+            regression_mae=res["regression_mae"], unit_norm_err=_unit_norm_err(emb),
+            files=files)
+        check(dev.calls == n_img // batch,
+              f"numclip encoded {dev.calls} batches, not {n_img // batch} of {batch}")
+        check(emb.shape == (n_img, cfg.embed_dim), f"numclip embeddings {emb.shape}")
+        check(_unit_norm_err(emb) <= EVAL_NORM_TOL, "numclip embeddings are not unit-norm")
+        check(set(res["regression_mae"]) == {"blur", "noisy", "resize", "jpeg"}
+              and np.isfinite(list(res["regression_mae"].values())).all(),
+              f"numclip regression MAE {res['regression_mae']}")
+        check(0 <= res["accuracy"] <= 1 and 0 <= res["base_accuracy"] <= 1, "numclip accuracy")
+        check({"predictions_pt.csv", "regression_values_pt.csv", "confusion_matrix_pt.csv",
+               "embeddings"} <= set(files), f"evaluate_numclip wrote {files}")
+        check(("confusion_matrix_pt.png" in files) == bool(have["matplotlib"]),
+              "numclip's confusion PNG")
+
+        # ImageNet-style zero-shot: 3 classes × the 80 templates
+        t0 = time.perf_counter()
+        zres = zs.evaluate(str(pt), str(root / "zs"), model_name, device=device)
+        out["imagenet_zero_shot"] = dict(zres, classes=3, prompts=3 * 80, images=12,
+                                         seconds=time.perf_counter() - t0)
+        check(all(0 <= v <= 1 for v in zres.values()), f"zero-shot {zres}")
+
+        # encode_folder: the class tree (labels = classes) and a flat folder
+        for name, src, n, feats in (("tree", root / "tree", n_img, "degra"),
+                                    ("flat", root / "flat", 8, "image")):
+            t0 = time.perf_counter()
+            got = enc.main(["--input", str(src), "--checkpoint", str(npz), "--model", model_name,
+                            "--out", str(root / f"enc_{name}"), "--batch-size", str(batch),
+                            "--features", feats, "--device", device])
+            s = time.perf_counter() - t0
+            dumps = {f: np.load(root / f"enc_{name}" / f) for f in
+                     ("all_embeddings.npy", "degra_embeddings.npy", "image_embeddings.npy",
+                      "labels.npy", "filenames.npy")}
+            labels = list(dumps["labels.npy"])
+            out[f"encode_folder_{name}"] = dict(
+                images=got, seconds=s, images_per_s=got / s, features=feats,
+                unit_norm_err=max(_unit_norm_err(dumps[f]) for f in
+                                  ("degra_embeddings.npy", "image_embeddings.npy")))
+            check(got == n and len(labels) == n, f"encode_folder {name}: {got} images")
+            check(out[f"encode_folder_{name}"]["unit_norm_err"] <= EVAL_NORM_TOL,
+                  f"encode_folder {name}: features not unit-norm")
+            want = ([c for c in sorted(EVAL_CLASSES) for _ in range(per_class)] if name == "tree"
+                    else [f"{i:03d}" for i in range(8)])
+            check(labels == want, f"encode_folder {name} labels")
+
+        # inspect_checkpoint
+        lines = []
+        out["inspect_checkpoint"] = {
+            k: dict(insp.describe(*insp.load_tree(str(p)), limit=3, _print=lines.append))
+            for k, p in (("pt", pt), ("npz", npz))}
+        out["inspect_checkpoint"]["train_daclip_cli_dir"] = train_dir_inspect
+        check(all(v["leaves"] > 0 for v in out["inspect_checkpoint"].values()),
+              "inspect_checkpoint found no leaves")
+
+        # f32 features of 4 images: the card against the CPU
+        feats = {}
+        for dev_name in (device, "cpu"):
+            enc.encode_folder(str(pt), str(root / "flat"), str(root / f"f32_{dev_name}"),
+                              model_name, batch_size=4, device=dev_name, dtype=torch.float32)
+            feats[dev_name] = {f: np.load(root / f"f32_{dev_name}" / f"{f}_embeddings.npy")[:4]
+                               for f in ("degra", "image")}
+        errs = {f: float(np.abs(feats[device][f] - feats["cpu"][f]).max()
+                         / np.abs(feats["cpu"][f]).max()) for f in ("degra", "image")}
+        out["f32_card_vs_cpu_of_max"] = errs
+        counts = read_counts()
+    emit(phase="eval", model=model_name, classes=EVAL_CLASSES, per_class=per_class,
+         sides=list(sides), png_rows="Up", optional_packages=have, launches=counts, **out)
+    check(all(e <= EVAL_F32_LIMIT for e in errs.values()),
+          f"eval: f32 features on the card vs the CPU {errs}")
+    check(not any(counts.values()), f"the eval CLIs launched hand kernels: {counts}")
+
+
+# -- phase 15 ------------------------------------------------------------------
+LPIPS_B, LPIPS_SIZE = 4, 256
+LPIPS_LIMIT = 1e-5          # f32, the card against the CPU, relative
+LPIPS_CONVS = [(3, 64, 11), (64, 192, 5), (192, 384, 3), (384, 256, 3), (256, 256, 3)]
+
+
+def write_lpips_npz(path, seed=61):
+    """Seeded AlexNet-shaped LPIPS weights in daclip_tpu's layout (HWIO convs,
+    (1, 1, C, 1) non-negative heads)."""
+    rng = np.random.RandomState(seed)
+    w = {}
+    for i, (cin, cout, k) in enumerate(LPIPS_CONVS):
+        w[f"conv{i}_w"] = (rng.randn(k, k, cin, cout) / np.sqrt(k * k * cin)).astype(np.float32)
+        w[f"conv{i}_b"] = (0.05 * rng.randn(cout)).astype(np.float32)
+        w[f"lin{i}_w"] = np.abs(rng.randn(1, 1, cout, 1)).astype(np.float32)
+    np.savez(path, **w)
+    return str(path)
+
+
+def run_lpips(weights, device="cuda", B=LPIPS_B, size=LPIPS_SIZE):
+    """LPIPS(alex) on the card against the same on the CPU, f32, B pairs at
+    size², and its ms a pair."""
+    from daclip_torch.utils.lpips import LPIPS
+
+    rng = np.random.RandomState(62)
+    a = rng.uniform(-1, 1, (B, size, size, 3)).astype(np.float32)
+    b = np.clip(a + 0.3 * rng.randn(*a.shape), -1, 1).astype(np.float32)
+    card, cpu = LPIPS.from_npz(weights, device=device), LPIPS.from_npz(weights, device="cpu")
+    got, want = card(a, b), cpu(a, b)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    ta, tb = (torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(device) for x in (a, b))
+    with torch.no_grad():
+        ms_b = time_ms(lambda: card.distance(ta, tb), iters=10)
+        ms_1 = time_ms(lambda: card.distance(ta[:1], tb[:1]), iters=10)
+    emit(phase="lpips", shape=[B, size, size, 3], dtype="float32", lpips=got.tolist(),
+         rel_err_card_vs_cpu=rel, limit=LPIPS_LIMIT, ms_batch=ms_b, ms_per_pair=ms_b / B,
+         ms_one_pair=ms_1)
+    check(np.isfinite(got).all() and (got > 0).all(), f"LPIPS values {got}")
+    check(rel <= LPIPS_LIMIT, f"LPIPS: the card vs the CPU {rel}")
+
+
+# -- phase 16 ------------------------------------------------------------------
+STAGE_ARGV = ["--batch", "4", "--size", "256"]
+STAGE_CALLS = 31            # a row: one warm-up call and 30 timed ones
+
+
+def run_stage_profile():
+    """utils/stage_profile at B=4, 256², bf16 on the card (the linear wraps
+    launch #1, the level-3 self-attention #2), then utils/profile for
+    daclip_ViT-B-32 and the 256² UNet. Its counts are taken on fake CPU
+    tensors whatever the device (equal to the CPU's by construction), so
+    they are held against FlopCounterMode over real forwards on the card:
+    encode_image(control=True), which runs no hand kernel, must count the
+    same; the UNet's count must exceed what the counter sees on the card,
+    where #1 and #2 are ctypes launches it cannot see. Returns the
+    stage_profile launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.utils import profile, stage_profile
+
+    reset_counts()
+    rows = stage_profile.main(STAGE_ARGV + ["--device", "cuda"])
+    counts = {k: v for k, v in read_counts().items() if v}
+    want = {"wrap": 3 * STAGE_CALLS, "flash": STAGE_CALLS}
+    emit(phase="stage_profile", argv=STAGE_ARGV, dtype="bfloat16", rows_ms=rows,
+         launches=counts, want_launches=want)
+    check(len(rows) == 11 and all(np.isfinite(v) and v > 0 for v in rows.values()),
+          f"stage_profile rows {rows}")
+    check(counts == want, f"stage_profile launches {counts}, expected {want}")
+
+    t0 = time.perf_counter()
+    prof = profile.main(["--model", DACLIP_MODEL, "--unet-size", "256", "--device", "cuda"])
+    prof_s = time.perf_counter() - t0
+
+    def card_gflops(fn, *args):
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            fn(*args)
+        torch.cuda.synchronize()
+        return counter.get_total_flops() / 1e9
+
+    gen = torch.Generator("cuda").manual_seed(71)
+    with torch.device("cuda"):
+        m = DaCLIP(CLIPCfg.from_dict(get_model_config(DACLIP_MODEL)), dtype=torch.bfloat16).eval()
+        img = torch.randn(1, 3, 224, 224, generator=gen)
+        net = ConditionalUNet(nf=64, ch_mult=(1, 2, 4, 8), context_dim=512,
+                              use_degra_context=True, use_image_context=True,
+                              dtype=torch.bfloat16).eval()
+        x = torch.randn(1, 3, 256, 256, generator=gen)
+        ctx = torch.randn(1, 512, generator=gen)
+    # what encode_image(control=True) achieves on the card at B=1, bf16
+    with torch.no_grad():
+        img_ms = profile.wallclock_ms(lambda t: m.encode_image(t, control=True), img, iters=20)
+    g_img = prof["clip"]["encode_image_control"]["gflops"]
+    g_unet = prof["unet"]["forward"]["gflops"]
+    seen = {"encode_image_control": card_gflops(lambda t: m.encode_image(t, control=True), img),
+            "unet_forward": card_gflops(lambda t: net(t, x, torch.ones(1, device="cuda"), ctx,
+                                                      ctx), x)}
+    emit(phase="stage_profile", what="utils.profile, and FlopCounterMode on the card",
+         model=DACLIP_MODEL, unet_size=256,
+         profile=json.loads(json.dumps(prof, default=float).replace("NaN", "null")),
+         seconds=prof_s, card_counter_gflops=seen,
+         unet_gflops_unseen_on_card=g_unet - seen["unet_forward"],
+         encode_image_control_ms=img_ms, encode_image_control_tflops=g_img / img_ms)
+    check(seen["encode_image_control"] == g_img,
+          f"profile: encode_image(control) {g_img} GFLOP, the card's counter "
+          f"{seen['encode_image_control']}")
+    check(0 < seen["unet_forward"] < g_unet,
+          f"profile: the UNet's {g_unet} GFLOP against {seen['unet_forward']} seen on the card")
+    return counts
 
 
 def main():
@@ -2218,7 +2650,8 @@ def main():
                          check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     emit(phase="device", name=name, nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda, count=torch.cuda.device_count())
+         cuda=torch.version.cuda, count=torch.cuda.device_count(),
+         optional_packages=optional_packages())
 
     t0 = time.perf_counter()
     lib = _build.library()
@@ -2244,6 +2677,9 @@ def main():
     forward_conv = run_forward_conv(restorer.unet, fwd)
     run_text(restorer, sds[1])
     del restorer, sds, fwd
+    work = tempfile.TemporaryDirectory()
+    lpips_weights = write_lpips_npz(pathlib.Path(work.name) / "alex.npz")
+    run_lpips(lpips_weights)
     rows.update(run_kernels_bwd())
     for wiring in TRAIN_KERNELS:
         run_train_check(wiring)
@@ -2253,17 +2689,22 @@ def main():
     full_step, step_ms, train_alt_totals = run_train(steps=3, wiring="v4_pointwise")
     run_profile_train(full_step, step_ms, wiring="v4_pointwise")
     del full_step
-    train_cli_totals = run_train_cli(train_step_ms)
-    run_train_daclip_cli(run_train_daclip())
+    train_cli_totals, test_lpips_totals = run_train_cli(train_step_ms, lpips_weights)
+    work.cleanup()
+    run_eval(run_train_daclip_cli(run_train_daclip()))
+    stage_totals = run_stage_profile()
 
     # launches on each main path, each counted from 0 just before its run:
     # serve (the four requests), serve_alt (two requests per other wiring),
     # train (five timed steps), train_alt (three), train_cli (the CLI's two
-    # runs, 6 steps and 5 validations); for the attention core and
+    # runs, 6 steps and 5 validations), test_lpips (cli.test_restoration
+    # --lpips-weights: two restores at T=100), stage_profile (its 11 rows,
+    # 31 calls each); for the attention core and
     # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
     # and kernels_conv phases, and the conv's in the hooked forward_conv
     paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, train=train_totals,
                  train_alt=train_alt_totals, train_cli=train_cli_totals,
+                 test_lpips=test_lpips_totals, stage_profile=stage_totals,
                  kernels=dict(core=core_path),
                  kernels_conv=dict(conv3x3=conv_path), forward_conv=dict(conv3x3=forward_conv))
     by_path = {key: {path: n[key] for path, n in paths.items() if n.get(key)}

@@ -2,11 +2,12 @@
 
 Counterpart of `daclip_tpu/cli/test_restoration.py`: reads a test YAML
 (options/test.yml's keys), runs the full sampler over each dataset and
-reports PSNR / SSIM / PSNR_Y / SSIM_Y and the average time an image.
+reports PSNR / SSIM / PSNR_Y / SSIM_Y, LPIPS when `--lpips-weights` gives
+daclip_tpu's LPIPS(alex) `.npz` (`utils/lpips.py`, on the same device), and
+the average time an image.
 `--unet` / `--checkpoint` take a reference torch .pth, a flat .npz or the
 port's train dir (`cli/train_restoration.py`'s `training_state`; EMA
 parameters unless `--no-ema`); `--save-images` writes PNG without cv2.
-LPIPS is not ported yet.
 
 Usage:
   python -m daclip_torch.cli.test_restoration -opt configs/daclip-sde/test.yml \
@@ -61,7 +62,7 @@ def main(argv=None):
     p.add_argument("--save-images", action="store_true",
                    help="write each restored image as PNG under results/")
     p.add_argument("--lpips-weights", default=None,
-                   help="LPIPS(alex) weights .npz (not ported yet)")
+                   help="LPIPS(alex) weights .npz (daclip_tpu's layout; optional)")
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     args = p.parse_args(argv)
 
@@ -70,21 +71,21 @@ def main(argv=None):
     from daclip_torch.data.util import save_img
     from daclip_torch.pipeline import DACLIPRestorer, resolve_device
     from daclip_torch.utils import metrics
+    from daclip_torch.utils.lpips import LPIPS
 
-    if args.lpips_weights:
-        raise NotImplementedError("LPIPS is not ported yet (utils/lpips.py, ROADMAP queue 1 "
-                                  "item 5); run without --lpips-weights")
     device = resolve_device(args.device)
     opt = cfg_mod.parse(args.opt, is_train=False)
     unet_path = args.checkpoint or args.unet or opt["path"]["pretrain_model_G"]
     daclip_path = args.daclip or opt["path"]["daclip"]
     restorer = DACLIPRestorer.load(unet_path, daclip_path, restorer_config(opt),
                                    use_ema=not args.no_ema, step=args.step, device=device)
+    lpips_fn = LPIPS.from_npz(args.lpips_weights, device=device) if args.lpips_weights else None
 
     summary = {}
     for name, dataset_opt in (opt["datasets"] or {}).items():
         ds = create_dataset(dataset_opt)
-        results = {"psnr": [], "ssim": [], "psnr_y": [], "ssim_y": [], "time": []}
+        results = {"psnr": [], "ssim": [], "psnr_y": [], "ssim_y": [], "lpips": [],
+                   "time": []}
         out_dir = os.path.join(opt["path"]["results_root"] or "results", name)
         os.makedirs(out_dir, exist_ok=True)
         n = len(ds) if args.max_images is None else min(len(ds), args.max_images)
@@ -101,16 +102,22 @@ def main(argv=None):
                                                           gt_bgr.astype(np.float64)))
             results["psnr_y"].append(metrics.psnr_y(out_bgr, gt_bgr))
             results["ssim_y"].append(metrics.ssim_y(out_bgr, gt_bgr))
+            if lpips_fn is not None:
+                results["lpips"].append(float(lpips_fn(
+                    out_bgr[:, :, ::-1] / 127.5 - 1.0,
+                    gt_bgr[:, :, ::-1] / 127.5 - 1.0)[0]))
             if args.save_images:
                 base = os.path.splitext(os.path.basename(sample.get("LQ_path", str(i))))[0]
                 save_img(out_bgr, os.path.join(out_dir, base + ".png"))
             print(f"[{i+1}/{n}] psnr={results['psnr'][-1]:.2f} "
                   f"ssim={results['ssim'][-1]:.4f} t={dt:.2f}s")
-        print(f"{name}: PSNR {np.mean(results['psnr']):.4f} "
-              f"SSIM {np.mean(results['ssim']):.4f} "
-              f"PSNR_Y {np.mean(results['psnr_y']):.4f} "
-              f"SSIM_Y {np.mean(results['ssim_y']):.4f} "
-              f"avg time {np.mean(results['time']):.3f}s")
+        msg = (f"{name}: PSNR {np.mean(results['psnr']):.4f} "
+               f"SSIM {np.mean(results['ssim']):.4f} "
+               f"PSNR_Y {np.mean(results['psnr_y']):.4f} "
+               f"SSIM_Y {np.mean(results['ssim_y']):.4f} ")
+        if results["lpips"]:
+            msg += f"LPIPS {np.mean(results['lpips']):.4f} "
+        print(msg + f"avg time {np.mean(results['time']):.3f}s")
         summary[name] = results
     return summary
 

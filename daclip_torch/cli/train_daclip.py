@@ -39,8 +39,7 @@ import torch
 
 from daclip_torch.cli.params import parse_args
 
-_ITEM = {"4": "ROADMAP queue 1 item 4, waiting", "5": "ROADMAP queue 1 item 5",
-         "6": "ROADMAP queue 1 item 6"}
+_ITEM = {"4": "ROADMAP queue 1 item 4, waiting", "6": "ROADMAP queue 1 item 6"}
 
 
 def _given(argv, flag: str) -> bool:
@@ -63,7 +62,7 @@ def refuse_unported(args, argv) -> None:
     if args.imagenet_val or args.imagenet_v2 or (
             _given(argv, "--zeroshot-frequency") and args.zeroshot_frequency):
         refused.append(("--imagenet-val/--zeroshot-frequency",
-                        "ImageNet zero-shot during training", "5"))
+                        "ImageNet zero-shot during training", "4"))
     if args.force_patch_dropout is not None:
         refused.append(("--force-patch-dropout", "patch dropout", "4"))
     if args.fast_clip_view:

@@ -11,8 +11,10 @@ sample.
 A sample is a dict of numpy arrays: `images` and `gt_images` (H, W, 3)
 float32 from the transform, `texts` (L,) token ids, or (2·L,) caption‖
 degradation with `da`, `deg_type` and `gt_val` (4,) float32. The GT image's
-path is the LQ path with `LQ` replaced by `GT`. Images are decoded to RGB as
-PIL's `convert("RGB")` gives them (`data/util.imread_rgb`). With `crop`, the
+path is the LQ path with `LQ` replaced by `GT`. Images are decoded as PIL
+opens them (`data/util.imread_decoded`): the train transform converts them
+to RGB first, the val transform resizes them in their own mode, as
+daclip_tpu's transforms do with the PIL image. With `crop`, the
 LQ image is cropped by `_random_crop` from the dataset's own
 `random.Random(seed)` before the transform draws for the LQ image and then,
 anew, for the GT image.
@@ -26,8 +28,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from daclip_torch.data.util import imread_rgb
+from daclip_torch.data.util import imread_decoded
 from daclip_torch.tokenizer import tokenize as default_tokenize
+from daclip_torch.transforms import DecodedImage
 
 DEGRADATION_TYPES = ["blur", "noisy", "resize", "jpeg"]
 DEG_TYPE_TO_ID = {"blur": 0, "noisy": 1, "resize": 2, "jpeg": 3}
@@ -83,16 +86,16 @@ def parse_degradations(degradation: str) -> Dict[str, float]:
     return {d_type: float(val) for d_type, val in matches}
 
 
-def _random_crop(img: np.ndarray, low_size: int = 64, rng=None) -> np.ndarray:
-    """data.py:29-34 on an HWC array. The reference names PIL's (width,
+def _random_crop(img: DecodedImage, low_size: int = 64, rng=None) -> DecodedImage:
+    """data.py:29-34 on a decoded image. The reference names PIL's (width,
     height) size (h, w) and crops the box (rnd_h, rnd_w, rnd_h + size,
     rnd_w + size); kept, so the draws and the box are the JAX package's."""
     rng = rng or random
-    h, w = img.shape[1], img.shape[0]
+    h, w = img.rgb.shape[1], img.rgb.shape[0]
     size = rng.randint(low_size, min(h, w))
     rnd_h = rng.randint(0, max(0, h - size))
     rnd_w = rng.randint(0, max(0, w - size))
-    return img[rnd_w:rnd_w + size, rnd_h:rnd_h + size]
+    return img.crop(rnd_w, rnd_h, size, size)
 
 
 def _tokens(tokenize, caption: str, degradation: Optional[str] = None) -> np.ndarray:
@@ -132,8 +135,8 @@ class CsvDataset:
 
     def __getitem__(self, idx: int) -> Dict:
         path = str(self.images[idx])
-        image = imread_rgb(path)
-        gt_image = imread_rgb(path.replace("LQ", "GT"))
+        image = imread_decoded(path)
+        gt_image = imread_decoded(path.replace("LQ", "GT"))
         deg_type = np.zeros(4, np.float32)
         gt_val = np.zeros(4, np.float32)
         for k, v in self.degradations[idx].items():

@@ -8,6 +8,9 @@ value in each of B, G and R), palette images expanded to BGR, or to BGRA
 when a tRNS chunk gives the palette alpha; a tRNS colour key on a truecolour
 image becomes an alpha channel too, as libpng's `tRNS_to_alpha` makes it.
 Interlaced (Adam7) and 1/2/4/16-bit files raise `ValueError`.
+`decode_with_mode` also gives the mode PIL opens the file in ("L", "RGB",
+"P", "LA" or "RGBA", from the colour type; a tRNS chunk changes no mode),
+which decides how PIL resizes it.
 
 Row filters: None and Up are one operation a row, Sub a per-channel
 `np.cumsum(..., dtype=np.uint8)` (a sum modulo 256). Average and Paeth take
@@ -29,6 +32,7 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 FILTERS = {"none": 0, "sub": 1, "up": 2, "average": 3, "paeth": 4}
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+PIL_MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
 
 
 def is_png(data: bytes) -> bool:
@@ -113,6 +117,11 @@ def _unfilter(rows: np.ndarray, W: int, C: int, name: str) -> np.ndarray:
 
 def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """PNG bytes → uint8 array as `cv2.imread(..., IMREAD_UNCHANGED)` gives it."""
+    return decode_with_mode(data, name)[0]
+
+
+def decode_with_mode(data: bytes, name: str = "<bytes>"):
+    """(`decode`'s array, the PIL mode of the file)."""
     if not is_png(data):
         raise ValueError(f"{name}: not a PNG file (bad signature)")
     header = palette = trns = None
@@ -138,20 +147,21 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if depth != 8:
         raise ValueError(f"{name}: {depth}-bit PNG is not supported (8-bit only)")
     C = _CHANNELS[ctype]
+    mode = PIL_MODES[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size < H * (W * C + 1):
         raise ValueError(f"{name}: PNG image data is truncated")
     img = _unfilter(raw[:H * (W * C + 1)].reshape(H, W * C + 1), W, C, name)
 
     if ctype == 0:                     # gray; a tRNS key is dropped, as cv2 does
-        return img[:, :, 0]
+        return img[:, :, 0], mode
     if ctype == 2:
         bgr = img[:, :, ::-1]
         if trns is None:
-            return np.ascontiguousarray(bgr)
+            return np.ascontiguousarray(bgr), mode
         key = np.asarray(struct.unpack(">HHH", trns[:6]), np.int64)
         alpha = np.where((img == key).all(axis=2), 0, 255).astype(np.uint8)
-        return np.concatenate([bgr, alpha[:, :, None]], axis=2)
+        return np.concatenate([bgr, alpha[:, :, None]], axis=2), mode
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{name}: palette PNG has no PLTE chunk")
@@ -160,13 +170,13 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
             raise ValueError(f"{name}: palette index out of range")
         bgr = palette[idx][:, :, ::-1]
         if trns is None:
-            return np.ascontiguousarray(bgr)
+            return np.ascontiguousarray(bgr), mode
         lut = np.full(256, 255, np.uint8)
         lut[:len(trns)] = np.frombuffer(trns, np.uint8)
-        return np.concatenate([bgr, lut[idx][:, :, None]], axis=2)
+        return np.concatenate([bgr, lut[idx][:, :, None]], axis=2), mode
     if ctype == 4:                     # gray + alpha → B = G = R = gray, A
-        return np.ascontiguousarray(img[:, :, [0, 0, 0, 1]])
-    return np.ascontiguousarray(img[:, :, [2, 1, 0, 3]])   # RGBA → BGRA
+        return np.ascontiguousarray(img[:, :, [0, 0, 0, 1]]), mode
+    return np.ascontiguousarray(img[:, :, [2, 1, 0, 3]]), mode   # RGBA → BGRA
 
 
 def read(path: str) -> np.ndarray:

@@ -5,8 +5,9 @@ Counterpart of `daclip_tpu/data/util.py` (reference
 universal-image-restoration/data/util.py):
   read_img          — util.py:89-115: float32 HWC BGR in [0, 1], gray with a
                       channel axis, alpha dropped
-  imread_rgb        — the CSV dataset's decode: uint8 RGB as PIL's
-                      convert("RGB") gives it
+  imread_decoded    — the CSV dataset's decode: uint8 RGB as PIL's
+                      convert("RGB") gives it, with the alpha and the mode
+                      PIL opens the file in
   read_imgs_cropped — util.py:118-156: one random crop shared by same-sized
                       images, decoded in full and then cropped
   augment           — util.py:98-116: random hflip + rot90 family
@@ -15,7 +16,7 @@ universal-image-restoration/data/util.py):
   imresize_np       — util.py:231-299: MATLAB bicubic with antialiasing
 
 PNG is decoded and encoded by `data/png.py`, which needs neither cv2 nor
-PIL. Any other format goes through cv2 (through PIL for `imread_rgb`),
+PIL. Any other format goes through cv2 (through PIL for `imread_decoded`),
 imported only when such a file is read; without cv2 that raises an ImportError that says how to get the data
 in (PNG, or an LMDB packed where cv2 exists: `tools/create_lmdb.py`). The
 JAX package's native decoder (`DACLIP_TPU_NATIVE_IO`, `data/native_io.py`)
@@ -32,6 +33,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from daclip_torch.data import png
+from daclip_torch.transforms import DecodedImage
 
 IMG_EXTENSIONS = (".jpg", ".JPG", ".jpeg", ".JPEG", ".png", ".PNG", ".ppm",
                   ".PPM", ".bmp", ".BMP", ".tif", ".webp")
@@ -125,22 +127,32 @@ def imread_color(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[:, :, :3])
 
 
-def imread_rgb(path: str) -> np.ndarray:
-    """uint8 RGB (H, W, 3), as PIL's `Image.open(path).convert("RGB")` gives
-    it: alpha is dropped without compositing, gray replicated, a palette
-    expanded. PNG by `data/png.py` (8-bit files only: a 16-bit one raises
+# PIL modes whose resize `transforms.clip_transform` reproduces; a file PIL
+# opens in another mode (CMYK, I, F, ...) is converted to RGB first
+_DECODED_MODES = ("1", "L", "P", "RGB", "LA", "RGBA")
+
+
+def imread_decoded(path: str) -> DecodedImage:
+    """The image as PIL opens it (`transforms.DecodedImage`): its RGB as
+    `convert("RGB")` gives it (alpha dropped without compositing, gray
+    replicated, a palette expanded), its alpha for "RGBA" and "LA", and its
+    mode.
+    PNG by `data/png.py` (8-bit files only: a 16-bit one raises
     `ValueError`); any other format by PIL, imported here."""
     with open(path, "rb") as f:
         data = f.read()
     if png.is_png(data):
-        img = png.decode(data, path)
+        img, mode = png.decode_with_mode(data, path)
         if img.ndim == 2:
-            return np.repeat(img[:, :, None], 3, axis=2)
-        return np.ascontiguousarray(img[:, :, 2::-1])   # BGR(A) → RGB
+            return DecodedImage(np.repeat(img[:, :, None], 3, axis=2), None, mode)
+        alpha = img[:, :, 3] if mode in ("RGBA", "LA") else None
+        return DecodedImage(np.ascontiguousarray(img[:, :, 2::-1]), alpha, mode)  # BGR(A) → RGB
     from PIL import Image
 
     with Image.open(io.BytesIO(data)) as im:
-        return np.asarray(im.convert("RGB"))
+        mode = im.mode if im.mode in _DECODED_MODES else "RGB"
+        alpha = np.asarray(im.getchannel("A")) if mode in ("RGBA", "LA") else None
+        return DecodedImage(np.asarray(im.convert("RGB")), alpha, mode)
 
 
 def read_img(env, path: str, size=None) -> np.ndarray:

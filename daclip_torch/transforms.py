@@ -16,12 +16,20 @@ to 22-bit fixed point, the horizontal pass first, the intermediate rounded
 and clipped to uint8. With a box, the filter's centres span the box's
 extent while its taps reach any pixel of the image, as PIL's do (so the
 result is not crop-then-resize). It gives PIL's bytes.
+
+A `DecodedImage` (the CSV dataset's decode, `data/util.imread_decoded`)
+keeps the mode PIL would open the file in. The train transform converts it
+to RGB first, as daclip_tpu's does; `clip_transform` resizes it in that mode
+and drops to RGB after, as PIL's `Image.resize` and `convert("RGB")` do: a
+palette ("P") or bilevel ("1") image by nearest neighbour
+(`_resample_nearest`), an "RGBA" or "LA" one bicubic on its premultiplied
+colours ("RGBa", "La", `_resize_premultiplied`), the rest bicubic.
 """
 from __future__ import annotations
 
 import math
 import random
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -62,11 +70,20 @@ def _coeffs(in_size: int, out_size: int, in0: float = 0.0, in1: Optional[float] 
 
 
 def _apply(mat: np.ndarray, img: np.ndarray, axis: int) -> np.ndarray:
-    """One 8-bit pass along `axis` (0 rows, 1 columns) of a uint8 HWC image."""
-    src = np.moveaxis(img.astype(np.float64), axis, 0)         # (in, other, C)
-    # integer products and sums stay far below 2^53: float64 is exact here
-    acc = np.tensordot(mat.astype(np.float64), src, axes=([1], [0])).astype(np.int64)
-    acc += 1 << (_PRECISION_BITS - 1)
+    """One 8-bit pass along `axis` (0 rows, 1 columns) of a uint8 HWC image.
+    Each output pixel sums only its filter's taps, a band of at most K
+    inputs from its first nonzero weight, in integers (exact)."""
+    src = np.moveaxis(img, axis, 0).astype(np.int64)            # (in, other, C)
+    nz = mat != 0
+    first = nz.argmax(axis=1)
+    K = int((mat.shape[1] - nz[:, ::-1].argmax(axis=1) - first).max())
+    idx = first[:, None] + np.arange(K)
+    w = np.take_along_axis(mat, np.minimum(idx, mat.shape[1] - 1), axis=1)
+    w[idx >= mat.shape[1]] = 0
+    idx = np.minimum(idx, mat.shape[1] - 1)
+    acc = np.full((mat.shape[0],) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    for k in range(K):
+        acc += w[:, k, None, None] * src[idx[:, k]]
     out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
     return np.moveaxis(out, 0, axis)
 
@@ -86,6 +103,71 @@ def _resample_bicubic(img: np.ndarray, out_w: int, out_h: int,
     return img
 
 
+class DecodedImage(NamedTuple):
+    """An 8-bit image with the mode PIL opens its file in: `rgb` uint8
+    (H, W, 3) as `convert("RGB")` gives it, `alpha` (H, W) uint8 for "RGBA"
+    and "LA" (None otherwise), `mode`."""
+    rgb: np.ndarray
+    alpha: Optional[np.ndarray]
+    mode: str
+
+    def crop(self, top: int, left: int, h: int, w: int) -> "DecodedImage":
+        alpha = None if self.alpha is None else self.alpha[top:top + h, left:left + w]
+        return DecodedImage(self.rgb[top:top + h, left:left + w], alpha, self.mode)
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output pixel of PIL's NEAREST resize along one
+    axis (Geometry.c `ImagingScaleAffine`): the sample point starts at half
+    a step and is advanced by adding the step, in float64, then truncated."""
+    step = in_size / out_size
+    xo, out = step * 0.5, np.empty(out_size, np.int64)
+    for x in range(out_size):
+        out[x] = int(xo)
+        xo += step
+    return out
+
+
+def _resample_nearest(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """PIL `Image.resize((out_w, out_h), Image.NEAREST)` of an HWC image."""
+    h, w = img.shape[:2]
+    return img[_nearest_index(h, out_h)][:, _nearest_index(w, out_w)]
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """PIL's MULDIV255: a·b / 255 rounded, in integers."""
+    t = a.astype(np.uint32) * b.astype(np.uint32) + 128
+    return (((t >> 8) + t) >> 8).astype(np.uint8)
+
+
+def _resize_premultiplied(img: DecodedImage, out_w: int, out_h: int) -> np.ndarray:
+    """RGB of PIL's resize of an "RGBA" or "LA" image: convert to "RGBa" /
+    "La" (colour × alpha / 255), bicubic on colour and alpha, convert back
+    (colour × 255 // alpha, clipped; an alpha of 0 or 255 keeps the
+    colour))."""
+    colour = img.rgb if img.mode == "RGBA" else img.rgb[:, :, :1]
+    alpha = img.alpha[:, :, None]
+    out = _resample_bicubic(np.concatenate([_muldiv255(colour, alpha), alpha], axis=2),
+                            out_w, out_h).astype(np.uint32)
+    c, a = out[:, :, :-1], out[:, :, -1:]
+    un = np.minimum(255 * c // np.maximum(a, 1), 255)
+    c = np.where((a == 0) | (a == 255), c, un).astype(np.uint8)
+    return np.ascontiguousarray(np.broadcast_to(c, c.shape[:2] + (3,)))
+
+
+def _resize_decoded(img: DecodedImage, out_w: int, out_h: int) -> np.ndarray:
+    """uint8 RGB of PIL's `resize((out_w, out_h), BICUBIC)` in the image's
+    own mode, then `convert("RGB")`."""
+    h, w = img.rgb.shape[:2]
+    if (out_w, out_h) == (w, h):
+        return img.rgb
+    if img.mode in ("P", "1"):
+        return _resample_nearest(img.rgb, out_w, out_h)
+    if img.mode in ("RGBA", "LA"):
+        return _resize_premultiplied(img, out_w, out_h)
+    return _resample_bicubic(img.rgb, out_w, out_h)
+
+
 def _to_uint8(arr: np.ndarray) -> np.ndarray:
     arr = np.asarray(arr)
     if arr.dtype != np.uint8:
@@ -95,13 +177,15 @@ def _to_uint8(arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def _resize_shorter(img: np.ndarray, size: int) -> np.ndarray:
-    h, w = img.shape[:2]
+def _resize_shorter(img: DecodedImage, size: int) -> np.ndarray:
+    """uint8 RGB of the image resized in its own mode so that its shorter
+    side is `size`."""
+    h, w = img.rgb.shape[:2]
     if w <= h:
         nw, nh = size, max(1, int(round(size * h / w)))
     else:
         nw, nh = max(1, int(round(size * w / h))), size
-    return _resample_bicubic(img, nw, nh)
+    return _resize_decoded(img, nw, nh)
 
 
 def _center_crop(img: np.ndarray, size: int) -> np.ndarray:
@@ -124,9 +208,11 @@ def _normalize(img: np.ndarray, mean, std) -> np.ndarray:
 
 def clip_transform(np_image: np.ndarray, resolution: int = 224,
                    mean=OPENAI_DATASET_MEAN, std=OPENAI_DATASET_STD) -> np.ndarray:
-    """[0,1] float or uint8 RGB HWC → normalised (resolution, resolution, 3)
-    float32."""
-    img = _center_crop(_resize_shorter(_to_uint8(np_image), resolution), resolution)
+    """[0,1] float or uint8 RGB HWC, or a `DecodedImage` → normalised
+    (resolution, resolution, 3) float32."""
+    if not isinstance(np_image, DecodedImage):
+        np_image = DecodedImage(_to_uint8(np_image), None, "RGB")
+    img = _center_crop(_resize_shorter(np_image, resolution), resolution)
     return _normalize(img, mean, std)
 
 
@@ -164,7 +250,7 @@ def image_transform(image_size=224, is_train: bool = False,
                     std: Optional[Sequence[float]] = None,
                     rng: Optional[random.Random] = None):
     """fn(image) → normalised (size, size, 3) float32 HWC, for a uint8 RGB
-    or [0,1] float RGB HWC image: the train transform (random resized crop,
+    or [0,1] float RGB HWC image or a `DecodedImage`: the train transform (random resized crop,
     its draws from `rng`, the `random` module's stream when None, as
     daclip_tpu's) or the val transform (`clip_transform`)."""
     mean = tuple(mean or OPENAI_DATASET_MEAN)
@@ -173,7 +259,8 @@ def image_transform(image_size=224, is_train: bool = False,
         image_size = image_size[0]
 
     def train_fn(img):
-        return _normalize(_random_resized_crop(_to_uint8(img), image_size, rng=rng), mean, std)
+        img = img.rgb if isinstance(img, DecodedImage) else _to_uint8(img)
+        return _normalize(_random_resized_crop(img, image_size, rng=rng), mean, std)
 
     def val_fn(img):
         return clip_transform(img, image_size, mean, std)

@@ -253,9 +253,10 @@ def test_test_cli_metrics_equal_jax_metrics_on_its_output(tiny, trained):
             got.astype(np.float64), gt.astype(np.float64)), rtol=1e-10)
         np.testing.assert_allclose(out["ssim_y"][i], jmetrics.ssim_y(got, gt), rtol=1e-10)
     assert all(np.isfinite(v).all() for v in out.values())
-    with pytest.raises(NotImplementedError, match="LPIPS"):
+    assert out["lpips"] == []      # no --lpips-weights: LPIPS skipped, as daclip_tpu does
+    with pytest.raises(FileNotFoundError):
         t_test.main(["-opt", str(tiny / "test.yml"), "--checkpoint", str(ckpt_dir),
-                     "--lpips-weights", "x.npz", "--device", "cpu"])
+                     "--lpips-weights", str(tiny / "missing.npz"), "--device", "cpu"])
 
 
 def test_clis_need_a_gpu_unless_told_cpu_and_refuse_a_mesh(tiny, monkeypatch):

@@ -179,12 +179,17 @@ def test_csv_dataset_samples_equal_jax(tmp_path, crop):
 
 
 def test_csv_val_samples_and_synthetic_equal_jax(tmp_path):
-    csv = _write_tree(str(tmp_path), 4, seed=3, modes=["RGB", "L"], lo=20, hi=70)
-    ours = tdata.CsvDataset(csv, ttf.image_transform(32), da=False)
-    ref = jdata.CsvDataset(csv, jtf.image_transform(32), da=False)
-    for i in range(4):
-        for k, v in ours[i].items():
-            np.testing.assert_array_equal(v, ref[i][k], err_msg=k)
+    """The val transform resizes in the file's own mode (a palette NEAREST,
+    alpha premultiplied), as PIL does: every layout, scaled up (16-30 px to
+    32) and down (40-70 px), byte for byte."""
+    n = len(MODES)
+    for sub, (lo, hi) in (("up", (16, 30)), ("down", (40, 70))):
+        csv = _write_tree(str(tmp_path / sub), n, seed=3, lo=lo, hi=hi)
+        ours = tdata.CsvDataset(csv, ttf.image_transform(32), da=False)
+        ref = jdata.CsvDataset(csv, jtf.image_transform(32), da=False)
+        for i in range(n):
+            for k, v in ours[i].items():
+                np.testing.assert_array_equal(v, ref[i][k], err_msg=f"{k} of {sub} {i}")
     for da in (False, True):
         ours = tdata.SyntheticDataset(ttf.image_transform(32, True, rng=random.Random(0)),
                                       dataset_size=5, da=da)
@@ -195,11 +200,34 @@ def test_csv_val_samples_and_synthetic_equal_jax(tmp_path):
             np.testing.assert_array_equal(v, ref[2][k], err_msg=k)
 
 
+@pytest.mark.parametrize("mode", ["P", "1", "RGBA", "LA"])
+def test_resize_in_mode_equals_pil(mode):
+    """`transforms._resize_decoded` against PIL's resize in the image's mode
+    and `convert("RGB")`, up and down, with many zero and opaque alphas."""
+    rng = np.random.RandomState(len(mode))
+    for _ in range(12):
+        h, w = rng.randint(3, 90, 2)
+        nw, nh = rng.randint(1, 120, 2)
+        rgb = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+        a = (rng.rand(h, w) * 255).astype(np.uint8)
+        a[rng.rand(h, w) < 0.3] = 0
+        a[rng.rand(h, w) < 0.2] = 255
+        im = {"P": lambda: Image.fromarray(rgb).quantize(32),
+              "1": lambda: Image.fromarray(rgb[:, :, 0]).convert("1"),
+              "RGBA": lambda: Image.fromarray(np.dstack([rgb, a]), "RGBA"),
+              "LA": lambda: Image.fromarray(np.dstack([rgb[:, :, 0], a]), "LA")}[mode]()
+        alpha = a if mode in ("RGBA", "LA") else None
+        got = ttf._resize_decoded(ttf.DecodedImage(np.asarray(im.convert("RGB")), alpha, mode),
+                                  nw, nh)
+        want = np.asarray(im.resize((nw, nh), Image.BICUBIC).convert("RGB"))
+        np.testing.assert_array_equal(got, want, err_msg=f"{mode} {(h, w)} -> {(nh, nw)}")
+
+
 def test_a_16_bit_png_is_refused(tmp_path):
     path = str(tmp_path / "x.png")
     Image.fromarray(np.arange(64 * 64, dtype=np.uint16).reshape(64, 64)).save(path)
     with pytest.raises(ValueError, match="16-bit"):
-        tutil.imread_rgb(path)
+        tutil.imread_decoded(path)
 
 
 # -- the factory ------------------------------------------------------------------------------
@@ -396,7 +424,7 @@ def test_cli_first_batches_equal_jax_loader(tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (["--mesh", "2"], "6"), (["--dataset-type", "webdataset"], "4"),
     (["--train-data", "shards/{000..009}.tar"], "4"), (["--remote-sync", "s3://x"], "4"),
-    (["--imagenet-val", "/data/val"], "5"), (["--zeroshot-frequency", "1"], "5"),
+    (["--imagenet-val", "/data/val"], "4"), (["--zeroshot-frequency", "1"], "4"),
     (["--force-patch-dropout", "0.5"], "4"), (["--fast-clip-view"], "4"),
     (["--report-to", "tensorboard,wandb"], "4")])
 def test_cli_refuses_flags_it_does_not_carry(tmp_path, monkeypatch, extra, item):
