@@ -102,9 +102,9 @@ Phases, each printing JSON lines:
              production options (configs/daclip-sde/train.yml, distortion cut
              to the tree's two types) on seeded PNG folders (2 × 8 pairs at
              288 × 320, half with Up rows and half with Paeth; 2 val pairs at
-             256 × 272) with a seeded ViT-B-32 DA-CLIP .pt: 4 steps with
+             256 × 272) with a seeded ViT-B-32 DA-CLIP .pt: 2 steps with
              validation (2 images, 10 sampler steps) and checkpoints every 2,
-             a resume to 6, the exact launches of kernels #1-#4 (steps and
+             a resume to 4, the exact launches of kernels #1-#4 (steps and
              validation), the step function timed by a hook; before it, PNG
              decode ms per row filter and the DataLoader's samples/s alone at
              0 and 8 workers; after it, `cli.test_restoration
@@ -112,6 +112,29 @@ Phases, each printing JSON lines:
              in an LMDB packed by `tools.create_lmdb`, at T=100, with the
              lpips phase's weights: a finite LPIPS a pair, and the exact
              launches of #1 and #2 (its path: test_lpips)
+11b wild_ir  the Wild-IR configuration (configs/wild-ir: a seeded ViT-L-14
+             DaCLIP, 0.76 B parameters, image context only; the UNet nf 64,
+             ch_mult 1,2,4,8, context 768, scale 0.5, bf16, v5): the shapes
+             of #1 and #2 read off one forward at B = 1 and 16, #1 and #2 at
+             each (balanced wrap inputs too), #3 and #4 at B = 16, each
+             against its plain version and repeating bit for bit, with
+             SDPA's forward and backward beside #2 and #4 (wild_ir_kernels);
+             f32 on the card against the CPU (wild_ir_f32): encode_image(
+             control=True) at B = 2, one UNet forward at 256², one training
+             step at B = 2 (loss, parameters, the update at lr 1e-3, eps
+             1e-3); train_wild: `cli.train_restoration -opt` on
+             configs/wild-ir/train.yml (MDGT over 16 seeded GT PNGs at
+             320 × 384 with Up rows, a 2-pair val set, a seeded .pt; B = 16,
+             256², 3 steps with validation and a checkpoint at 2, a resume
+             to 4), the exact launches of #1-#4, the frozen DaCLIP's
+             contexts unchanged, the step by a hook, the loader alone at 0
+             and 8 workers, random_degrade's and the CLIP view's host ms a
+             256² patch; test_wild: `cli.test_restoration -opt` on
+             configs/wild-ir/test.yml over a 256² and a 200 × 300 pair at
+             T=100 with the saved EMA UNet, then `cli.predict --wild-ir` on
+             one PNG, each with its exact launches of #1 and #2; wild_tools:
+             tools.generate_lq for each type and tools.generate_masked, every
+             output decoding
 12 train_daclip  the fork's DA-CLIP training step at full width
              (daclip_ViT-B-32 with the level predictor, bf16, B = 512, AdamW
              lr 2e-5 wd 0.2 betas 0.9/0.98 eps 1e-6, cosine with warm-up) on
@@ -132,7 +155,10 @@ Phases, each printing JSON lines:
              metrics, and the last checkpoint through DACLIPRestorer.load
              with a seeded production UNet, which classifies one image; no
              hand kernel launched. Cut: the batch (8, not 512) and the tree,
-             for the host's PNG decode; inspect_checkpoint on its train dir
+             for the host's PNG decode; inspect_checkpoint on its train dir;
+             then fast_clip_view: the loader alone with `--fast-clip-view`'s
+             cv2 decode and view beside the PIL path's, and one epoch of the
+             CLI with it (no val set), no hand kernel launched
 14 eval     the eval CLIs and tools at full width on a seeded daclip_ViT-B-32
              with the level predictor, saved as a port .pt and as a
              daclip_tpu .npz, over a seeded tree of 4 classes × 16 LQ PNGs
@@ -429,84 +455,98 @@ def attention_share(want, x, b_out, g_out):
     return float((want - x - _channel_ln(b_out.expand_as(x), g_out)).abs().mean())
 
 
-def run_kernels():
-    from daclip_torch.ops import flash_attention as fa
+def wrap_check(B, n, C, dtype, gen, balanced, phase="kernels", path=None):
+    """The wrap forward at one site against its plain version (twice, the
+    bytes must repeat), timed once a shape (unbalanced inputs); its row."""
     from daclip_torch.ops import linear_attention as la
 
+    args = wrap_case(B, n, C, dtype, gen, balanced)
+    got = la.attn_wrap(*args)
+    torch.cuda.synchronize()
+    repeats = torch.equal(la.attn_wrap(*args), got)
+    fargs = [a.float() for a in args]
+    want = la.attn_wrap_reference(*fargs)
+    err = (got.float() - want).abs()
+    limit = LIMITS[("wrap", dtype)]
+    row = dict(phase=phase, kernel="attn_wrap", shape=[B, n, C],
+               dtype=str(dtype).split(".")[-1], balanced=balanced,
+               max_abs_err=float(err.max()), mean_abs_err=float(err.mean()), limit=limit,
+               repeats_bitwise=repeats,
+               attention_share=attention_share(want, fargs[0], fargs[4], fargs[5]))
+    if path:
+        row["path"] = path
+    if not balanced:  # time each shape once
+        esize = args[0].element_size()
+        nbytes = (2 * B * n * C + C * 384 + 128 * C + 3 * C) * esize
+        bms, by = bound_ms(nbytes, 2 * B * n * (512 * C + 8192), dtype)
+        row.update(kernel_ms=time_ms(lambda: la.attn_wrap(*args)),
+                   device_ms=device_ms(lambda: la.attn_wrap(*args), "daclip::wrap::"),
+                   plain_ms=time_ms(lambda: la.attn_wrap_reference(*args)),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+    emit(**row)
+    what = f"wrap {B, n, C, dtype}" + (" balanced" if balanced else "")
+    check(torch.isfinite(got).all().item(), f"{what} not finite")
+    check(repeats, f"{what}: two calls differ")
+    check(row["max_abs_err"] <= limit, f"{what} max err {row['max_abs_err']}")
+    if dtype == torch.bfloat16:
+        check(row["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16,
+              f"{what} mean err {row['mean_abs_err']}")
+    if balanced:
+        check(row["attention_share"] >= SIGNAL_MIN,
+              f"{what}: the attention's share {row['attention_share']} is too small")
+    return row
+
+
+def flash_check(B, N, H, D, dtype, train, gen, phase="kernels", path=None):
+    """The flash forward at one shape against its plain version (twice, the
+    bytes must repeat), keeping the lse as training does when `train`, with
+    SDPA's event and device ms beside it; its row."""
+    from daclip_torch.ops import flash_attention as fa
+
+    q, k, v = [torch.randn(B, N, H * D, generator=gen, device="cuda").to(dtype)
+               for _ in range(3)]
+    # serving calls the forward alone, training keeps each query's lse
+    fwd = ((lambda: fa._forward_kernel(q, k, v, H, D, True)) if train
+           else (lambda: (fa.flash_self_attention(q, k, v, H, D), None)))
+    got, lse = fwd()
+    torch.cuda.synchronize()
+    again, lse2 = fwd()
+    repeats = torch.equal(got, again) and (lse is None or torch.equal(lse, lse2))
+    want = fa.attention_reference(q.float(), k.float(), v.float(), H, D)
+    err = rel_err(got, want)
+    limit = LIMITS[("flash", dtype)]
+    heads = lambda t: t.view(B, N, H, D).transpose(1, 2)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        heads(q), heads(k), heads(v))
+    bms, by = bound_ms(4 * B * N * H * D * q.element_size(), 4 * B * H * N * N * D, dtype)
+    row = dict(phase=phase, kernel="flash_self_attention", shape=[B, N, H, D],
+               dtype=str(dtype).split(".")[-1], path=path or ("train" if train else "serve"),
+               max_rel_err=err, max_abs_err=float((got.float() - want).abs().max()),
+               limit=limit, repeats_bitwise=repeats,
+               kernel_ms=time_ms(fwd), device_ms=device_ms(fwd, "daclip::flash::"),
+               plain_ms=time_ms(lambda: fa.attention_reference(q, k, v, H, D)),
+               bound_ms=bms, bound_by=by, library_ms=time_ms(lib),
+               library_device_ms=device_ms(lib, ""))
+    if lse is not None:
+        qh, kh = heads(q.float()), heads(k.float())
+        want_lse = torch.logsumexp(qh @ kh.transpose(-1, -2) * D ** -0.5, dim=-1)
+        row["lse_max_abs_err"] = float((lse - want_lse).abs().max())
+        check(row["lse_max_abs_err"] <= LSE_LIMIT,
+              f"flash {B, N, H, D, dtype} lse err {row['lse_max_abs_err']}")
+    emit(**row)
+    check(err <= limit, f"flash {B, N, H, D, dtype} rel err {err}")
+    check(repeats, f"flash {B, N, H, D, dtype}: two calls differ")
+    return row
+
+
+def run_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"wrap": [], "flash": []}
     for (B, n, C, dtype), balanced in [(s, b) for s in WRAP_SHAPES for b in (False, True)]:
-        args = wrap_case(B, n, C, dtype, gen, balanced)
-        got = la.attn_wrap(*args)
-        torch.cuda.synchronize()
-        repeats = torch.equal(la.attn_wrap(*args), got)
-        fargs = [a.float() for a in args]
-        want = la.attn_wrap_reference(*fargs)
-        err = (got.float() - want).abs()
-        limit = LIMITS[("wrap", dtype)]
-        row = dict(phase="kernels", kernel="attn_wrap", shape=[B, n, C],
-                   dtype=str(dtype).split(".")[-1], balanced=balanced,
-                   max_abs_err=float(err.max()), mean_abs_err=float(err.mean()), limit=limit,
-                   repeats_bitwise=repeats,
-                   attention_share=attention_share(want, fargs[0], fargs[4], fargs[5]))
-        if not balanced:  # time each shape once
-            esize = args[0].element_size()
-            nbytes = (2 * B * n * C + C * 384 + 128 * C + 3 * C) * esize
-            bms, by = bound_ms(nbytes, 2 * B * n * (512 * C + 8192), dtype)
-            row.update(kernel_ms=time_ms(lambda: la.attn_wrap(*args)),
-                       device_ms=device_ms(lambda: la.attn_wrap(*args), "daclip::wrap::"),
-                       plain_ms=time_ms(lambda: la.attn_wrap_reference(*args)),
-                       bound_ms=bms, bound_by=by, library_ms=None)
-        emit(**row)
-        rows["wrap"].append(row)
-        what = f"wrap {B, n, C, dtype}" + (" balanced" if balanced else "")
-        check(torch.isfinite(got).all().item(), f"{what} not finite")
-        check(repeats, f"{what}: two calls differ")
-        check(row["max_abs_err"] <= limit, f"{what} max err {row['max_abs_err']}")
-        if dtype == torch.bfloat16:
-            check(row["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16,
-                  f"{what} mean err {row['mean_abs_err']}")
-        if balanced:
-            check(row["attention_share"] >= SIGNAL_MIN,
-                  f"{what}: the attention's share {row['attention_share']} is too small")
-
+        rows["wrap"].append(wrap_check(B, n, C, dtype, gen, balanced))
     for (B, N, H, D, dtype), train in ([(s, False) for s in FLASH_SHAPES]
                                        + [(s, True) for s in FLASH_TRAIN_SHAPES]):
-        q, k, v = [torch.randn(B, N, H * D, generator=gen, device="cuda").to(dtype)
-                   for _ in range(3)]
-        # serving calls the forward alone, training keeps each query's lse
-        fwd = ((lambda: fa._forward_kernel(q, k, v, H, D, True)) if train
-               else (lambda: (fa.flash_self_attention(q, k, v, H, D), None)))
-        got, lse = fwd()
-        torch.cuda.synchronize()
-        again, lse2 = fwd()
-        repeats = torch.equal(got, again) and (lse is None or torch.equal(lse, lse2))
-        want = fa.attention_reference(q.float(), k.float(), v.float(), H, D)
-        err = rel_err(got, want)
-        limit = LIMITS[("flash", dtype)]
-        heads = lambda t: t.view(B, N, H, D).transpose(1, 2)
-        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-            heads(q), heads(k), heads(v))
-        bms, by = bound_ms(4 * B * N * H * D * q.element_size(), 4 * B * H * N * N * D, dtype)
-        row = dict(phase="kernels", kernel="flash_self_attention", shape=[B, N, H, D],
-                   dtype=str(dtype).split(".")[-1], path="train" if train else "serve",
-                   max_rel_err=err, max_abs_err=float((got.float() - want).abs().max()),
-                   limit=limit, repeats_bitwise=repeats,
-                   kernel_ms=time_ms(fwd), device_ms=device_ms(fwd, "daclip::flash::"),
-                   plain_ms=time_ms(lambda: fa.attention_reference(q, k, v, H, D)),
-                   bound_ms=bms, bound_by=by, library_ms=time_ms(lib),
-                   library_device_ms=device_ms(lib, ""))
-        if lse is not None:
-            qh, kh = heads(q.float()), heads(k.float())
-            want_lse = torch.logsumexp(qh @ kh.transpose(-1, -2) * D ** -0.5, dim=-1)
-            row["lse_max_abs_err"] = float((lse - want_lse).abs().max())
-            check(row["lse_max_abs_err"] <= LSE_LIMIT,
-                  f"flash {B, N, H, D, dtype} lse err {row['lse_max_abs_err']}")
-        emit(**row)
-        rows["flash"].append(row)
-        check(err <= limit, f"flash {B, N, H, D, dtype} rel err {err}")
-        check(repeats, f"flash {B, N, H, D, dtype}: two calls differ")
-        del q, k, v, got, again, lse, lse2, want
+        rows["flash"].append(flash_check(B, N, H, D, dtype, train, gen))
     return rows
 
 
@@ -1317,114 +1357,132 @@ def wgrad_yardstick(la, B, n, C, dtype, gen):
                 wgrad_library_device_ms=device_ms(library, ""))
 
 
-def run_kernels_bwd():
-    from daclip_torch.ops import flash_attention as fa
+def wrap_bwd_check(B, n, C, dtype, gen, balanced, phase="kernels_bwd", path=None):
+    """The wrap's forward as training calls it and its backward at one site
+    against the plain versions (each twice, the bytes must repeat), timed
+    with its weight-gradient launch once a shape; its row."""
     from daclip_torch.ops import linear_attention as la
 
+    args = wrap_case(B, n, C, dtype, gen, balanced)
+    dout = torch.randn(B, n, C, generator=gen, device="cuda").to(dtype)
+    out, stats = la._forward_kernel(*args, keep_stats=True)
+    got = wrap_grads(la.attn_wrap_bwd(*args, dout, stats=stats))
+    torch.cuda.synchronize()
+    # both calls again: forward (output and kept statistics) and backward
+    out2, stats2 = la._forward_kernel(*args, keep_stats=True)
+    again = wrap_grads(la.attn_wrap_bwd(*args, dout, stats=stats2))
+    fwd_repeats = torch.equal(out, out2) and all(
+        torch.equal(a, b) for a, b in zip(stats, stats2))
+    repeats = all(torch.equal(got[k], again[k]) for k in got)
+    del out2, stats2, again
+    fargs = [a.float() for a in args]
+    want_out = la.attn_wrap_reference(*fargs)
+    fwd_err = (out.float() - want_out).abs()
+    share = attention_share(want_out, fargs[0], fargs[4], fargs[5])
+    fwd = dict(max_abs_err=float(fwd_err.max()), mean_abs_err=float(fwd_err.mean()),
+               limit=LIMITS[("wrap", dtype)], repeats_bitwise=fwd_repeats)
+    del out, want_out, fwd_err
+    want = wrap_grads(la.attn_wrap_bwd_reference(*fargs, dout.float()))
+    errs = {k: rel_err(got[k], want[k]) for k in got}
+    abs_err = max(float((got[k].float() - want[k]).abs().max()) for k in got)
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    del want, fargs
+    limit = BWD_LIMITS[("wrap", dtype)]
+    row = dict(phase=phase, kernel="attn_wrap_bwd", shape=[B, n, C],
+               dtype=str(dtype).split(".")[-1], balanced=balanced, forward=fwd,
+               rel_err=errs, max_rel_err=max(errs.values()), max_abs_err=abs_err,
+               limit=limit, repeats_bitwise=repeats, attention_share=share)
+    if path:
+        row["path"] = path
+    if not balanced:
+        row.update(wgrad_yardstick(la, B, n, C, dtype, gen))
+        esize = args[0].element_size()
+        nbytes = (3 * B * n * C + 2 * (C * 384 + 128 * C + 3 * C)) * esize
+        bms, by = bound_ms(nbytes, 2 * B * n * (1536 * C + 20480), dtype)
+        row.update(kernel_ms=time_ms(lambda: la.attn_wrap_bwd(*args, dout, stats=stats),
+                                     iters=10),
+                   device_ms=device_ms(lambda: la.attn_wrap_bwd(*args, dout, stats=stats),
+                                       "daclip::wrap_bwd::", iters=5),
+                   plain_ms=time_ms(lambda: la.attn_wrap_bwd_reference(*args, dout),
+                                    iters=5, warmup=1),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+    emit(**row)
+    what = f"wrap bwd {B, n, C, dtype}" + (" balanced" if balanced else "")
+    check(fwd["max_abs_err"] <= fwd["limit"], f"{what}: forward max err {fwd}")
+    check(fwd_repeats, f"{what}: two forward calls differ")
+    check(repeats, f"{what}: two backward calls differ")
+    if dtype == torch.bfloat16:
+        check(fwd["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16, f"{what}: forward mean err {fwd}")
+    check(finite, f"{what} not finite")
+    check(row["max_rel_err"] <= limit, f"{what} rel err {errs}")
+    if balanced:
+        check(share >= SIGNAL_MIN, f"{what}: the attention's share {share} is too small")
+    del got, args, dout, stats
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_bwd_check(B, N, H, D, dtype, gen, phase="kernels_bwd", path=None):
+    """The flash forward as training calls it and its backward at one shape
+    against the plain versions (the backward twice, the bytes must repeat),
+    with SDPA's backward beside it; its row."""
+    from daclip_torch.ops import flash_attention as fa
+
+    q, k, v, dout = [torch.randn(B, N, H * D, generator=gen, device="cuda").to(dtype)
+                     for _ in range(4)]
+    out, lse = fa._forward_kernel(q, k, v, H, D, True)
+    bwd = lambda: fa.flash_self_attention_bwd(q, k, v, out, dout, H, D, lse=lse)
+    got = dict(zip(("dq", "dk", "dv"), bwd()))
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(a, b) for a, b in zip(got.values(), bwd()))
+    want_out = fa.attention_reference(q.float(), k.float(), v.float(), H, D)
+    fwd = dict(max_rel_err=rel_err(out, want_out),
+               max_abs_err=float((out.float() - want_out).abs().max()),
+               limit=LIMITS[("flash", dtype)])
+    want = fa.attention_bwd_reference(q.float(), k.float(), v.float(), want_out,
+                                      dout.float(), H, D)
+    errs = {kk: rel_err(got[kk], w) for kk, w in zip(got, want)}
+    abs_err = max(float((got[kk].float() - w).abs().max()) for kk, w in zip(got, want))
+    del want, want_out
+    limit = BWD_LIMITS[("flash", dtype)]
+    heads = lambda t: t.view(B, N, H, D).transpose(1, 2)
+    qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k, v))
+    oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
+    doh = heads(dout)
+    lib = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+    bms, by = bound_ms(8 * B * N * H * D * q.element_size(), 10 * B * H * N * N * D, dtype)
+    row = dict(phase=phase, kernel="flash_self_attention_bwd",
+               shape=[B, N, H, D], dtype=str(dtype).split(".")[-1], forward=fwd,
+               rel_err=errs, max_rel_err=max(errs.values()), max_abs_err=abs_err,
+               limit=limit, repeats_bitwise=repeats,
+               kernel_ms=time_ms(bwd, iters=10),
+               device_ms=device_ms(bwd, "daclip::flash_bwd::"),
+               plain_ms=time_ms(lambda: fa.attention_bwd_reference(
+                   q, k, v, out, dout, H, D), iters=5, warmup=1),
+               bound_ms=bms, bound_by=by, library_ms=time_ms(lib, iters=10),
+               # its event time holds autograd's host time
+               library_device_ms=device_ms(lib, ""))
+    if path:
+        row["path"] = path
+    emit(**row)
+    check(fwd["max_rel_err"] <= fwd["limit"],
+          f"flash {B, N, H, D, dtype}: forward rel err {fwd}")
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+          f"flash bwd {B, N, H, D, dtype} not finite")
+    check(row["max_rel_err"] <= limit, f"flash bwd {B, N, H, D, dtype} rel err {errs}")
+    check(repeats, f"flash bwd {B, N, H, D, dtype}: two calls differ")
+    del q, k, v, dout, out, lse, got, qh, kh, vh, oh, doh, bwd
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_kernels_bwd():
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {"wrap_bwd": [], "flash_bwd": []}
     for (B, n, C, dtype), balanced in [(s, b) for s in WRAP_BWD_SHAPES for b in (False, True)]:
-        args = wrap_case(B, n, C, dtype, gen, balanced)
-        dout = torch.randn(B, n, C, generator=gen, device="cuda").to(dtype)
-        out, stats = la._forward_kernel(*args, keep_stats=True)
-        got = wrap_grads(la.attn_wrap_bwd(*args, dout, stats=stats))
-        torch.cuda.synchronize()
-        # both calls again: forward (output and kept statistics) and backward
-        out2, stats2 = la._forward_kernel(*args, keep_stats=True)
-        again = wrap_grads(la.attn_wrap_bwd(*args, dout, stats=stats2))
-        fwd_repeats = torch.equal(out, out2) and all(
-            torch.equal(a, b) for a, b in zip(stats, stats2))
-        repeats = all(torch.equal(got[k], again[k]) for k in got)
-        del out2, stats2, again
-        fargs = [a.float() for a in args]
-        want_out = la.attn_wrap_reference(*fargs)
-        fwd_err = (out.float() - want_out).abs()
-        share = attention_share(want_out, fargs[0], fargs[4], fargs[5])
-        fwd = dict(max_abs_err=float(fwd_err.max()), mean_abs_err=float(fwd_err.mean()),
-                   limit=LIMITS[("wrap", dtype)], repeats_bitwise=fwd_repeats)
-        del out, want_out, fwd_err
-        want = wrap_grads(la.attn_wrap_bwd_reference(*fargs, dout.float()))
-        errs = {k: rel_err(got[k], want[k]) for k in got}
-        abs_err = max(float((got[k].float() - want[k]).abs().max()) for k in got)
-        finite = all(bool(torch.isfinite(g).all()) for g in got.values())
-        del want, fargs
-        limit = BWD_LIMITS[("wrap", dtype)]
-        row = dict(phase="kernels_bwd", kernel="attn_wrap_bwd", shape=[B, n, C],
-                   dtype=str(dtype).split(".")[-1], balanced=balanced, forward=fwd,
-                   rel_err=errs, max_rel_err=max(errs.values()), max_abs_err=abs_err,
-                   limit=limit, repeats_bitwise=repeats, attention_share=share)
-        if not balanced:
-            row.update(wgrad_yardstick(la, B, n, C, dtype, gen))
-            esize = args[0].element_size()
-            nbytes = (3 * B * n * C + 2 * (C * 384 + 128 * C + 3 * C)) * esize
-            bms, by = bound_ms(nbytes, 2 * B * n * (1536 * C + 20480), dtype)
-            row.update(kernel_ms=time_ms(lambda: la.attn_wrap_bwd(*args, dout, stats=stats),
-                                         iters=10),
-                       device_ms=device_ms(lambda: la.attn_wrap_bwd(*args, dout, stats=stats),
-                                           "daclip::wrap_bwd::", iters=5),
-                       plain_ms=time_ms(lambda: la.attn_wrap_bwd_reference(*args, dout),
-                                        iters=5, warmup=1),
-                       bound_ms=bms, bound_by=by, library_ms=None)
-        emit(**row)
-        rows["wrap_bwd"].append(row)
-        what = f"wrap bwd {B, n, C, dtype}" + (" balanced" if balanced else "")
-        check(fwd["max_abs_err"] <= fwd["limit"], f"{what}: forward max err {fwd}")
-        check(fwd_repeats, f"{what}: two forward calls differ")
-        check(repeats, f"{what}: two backward calls differ")
-        if dtype == torch.bfloat16:
-            check(fwd["mean_abs_err"] <= WRAP_MEAN_LIMIT_BF16, f"{what}: forward mean err {fwd}")
-        check(finite, f"{what} not finite")
-        check(row["max_rel_err"] <= limit, f"{what} rel err {errs}")
-        if balanced:
-            check(share >= SIGNAL_MIN, f"{what}: the attention's share {share} is too small")
-        del got, args, dout, stats
-        torch.cuda.empty_cache()
-
+        rows["wrap_bwd"].append(wrap_bwd_check(B, n, C, dtype, gen, balanced))
     for B, N, H, D, dtype in FLASH_BWD_SHAPES:
-        q, k, v, dout = [torch.randn(B, N, H * D, generator=gen, device="cuda").to(dtype)
-                         for _ in range(4)]
-        out, lse = fa._forward_kernel(q, k, v, H, D, True)
-        bwd = lambda: fa.flash_self_attention_bwd(q, k, v, out, dout, H, D, lse=lse)
-        got = dict(zip(("dq", "dk", "dv"), bwd()))
-        torch.cuda.synchronize()
-        repeats = all(torch.equal(a, b) for a, b in zip(got.values(), bwd()))
-        want_out = fa.attention_reference(q.float(), k.float(), v.float(), H, D)
-        fwd = dict(max_rel_err=rel_err(out, want_out),
-                   max_abs_err=float((out.float() - want_out).abs().max()),
-                   limit=LIMITS[("flash", dtype)])
-        want = fa.attention_bwd_reference(q.float(), k.float(), v.float(), want_out,
-                                          dout.float(), H, D)
-        errs = {kk: rel_err(got[kk], w) for kk, w in zip(got, want)}
-        abs_err = max(float((got[kk].float() - w).abs().max()) for kk, w in zip(got, want))
-        del want, want_out
-        limit = BWD_LIMITS[("flash", dtype)]
-        heads = lambda t: t.view(B, N, H, D).transpose(1, 2)
-        qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k, v))
-        oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
-        doh = heads(dout)
-        lib = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
-        bms, by = bound_ms(8 * B * N * H * D * q.element_size(), 10 * B * H * N * N * D, dtype)
-        row = dict(phase="kernels_bwd", kernel="flash_self_attention_bwd",
-                   shape=[B, N, H, D], dtype=str(dtype).split(".")[-1], forward=fwd,
-                   rel_err=errs, max_rel_err=max(errs.values()), max_abs_err=abs_err,
-                   limit=limit, repeats_bitwise=repeats,
-                   kernel_ms=time_ms(bwd, iters=10),
-                   device_ms=device_ms(bwd, "daclip::flash_bwd::"),
-                   plain_ms=time_ms(lambda: fa.attention_bwd_reference(
-                       q, k, v, out, dout, H, D), iters=5, warmup=1),
-                   bound_ms=bms, bound_by=by, library_ms=time_ms(lib, iters=10),
-                   # its event time holds autograd's host time
-                   library_device_ms=device_ms(lib, ""))
-        emit(**row)
-        rows["flash_bwd"].append(row)
-        check(fwd["max_rel_err"] <= fwd["limit"],
-              f"flash {B, N, H, D, dtype}: forward rel err {fwd}")
-        check(all(bool(torch.isfinite(g).all()) for g in got.values()),
-              f"flash bwd {B, N, H, D, dtype} not finite")
-        check(row["max_rel_err"] <= limit, f"flash bwd {B, N, H, D, dtype} rel err {errs}")
-        check(repeats, f"flash bwd {B, N, H, D, dtype}: two calls differ")
-        del q, k, v, dout, out, lse, got, qh, kh, vh, oh, doh, bwd
-        torch.cuda.empty_cache()
+        rows["flash_bwd"].append(flash_bwd_check(B, N, H, D, dtype, gen))
     return rows
 
 
@@ -1656,9 +1714,10 @@ def run_profile_train(full_step, step_ms, wiring="v5"):
 CLI_MD_SHAPE = (288, 320)      # (H, W) of the MD tree's images: H != W, both past the patch
 CLI_VAL_SHAPE = (256, 272)
 CLI_TEST_SHAPE = (256, 256)
-# depth cut from 12 steps and a resume to 16 (validation every 6) to keep the script
-# well inside its time limit: the steps wait on the host's PNG decode
-CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ, CLI_VAL_T = 4, 6, 2, 10
+# depth cut from 12 steps and a resume to 16 (validation every 6), then to 2 and a
+# resume to 4 when the wild_ir phases came, to keep the script well inside its time
+# limit: the steps wait on the host's PNG decode (~37 s a step)
+CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ, CLI_VAL_T = 2, 4, 2, 10
 
 
 def write_md_tree(root, types, pairs, shape, seed):
@@ -1698,9 +1757,10 @@ def png_decode_ms(shape=CLI_MD_SHAPE, repeats=3, seed=0):
 
 
 def loader_samples_per_s(dataset_opt, workers, batches=2):
-    """Samples/s of the port's DataLoader over an MD dataset (decode, crop,
-    flip/rot, CLIP view; no model): `batches` batches after the loader is
-    built, threads started inside the timing."""
+    """Samples/s of the port's DataLoader over the dataset of `dataset_opt`
+    (MD: decode, crop, flip/rot, CLIP view; MDGT: the same with
+    `random_degrade` in place of the LQ read; no model): `batches` batches
+    after the loader is built, threads started inside the timing."""
     from daclip_torch.data import DataLoader, IterSampler, create_dataset
 
     ds = create_dataset(dict(dataset_opt))
@@ -1713,6 +1773,34 @@ def loader_samples_per_s(dataset_opt, workers, batches=2):
         if i + 1 == batches:
             break
     return n / (time.perf_counter() - t0)
+
+
+def step_timer(make_step, records):
+    """`make_step` with each step it makes timed to a synchronize: a record
+    of the state's step before it, its start and its ms is appended to
+    `records`."""
+    def timed_make_step(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def timed(state, batch, generator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = state.step
+            out = step(state, batch, generator)
+            torch.cuda.synchronize()
+            records.append(dict(step=before, start=t0, ms=(time.perf_counter() - t0) * 1e3))
+            return out
+
+        return timed
+
+    return timed_make_step
+
+
+def validations(steps, resume_steps, val_freq):
+    """Validations of a CLI run to `steps` and its resume to `resume_steps`:
+    every val_freq-th step of each run, and one at each run's end."""
+    return (steps // val_freq + 1
+            + sum(1 for s in range(steps + 1, resume_steps + 1) if s % val_freq == 0) + 1)
 
 
 def run_train_cli(train_step_ms, lpips_weights):
@@ -1742,20 +1830,7 @@ def run_train_cli(train_step_ms, lpips_weights):
     types = ["noisy", "rainy"]
     records = []
     real_make_step = cli_train.make_step
-
-    def timed_make_step(*args, **kw):
-        step = real_make_step(*args, **kw)
-
-        def timed(state, batch, generator):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            before = state.step
-            out = step(state, batch, generator)
-            torch.cuda.synchronize()
-            records.append(dict(step=before, start=t0, ms=(time.perf_counter() - t0) * 1e3))
-            return out
-
-        return timed
+    timed_make_step = step_timer(real_make_step, records)
 
     with tempfile.TemporaryDirectory() as d:
         root = pathlib.Path(d)
@@ -1822,10 +1897,7 @@ def run_train_cli(train_step_ms, lpips_weights):
         test_s = time.perf_counter() - t0
         test_calls = {k: v for k, v in read_counts().items() if v}
 
-    # validations: every val_freq-th step of each run, and one at each run's end
-    n_val = (CLI_STEPS // CLI_VAL_FREQ + 1
-             + sum(1 for s in range(CLI_STEPS + 1, CLI_RESUME_STEPS + 1)
-                   if s % CLI_VAL_FREQ == 0) + 1)
+    n_val = validations(CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ)
     val_steps = n_val * len(types) * CLI_VAL_T     # two val images, CLI_VAL_T sampler steps
     n_steps = CLI_RESUME_STEPS
     want = {"wrap": 12 * n_steps + 6 * val_steps, "flash": 6 * n_steps + 3 * val_steps,
@@ -1882,6 +1954,512 @@ def run_train_cli(train_step_ms, lpips_weights):
     check(test_calls == want_test, f"test_restoration: kernel calls {test_calls}, "
           f"expected {want_test}")
     return {k: calls[k] for k in ("wrap", "flash", "wrap_bwd", "flash_bwd")}, test_calls
+
+
+# -- phase 11b -----------------------------------------------------------------
+# Wild-IR (configs/wild-ir/{train,test}.yml): ViT-L-14 DA-CLIP image contexts
+# (768-d), no degradation context, the UNet's internal scale 0.5
+WILD_DACLIP = "daclip_ViT-L-14"   # vision 1024 × 24, patch 14, 224² (257 positions)
+WILD_KW = dict(nf=64, ch_mult=(1, 2, 4, 8), context_dim=768, use_degra_context=False,
+               use_image_context=True, scale=0.5)
+# at 256² the scale-0.5 UNet's levels run at 128², 64², 32² and 16²: the wrap's
+# (n, C) at its six sites (down0 and up0 share one), flash's (N, heads,
+# dim_head) at down3 and at mid and up3
+WILD_WRAP_SITES = [(16384, 64), (4096, 64), (4096, 128), (1024, 128), (1024, 256)]
+WILD_FLASH_SITES = [(256, 8, 32), (256, 16, 32)]
+WILD_F32_B = 2            # the f32 step's batch: the CPU's side of the check sets it
+WILD_F32_LIMIT = 1e-4     # f32 card vs f32 CPU, of the max: encode, forward, loss, params
+WILD_UPDATE_LIMIT = 1e-2  # the f32 step's update p_after − p_before, of its max
+WILD_GT = (16, (320, 384))  # GT PNGs (count, (H, W)), Up rows
+# cut from wild-ir's 500k steps (val and checkpoints every 1e4): 3 steps with
+# validation and a checkpoint at 2, then a resume to 4
+WILD_STEPS, WILD_RESUME_STEPS, WILD_VAL_FREQ, WILD_VAL_T = 3, 4, 2, 10
+WILD_TEST_T = 100
+
+
+def cpu_copy(sd):
+    """`sd` on the CPU, tensors shared by two names (DaCLIP's visual alias)
+    still shared."""
+    by_id = {}
+    for v in sd.values():
+        if id(v) not in by_id:
+            by_id[id(v)] = v.cpu()
+    return {k: by_id[id(v)] for k, v in sd.items()}
+
+
+def wild_daclip(sd, device):
+    """The f32 ViT-L-14 DaCLIP holding `sd`'s tensors on `device`, built on
+    the meta device (not initialised: 0.76 B parameters), in eval mode."""
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+
+    with torch.device("meta"):
+        daclip = DaCLIP(CLIPCfg.from_dict(get_model_config(WILD_DACLIP)))
+    daclip.load_state_dict({k: v.to(device) for k, v in sd.items()}, strict=True, assign=True)
+    return daclip.eval().requires_grad_(False)
+
+
+def wild_sites(unet, x, t, ictx):
+    """The (B, n, C) of each wrap call and the (B, N, heads, dim_head) of
+    each flash call in one forward of `unet` (the UNet module's kernel
+    entry points swapped for recorders here only)."""
+    from daclip_torch.models import unet as unet_mod
+
+    seen = {"wrap": [], "flash": []}
+    real_wrap, real_flash = unet_mod.attn_wrap, unet_mod.flash_self_attention
+
+    def wrap(x, *a, **kw):
+        seen["wrap"].append(tuple(x.shape))
+        return real_wrap(x, *a, **kw)
+
+    def flash(q, k, v, heads, dim_head):
+        seen["flash"].append((q.shape[0], q.shape[1], heads, dim_head))
+        return real_flash(q, k, v, heads, dim_head)
+
+    unet_mod.attn_wrap, unet_mod.flash_self_attention = wrap, flash
+    try:
+        with torch.no_grad():
+            unet(x, x, t, None, ictx)
+    finally:
+        unet_mod.attn_wrap, unet_mod.flash_self_attention = real_wrap, real_flash
+    return seen
+
+
+def wild_f32_step(device, unet_sd, daclip_sd, views, gt, lq, t, xt):
+    """One f32 wild-ir training step (TF32 off) on `device` from the seeded
+    weights: the f32 DaCLIP's image contexts of `views`, then the step on
+    the given (t, x_t) draw at lr 1e-3 and Adam eps 1e-3 (as daclip_f32_step:
+    a gradient that is 0 up to rounding then moves its parameter by ~0, not
+    by ±lr). Returns (loss, parameters after)."""
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.sde import IRSDE
+    from daclip_torch.train.restoration import (RestorationTrainConfig, init_state,
+                                                make_train_step)
+
+    with torch.no_grad():
+        ictx = wild_daclip(daclip_sd, device).encode_image(views.to(device), control=True,
+                                                           normalize=True)[0].float()
+    unet = ConditionalUNet(**WILD_KW)
+    unet.load_state_dict({k: v.to(device) for k, v in unet_sd.items()}, strict=True)
+    unet.train()
+    cfg = RestorationTrainConfig(lr_G=1e-3)
+    state = init_state(unet, cfg, device=device)
+    for group in state.optimizer.param_groups:
+        group["eps"] = 1e-3
+    sde = IRSDE(max_sigma=50, T=100, schedule="cosine", eps=0.005)
+    sde.generate_random_states = lambda gt_, lq_, gen: (t.to(device), xt.to(device))
+    _, m = make_train_step(unet, sde, cfg, device=device)(
+        state, dict(LQ=lq.to(device), GT=gt.to(device), image_context=ictx))
+    return float(m["loss"]), {n: p.detach().float().cpu() for n, p in unet.named_parameters()}
+
+
+def run_wild_ir_models(unet_sd, daclip_sd):
+    """Kernels #1-#4 at the shapes the scale-0.5 UNet gives them (read off a
+    forward at B = 1 and 16), then the f32 ViT-L-14 DaCLIP, UNet forward and
+    training step on the card against the CPU. Returns the kernel rows."""
+    import gc
+
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.sde import IRSDE
+    from daclip_torch.transforms import clip_transform
+
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    unet = ConditionalUNet(dtype=torch.bfloat16, **WILD_KW)
+    unet.load_state_dict(unet_sd, strict=True)
+    unet.cuda().eval()
+    sites = {}
+    for B in (1, 16):
+        x = torch.rand(B, 3, 256, 256, generator=gen, device="cuda")
+        ictx = torch.randn(B, 768, generator=gen, device="cuda")
+        sites[B] = wild_sites(unet, x, torch.full((B,), 50.0, device="cuda"), ictx)
+    del unet
+    emit(phase="wild_ir_kernels", what="the kernels' shapes in one forward of the scale-0.5 "
+         "UNet at 256²", sites={str(B): v for B, v in sites.items()})
+    want_wrap = sorted(WILD_WRAP_SITES + WILD_WRAP_SITES[:1])
+    want_flash = sorted(WILD_FLASH_SITES + WILD_FLASH_SITES[1:])
+    for B, seen in sites.items():
+        check(sorted(s[1:] for s in seen["wrap"]) == want_wrap
+              and all(s[0] == B for s in seen["wrap"]),
+              f"wild-ir wrap sites at B={B}: {seen['wrap']}")
+        check(sorted(s[1:] for s in seen["flash"]) == want_flash
+              and all(s[0] == B for s in seen["flash"]),
+              f"wild-ir flash sites at B={B}: {seen['flash']}")
+
+    rows = {"wrap": [], "flash": [], "wrap_bwd": [], "flash_bwd": []}
+    bf16 = torch.bfloat16
+    for B in (1, 16):
+        path = "wild_ir_train" if B == 16 else "wild_ir_test"
+        for (n, C), balanced in [(s, b) for s in WILD_WRAP_SITES for b in (False, True)]:
+            rows["wrap"].append(wrap_check(B, n, C, bf16, gen, balanced, "wild_ir_kernels",
+                                           path))
+        for N, H, D in WILD_FLASH_SITES:
+            rows["flash"].append(flash_check(B, N, H, D, bf16, B == 16, gen,
+                                             "wild_ir_kernels", path))
+    for (n, C), balanced in [(s, b) for s in WILD_WRAP_SITES for b in (False, True)]:
+        rows["wrap_bwd"].append(wrap_bwd_check(16, n, C, bf16, gen, balanced,
+                                               "wild_ir_kernels", "wild_ir_train"))
+    for N, H, D in WILD_FLASH_SITES:
+        rows["flash_bwd"].append(flash_bwd_check(16, N, H, D, bf16, gen, "wild_ir_kernels",
+                                                 "wild_ir_train"))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the frozen bf16 tower's contexts of a training batch, as the CLI's step
+    # computes them
+    with torch.device("cuda"):
+        daclip = DaCLIP(CLIPCfg.from_dict(get_model_config(WILD_DACLIP)), dtype=torch.bfloat16)
+    daclip.load_state_dict(daclip_sd, strict=True)
+    daclip.eval().requires_grad_(False)
+    views16 = torch.randn(16, 3, 224, 224, generator=gen, device="cuda")
+    with torch.no_grad():
+        encode_ms = time_ms(lambda: daclip.encode_image(views16, control=True, normalize=True),
+                            iters=10)
+    emit(phase="wild_ir_kernels", what=f"{WILD_DACLIP} encode_image(control=True) at B=16, "
+         "bf16 (median of 10 CUDA-event timed calls)", encode_ms=encode_ms)
+    del daclip, views16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 on the card against the CPU, on the same numpy inputs
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(84)
+    gt_np = rng.rand(WILD_F32_B, 256, 256, 3).astype(np.float32)
+    lq_np = np.clip(gt_np + 0.1 * rng.randn(*gt_np.shape), 0, 1).astype(np.float32)
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+    gt, lq = nchw(gt_np), nchw(lq_np)
+    views = nchw(np.stack([clip_transform(im, 224) for im in lq_np]))
+    cpu_sd = cpu_copy(daclip_sd)
+    feats, outs = {}, {}
+    for device in ("cuda", "cpu"):
+        daclip = wild_daclip(daclip_sd if device == "cuda" else cpu_sd, device)
+        with torch.no_grad():
+            feats[device] = [f.cpu() for f in daclip.encode_image(views.to(device),
+                                                                  control=True)]
+        del daclip
+        unet = ConditionalUNet(**WILD_KW)
+        unet.load_state_dict({k: v.to(device) for k, v in unet_sd.items()}, strict=True)
+        unet.to(device).eval()
+        with torch.no_grad():
+            outs[device] = unet(lq[:1].to(device), lq[:1].to(device),
+                                torch.full((1,), 50.0, device=device), None,
+                                feats["cuda"][0][:1].to(device)).cpu()
+        del unet
+    encode_err = max(rel_err(c, w) for c, w in zip(feats["cuda"], feats["cpu"]))
+    forward_err = rel_err(outs["cuda"], outs["cpu"])
+    sde = IRSDE(max_sigma=50, T=100, schedule="cosine", eps=0.005)
+    t, xt = sde.generate_random_states(gt, lq, torch.Generator().manual_seed(85))
+    step = {d: wild_f32_step(d, unet_sd, daclip_sd if d == "cuda" else cpu_sd, views, gt, lq,
+                             t, xt) for d in ("cuda", "cpu")}
+    del cpu_sd
+    card, cpu = step["cuda"][1], step["cpu"][1]
+    before = {k: v.float().cpu() for k, v in unet_sd.items()}
+    u_err = {n: float(((card[n] - before[n]) - (p - before[n])).abs().max())
+             for n, p in cpu.items()}
+    u_max = max(float((p - before[n]).abs().max()) for n, p in cpu.items())
+    p_err = max(float((card[n] - p).abs().max()) for n, p in cpu.items())
+    p_max = max(float(p.abs().max()) for p in cpu.values())
+    worst = max(u_err, key=u_err.get)
+    f32 = dict(encode_image_control_err_of_max=encode_err, unet_forward_err_of_max=forward_err,
+               loss_card=step["cuda"][0], loss_cpu=step["cpu"][0],
+               loss_rel_err=abs(step["cuda"][0] - step["cpu"][0]) / abs(step["cpu"][0]),
+               params_err_of_max=p_err / p_max, update_max=u_max,
+               update_err_of_max=u_err[worst] / u_max, update_worst=worst)
+    emit(phase="wild_ir_f32", what=f"f32 (TF32 off), card vs CPU: {WILD_DACLIP} "
+         f"encode_image(control=True) at B={WILD_F32_B}, the scale-0.5 UNet forward at 256² "
+         f"(B=1), one training step at B={WILD_F32_B}, 256², lr 1e-3, eps 1e-3",
+         seconds=time.perf_counter() - t0, limit=WILD_F32_LIMIT,
+         update_limit=WILD_UPDATE_LIMIT, **f32)
+    for key in ("encode_image_control_err_of_max", "unet_forward_err_of_max", "loss_rel_err",
+                "params_err_of_max"):
+        check(f32[key] <= WILD_F32_LIMIT, f"wild_ir f32 {key}: {f32[key]}")
+    check(f32["update_err_of_max"] <= WILD_UPDATE_LIMIT,
+          f"wild_ir f32 update: {f32['update_err_of_max']} of its max ({worst})")
+    return rows
+
+
+def write_gt_tree(root, count, shape, seed):
+    """`root/<i>.png`: seeded images with Up rows (a Paeth decode would hide
+    the synthesis cost the wild-ir phase measures)."""
+    from daclip_torch.data import png
+
+    rng = np.random.RandomState(seed)
+    root.mkdir(parents=True)
+    for i in range(count):
+        png.write(str(root / f"{i:03d}.png"),
+                  (rng.rand(*shape, 3) * 255).round().astype(np.uint8), "up")
+
+
+def write_pair_tree(root, shapes, seed):
+    """`root/{GT,LQ}/<i>.png`: a seeded GT of each (H, W) in `shapes` and GT
+    + noise as its LQ, Up rows."""
+    from daclip_torch.data import png
+
+    rng = np.random.RandomState(seed)
+    for sub in ("GT", "LQ"):
+        (root / sub).mkdir(parents=True)
+    for i, shape in enumerate(shapes):
+        gt = rng.rand(*shape, 3)
+        lq = np.clip(gt + 0.1 * rng.randn(*shape, 3), 0, 1)
+        for sub, img in (("GT", gt), ("LQ", lq)):
+            png.write(str(root / sub / f"{i}.png"), (img * 255).round().astype(np.uint8))
+
+
+def synthesis_ms(draws=32, seed=86):
+    """Host ms of `random_degrade` on a 256² patch and of the CLIP view of
+    its output, over `draws` seeded draws: [median, lower quartile, upper
+    quartile] of each."""
+    import random
+    import warnings
+
+    from daclip_torch.data.degradations import random_degrade
+    from daclip_torch.transforms import clip_transform
+
+    img = np.random.RandomState(seed).rand(256, 256, 3).astype(np.float32)
+    deg, view = [], []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # under_display_filter's missing ucdpsf.pkl
+        for i in range(draws):
+            t0 = time.perf_counter()
+            lq = random_degrade(img, rng=random.Random(seed + i))
+            t1 = time.perf_counter()
+            clip_transform(lq[:, :, ::-1].copy(), 224)
+            t2 = time.perf_counter()
+            deg.append((t1 - t0) * 1e3)
+            view.append((t2 - t1) * 1e3)
+    q = lambda a: [float(np.median(a)), *map(float, np.percentile(a, [25, 75]))]
+    return dict(random_degrade_ms=q(deg), clip_view_ms=q(view))
+
+
+def run_wild_ir():
+    """The Wild-IR configuration through the port's entry points at full
+    width: the kernels at its shapes and the f32 card-vs-CPU checks, then
+    `cli.train_restoration -opt` on configs/wild-ir/train.yml (B=16, 256²,
+    MDGT over seeded GT PNGs, a seeded ViT-L-14 DA-CLIP .pt; 3 steps with
+    validation and a checkpoint at 2, a resume to 4), `cli.test_restoration
+    -opt` on configs/wild-ir/test.yml over a 256² and a 200 × 300 pair at
+    T=100 with the saved EMA UNet, `cli.predict --wild-ir` on one PNG, and
+    `tools.generate_lq` / `generate_masked`. Returns the kernel rows and the
+    launches of the train, test and predict paths."""
+    import contextlib
+    import gc
+    import io
+    import json as json_mod
+    import logging
+
+    import cv2
+    import yaml
+
+    from daclip_torch import config as cfg_mod
+    from daclip_torch.cli import predict as cli_predict
+    from daclip_torch.cli import test_restoration as cli_test
+    from daclip_torch.cli import train_restoration as cli_train
+    from daclip_torch.data import png
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.tools.generate_lq import generate_LQ
+    from daclip_torch.tools.generate_masked import generate_masked
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    clip_cfg = CLIPCfg.from_dict(get_model_config(WILD_DACLIP))
+    daclip_sd = seeded_state_dict(lambda: DaCLIP(clip_cfg), seed=81)
+    unet_sd = seeded_state_dict(lambda: ConditionalUNet(**WILD_KW), seed=82)
+    daclip_params = sum(v.numel() for v in {id(v): v for v in daclip_sd.values()}.values())
+    positions = tuple(daclip_sd["visual.positional_embedding"].shape)
+    emit(phase="wild_ir", what="seeded weights", seconds=time.perf_counter() - t0,
+         daclip=WILD_DACLIP, daclip_params=daclip_params, visual_positions=positions,
+         unet=WILD_KW, unet_params=sum(v.numel() for v in unet_sd.values()))
+    check(positions == (257, 1024), f"ViT-L-14 positional embedding {positions}")
+    rows = run_wild_ir_models(unet_sd, daclip_sd)
+    del unet_sd
+
+    records, loaded = [], []
+    real_make_step, real_load = cli_train.make_step, cli_train.load_daclip
+    probe = torch.randn(2, 3, 224, 224, generator=torch.Generator("cuda").manual_seed(87),
+                        device="cuda")
+
+    def spy_load(opt, device):
+        fn = real_load(opt, device)
+        loaded.append((fn, fn(probe)))   # the contexts of a probe before any step
+        return fn
+
+    with tempfile.TemporaryDirectory() as d:
+        root = pathlib.Path(d)
+        t0 = time.perf_counter()
+        write_gt_tree(root / "gt", *WILD_GT, seed=88)
+        write_pair_tree(root / "val", [(256, 256)] * 2, seed=89)
+        test_root = root / "test"
+        write_pair_tree(test_root, [(256, 256), (200, 300)], seed=90)
+        daclip_pt = root / "wild-daclip_ViT-L-14.pt"
+        torch.save(cpu_copy(daclip_sd), daclip_pt)
+        pt_bytes = daclip_pt.stat().st_size
+        del daclip_sd
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = yaml.safe_load((REPO / "configs" / "wild-ir" / "train.yml").read_text())
+        opt["datasets"]["train"]["dataroot_GT"] = str(root / "gt")
+        opt["datasets"]["val"].update(dataroot_GT=str(root / "val" / "GT"),
+                                      dataroot_LQ=str(root / "val" / "LQ"))
+        opt["path"].update(root=str(root / "out"), daclip=str(daclip_pt))
+        opt["train"].update(niter=WILD_STEPS, val_freq=WILD_VAL_FREQ)
+        opt["logger"].update(print_freq=1, save_checkpoint_freq=WILD_VAL_FREQ)
+        train_yml = root / "train.yml"
+        train_yml.write_text(yaml.safe_dump(opt))
+        test_opt = yaml.safe_load((REPO / "configs" / "wild-ir" / "test.yml").read_text())
+        test_opt["datasets"]["test1"].update(dataroot_GT=str(test_root / "GT"),
+                                             dataroot_LQ=str(test_root / "LQ"))
+        test_opt["path"].update(root=str(root / "out"), daclip=str(daclip_pt))
+        test_yml = root / "test.yml"
+        test_yml.write_text(yaml.safe_dump(test_opt))
+        setup_s = time.perf_counter() - t0
+
+        synth = synthesis_ms()
+        dataset_opt = cfg_mod.parse(str(train_yml))["datasets"]["train"]
+        loader = {f"workers_{w}": loader_samples_per_s(dataset_opt, w, batches=1)
+                  for w in (0, 8)}
+
+        logging.getLogger("train").setLevel(logging.INFO)
+        cli_train.make_step = step_timer(real_make_step, records)
+        cli_train.load_daclip = spy_load
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            first = cli_train.main(["-opt", str(train_yml), "--val-sample-T", str(WILD_VAL_T),
+                                    "--device", "cuda"])
+            n_first = len(records)
+            second = cli_train.main(["-opt", str(train_yml), "--max-steps",
+                                     str(WILD_RESUME_STEPS), "--val-sample-T",
+                                     str(WILD_VAL_T), "--device", "cuda"])
+        finally:
+            cli_train.make_step, cli_train.load_daclip = real_make_step, real_load
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        calls = {k: v for k, v in read_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        frozen = all(torch.equal(a, b) for fn, before in loaded
+                     for a, b in zip(fn(probe), before))
+        n_loaded = len(loaded)
+        del loaded
+        ckpt_dir = root / "out" / "experiments" / opt["name"] / "training_state"
+        ckpts = sorted(os.listdir(ckpt_dir))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = cli_test.main(["-opt", str(test_yml), "--checkpoint", str(ckpt_dir),
+                                 "--daclip", str(daclip_pt), "--save-images",
+                                 "--device", "cuda"])["test1"]
+        test_s = time.perf_counter() - t0
+        test_calls = {k: v for k, v in read_counts().items() if v}
+        saved = sorted((root / "out" / "results" / test_opt["name"] / "test1").glob("*.png"))
+        saved_shapes = [png.read(str(p)).shape for p in saved]
+        saved_finite = all(np.isfinite(png.read(str(p))).all() for p in saved)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        t0 = time.perf_counter()
+        cli_predict.main(["-i", str(test_root / "LQ" / "0.png"), "-o", str(root / "pred"),
+                          "--checkpoint", str(ckpt_dir), "--daclip", str(daclip_pt),
+                          "--wild-ir", "--device", "cuda"])
+        predict_s = time.perf_counter() - t0
+        predict_calls = {k: v for k, v in read_counts().items() if v}
+        restored = png.read(str(root / "pred" / "0.png"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the offline tools on the card's host (cv2 and scipy inside their calls)
+        src = root / "src"
+        write_gt_tree(src, 2, WILD_GT[1], seed=91)
+        tools = {}
+        with contextlib.redirect_stdout(io.StringIO()):  # a line a level
+            for deg_type in ("blur", "noisy", "resize", "jpeg"):
+                t0 = time.perf_counter()
+                generate_LQ([str(src)], deg_type, None, str(root / "lq"), 1, "train",
+                            (256, 256), 92)
+                tools[deg_type] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            masked = generate_masked(str(src), str(root / "masked"), 100, 93)
+            tools["masked"] = time.perf_counter() - t0
+        outputs = sorted((root / "lq").rglob("*.png")) + sorted((root / "masked").rglob("*.png"))
+        decoded = [cv2.imread(str(p)) for p in outputs]
+        shapes = {None if im is None else im.shape for im in decoded}
+        prompts = [json_mod.loads(p.read_text())
+                   for p in sorted((root / "lq").rglob("degraded_prompts.json"))]
+        level_dirs = sorted(p.name for p in (root / "lq" / "train").iterdir())
+
+    n_val = validations(WILD_STEPS, WILD_RESUME_STEPS, WILD_VAL_FREQ)
+    val_steps = n_val * 2 * WILD_VAL_T       # two val images, WILD_VAL_T sampler steps
+    n_steps = WILD_RESUME_STEPS
+    # remat runs each checkpointed forward twice in a step
+    want = {"wrap": 12 * n_steps + 6 * val_steps, "flash": 6 * n_steps + 3 * val_steps,
+            "wrap_bwd": 6 * n_steps, "flash_bwd": 3 * n_steps}
+    want_test = {"wrap": 6 * 2 * WILD_TEST_T, "flash": 3 * 2 * WILD_TEST_T}
+    want_predict = {"wrap": 6 * WILD_TEST_T, "flash": 3 * WILD_TEST_T}
+    step_ms = [r["ms"] for r in records]
+    gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
+            if b["step"] == a["step"] + 1]
+    B = opt["datasets"]["train"]["batch_size"]
+    emit(phase="train_wild", what=f"cli.train_restoration -opt configs/wild-ir/train.yml "
+         f"({WILD_STEPS} steps, resume to {WILD_RESUME_STEPS}, validation and checkpoints "
+         f"every {WILD_VAL_FREQ})",
+         config=dict(B=B, patch=opt["datasets"]["train"]["patch_size"],
+                     n_workers=opt["datasets"]["train"]["n_workers"], mode="MDGT",
+                     gt_images=f"{WILD_GT[0]} at {WILD_GT[1][0]}x{WILD_GT[1][1]} (Up rows)",
+                     val_images="2 at 256x256", val_sample_T=WILD_VAL_T,
+                     unet=opt["network_G"]["setting"], daclip=WILD_DACLIP,
+                     daclip_pt_bytes=pt_bytes),
+         setup_s=setup_s, train_s=train_s, first=first, second=second,
+         steps_run=[r["step"] for r in records], checkpoints=ckpts, ms_per_step=step_ms,
+         median_ms_per_step=float(np.median(step_ms)),
+         median_ms_step_to_step=float(np.median(gaps)),
+         samples_per_s_step_to_step=B * 1e3 / float(np.median(gaps)),
+         loader_samples_per_s=loader, synthesis_256=synth, validations=n_val,
+         frozen_daclip_unchanged=frozen, launches=calls, want_launches=want,
+         max_memory_allocated=peak)
+    emit(phase="test_wild", what=f"cli.test_restoration -opt configs/wild-ir/test.yml, "
+         f"T={WILD_TEST_T}, the EMA UNet of train_wild; then cli.predict --wild-ir on the "
+         "256² LQ", images=["256x256", "200x300"], psnr=summary["psnr"],
+         ssim=summary["ssim"], ms_per_image=[float(v) * 1e3 for v in summary["time"]],
+         test_s=test_s, saved_shapes=saved_shapes, launches=test_calls,
+         want_launches=want_test, predict_s=predict_s, predict_shape=list(restored.shape),
+         predict_launches=predict_calls, want_predict_launches=want_predict)
+    emit(phase="wild_tools", what="tools.generate_lq (each type, 2 images "
+         f"{WILD_GT[1][0]}x{WILD_GT[1][1]}, crop 256) and tools.generate_masked (2 images)",
+         seconds=tools, levels=len(level_dirs), files=len(outputs),
+         shapes=sorted(map(str, shapes)), masked=masked)
+    check(first["final_step"] == WILD_STEPS and second["final_step"] == WILD_RESUME_STEPS,
+          f"train_wild ended at {first['final_step']} and {second['final_step']}")
+    check(np.isfinite([first["best_psnr"], second["best_psnr"]]).all(),
+          "train_wild: a validation PSNR is not finite")
+    check(records[0]["step"] == 0 and records[n_first]["step"] == WILD_STEPS
+          and len(records) == WILD_RESUME_STEPS,
+          f"train_wild ran steps {[r['step'] for r in records]}")
+    check({f"{s}.pt" for s in (WILD_VAL_FREQ, WILD_STEPS, WILD_RESUME_STEPS)} <= set(ckpts),
+          f"train_wild checkpoints: {ckpts}")
+    check(n_loaded == 2 and frozen, f"train_wild: the frozen DA-CLIP's contexts changed "
+          f"({n_loaded} loads)")
+    check(calls == want, f"train_wild: kernel calls {calls}, expected {want}")
+    check(len(summary["psnr"]) == 2 and all(np.isfinite(v).all() for v in summary.values()),
+          "test_wild: metrics not finite")
+    check(saved_shapes == [(256, 256, 3), (200, 300, 3)] and saved_finite,
+          f"test_wild saved {saved_shapes}")
+    check(test_calls == want_test, f"test_wild: kernel calls {test_calls}, expected {want_test}")
+    check(restored.shape == (256, 256, 3), f"predict --wild-ir wrote {restored.shape}")
+    check(predict_calls == want_predict,
+          f"predict --wild-ir: kernel calls {predict_calls}, expected {want_predict}")
+    # 36 levels each of blur, noisy and resize (1-39 without 10, 20, 30), 8 of jpeg
+    check(len(level_dirs) == 3 * 36 + 8 and len(prompts) == len(level_dirs)
+          and all(len(p) == 2 for p in prompts), f"generate_lq wrote {len(level_dirs)} levels")
+    check(len(outputs) == 4 * len(level_dirs) + 4 and masked == 2,
+          f"the tools wrote {len(outputs)} images, masked {masked}")
+    check(shapes <= {(256, 256, 3), (512, 512, 3), WILD_GT[1] + (3,)},
+          f"tool outputs decode to {shapes}")
+    return rows, {"wild_ir_train": calls, "wild_ir_test": test_calls,
+                  "wild_ir_predict": predict_calls}
 
 
 # -- phase 12 ------------------------------------------------------------------
@@ -2118,6 +2696,7 @@ def run_train_daclip_cli(train_daclip_ms):
     DACLIPRestorer.load with a seeded production UNet, which classifies."""
     import gc
     import json as json_mod
+    import random
     import tempfile
 
     from daclip_torch.cli import train_daclip as cli
@@ -2206,6 +2785,39 @@ def run_train_daclip_cli(train_daclip_ms):
         tree, fmt = insp.load_tree(str(ckpt_dir))
         inspected = dict(insp.describe(tree, fmt, limit=3, _print=lambda line: None), format=fmt)
         del tree
+
+        # --fast-clip-view: the loader alone with cv2's decode and view, then
+        # one epoch of the CLI without a val set
+        fast_ds = CsvDataset(train_csv, image_transform(res, is_train=True, backend="cv2",
+                                                        rng=random.Random(0)),
+                             da=True, seed=0, decode="cv2")
+        loader = DataLoader(fast_ds, batch_size=CLIP_CLI_B, shuffle=True,
+                            num_workers=CLIP_CLI_WORKERS)
+        t0 = time.perf_counter()
+        n = sum(len(b["images"]) for b in loader)
+        fast_loader_sps = n / (time.perf_counter() - t0)
+        fast_argv = ["--train-data", train_csv, "--da", "--model", DACLIP_MODEL, "--precision",
+                     "amp", "--batch-size", str(CLIP_CLI_B), "--workers", str(CLIP_CLI_WORKERS),
+                     "--logs", str(root / "logs"), "--name", "fast", "--lr", "2e-5",
+                     "--epochs", "1", "--fast-clip-view", "--device", "cuda"]
+        reset_counts()
+        t0 = time.perf_counter()
+        fast = cli.main(fast_argv)
+        torch.cuda.synchronize()
+        fast_s = time.perf_counter() - t0
+        fast_counts = read_counts()
+        fast_epochs = ckpt.steps(str(root / "logs" / "fast" / "checkpoints"), ckpt.EPOCH)
+    emit(phase="fast_clip_view", what="cli.train_daclip.main --fast-clip-view: one epoch "
+         "(cv2 decode and view), no val set; the loader alone beside the PIL path's",
+         config=dict(model=DACLIP_MODEL, precision="amp", B=CLIP_CLI_B,
+                     workers=CLIP_CLI_WORKERS, train_pairs=CLIP_TREE[0]),
+         loader_samples_per_s_cv2=fast_loader_sps, loader_samples_per_s_pil=loader_sps,
+         cv2_over_pil=fast_loader_sps / loader_sps, train_s=fast_s, result=fast,
+         checkpoints=fast_epochs, launches=fast_counts)
+    check(np.isfinite(fast["best_loss"]) and fast_epochs == [1],
+          f"--fast-clip-view: loss {fast['best_loss']}, checkpoints {fast_epochs}")
+    check(not any(fast_counts.values()), f"--fast-clip-view launched hand kernels: "
+          f"{fast_counts}")
     step_ms = [r["ms"] for r in records]
     gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
             if b["step"] == a["step"] + 1]
@@ -2691,20 +3303,25 @@ def main():
     del full_step
     train_cli_totals, test_lpips_totals = run_train_cli(train_step_ms, lpips_weights)
     work.cleanup()
+    wild_rows, wild_totals = run_wild_ir()
+    for key, more in wild_rows.items():  # after each list's own rows: the picks stay
+        rows[key].extend(more)
     run_eval(run_train_daclip_cli(run_train_daclip()))
     stage_totals = run_stage_profile()
 
     # launches on each main path, each counted from 0 just before its run:
     # serve (the four requests), serve_alt (two requests per other wiring),
     # train (five timed steps), train_alt (three), train_cli (the CLI's two
-    # runs, 6 steps and 5 validations), test_lpips (cli.test_restoration
-    # --lpips-weights: two restores at T=100), stage_profile (its 11 rows,
-    # 31 calls each); for the attention core and
+    # runs, 4 steps and 4 validations), test_lpips (cli.test_restoration
+    # --lpips-weights: two restores at T=100), wild_ir_train (train_wild's
+    # two runs, 4 steps and 4 validations), wild_ir_test (test_wild's two
+    # restores at T=100), wild_ir_predict (predict --wild-ir, one restore),
+    # stage_profile (its 11 rows, 31 calls each); for the attention core and
     # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
     # and kernels_conv phases, and the conv's in the hooked forward_conv
     paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, train=train_totals,
                  train_alt=train_alt_totals, train_cli=train_cli_totals,
-                 test_lpips=test_lpips_totals, stage_profile=stage_totals,
+                 test_lpips=test_lpips_totals, **wild_totals, stage_profile=stage_totals,
                  kernels=dict(core=core_path),
                  kernels_conv=dict(conv3x3=conv_path), forward_conv=dict(conv3x3=forward_conv))
     by_path = {key: {path: n[key] for path, n in paths.items() if n.get(key)}

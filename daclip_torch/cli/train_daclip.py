@@ -22,7 +22,9 @@ Usage (da-clip/src/single_train.sh):
 Flags this CLI does not carry yet exit before any work, naming the ROADMAP
 item that holds them: `--mesh` past one device, webdataset data,
 `--remote-sync`, ImageNet zero-shot, `--force-patch-dropout`,
-`--fast-clip-view`, `--report-to wandb`.
+`--report-to wandb`. `--fast-clip-view` trains on cv2's decode and resize
+(`transforms.image_transform(backend="cv2")`), as daclip_tpu's does: the
+same crop draws, not PIL's bytes.
 """
 from __future__ import annotations
 
@@ -65,8 +67,6 @@ def refuse_unported(args, argv) -> None:
                         "ImageNet zero-shot during training", "4"))
     if args.force_patch_dropout is not None:
         refused.append(("--force-patch-dropout", "patch dropout", "4"))
-    if args.fast_clip_view:
-        refused.append(("--fast-clip-view", "the cv2 train transform", "4"))
     if "wandb" in args.report_to.split(","):
         refused.append(("--report-to wandb", "wandb reporting", "4"))
     if refused:
@@ -91,9 +91,11 @@ def _setup_logging(log_base: str, debug: bool):
     return logging.getLogger("daclip")
 
 
-def build_data(args, pp_train, pp_val, tokenizer):
+def build_data(args, pp_train, pp_val, tokenizer, image_size: int = 224):
     """(train loader, banks or None, val dataset or None), as the JAX CLI
-    builds them (training/data.py:640-660 dispatch)."""
+    builds them (training/data.py:640-660 dispatch). With
+    `--fast-clip-view` the CSV train set decodes with cv2 and takes the cv2
+    train view at `image_size` (daclip_tpu/cli/train_daclip.py:158-179)."""
     from daclip_torch.data.csv_dataset import CsvDataset, SyntheticDataset
     from daclip_torch.data.loader import DataLoader
 
@@ -102,9 +104,15 @@ def build_data(args, pp_train, pp_val, tokenizer):
         ds = SyntheticDataset(pp_train, dataset_size=args.train_num_samples or 512,
                               tokenizer=tokenizer, da=args.da)
     else:
+        if args.fast_clip_view:
+            from daclip_torch.transforms import image_transform
+
+            pp_train = image_transform(image_size, is_train=True, mean=args.image_mean,
+                                       std=args.image_std, rng=random.Random(args.seed),
+                                       backend="cv2")
         ds = CsvDataset(args.train_data, pp_train, args.csv_img_key, args.csv_caption_key,
                         args.csv_separator, tokenizer=tokenizer, da=args.da, crop=args.crop,
-                        seed=args.seed)
+                        seed=args.seed, decode="cv2" if args.fast_clip_view else "pil")
     loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True,
                         num_workers=args.workers, seed=args.seed)
     val_ds = None
@@ -161,7 +169,8 @@ def main(argv=None):
     if args.pretrained:
         log.info("loaded pretrained weights: %s", args.pretrained)
     tokenizer = partial(tokenize, context_length=model.cfg.text.context_length)
-    loader, banks, val_ds = build_data(args, pp_train, pp_val, tokenizer)
+    loader, banks, val_ds = build_data(args, pp_train, pp_val, tokenizer,
+                                       model.cfg.vision.image_size)
 
     trainable, _ = partition_daclip_params(model)
     update_mask = build_update_mask(

@@ -17,7 +17,9 @@ to RGB first, the val transform resizes them in their own mode, as
 daclip_tpu's transforms do with the PIL image. With `crop`, the
 LQ image is cropped by `_random_crop` from the dataset's own
 `random.Random(seed)` before the transform draws for the LQ image and then,
-anew, for the GT image.
+anew, for the GT image. `decode="cv2"` (with the cv2 train view,
+`--fast-clip-view`) reads each image as `cv2.imread(IMREAD_COLOR)` gives
+it, converted to RGB, as daclip_tpu's does.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from daclip_torch.data.util import imread_decoded
+from daclip_torch.data.util import _cv2, imread_decoded
 from daclip_torch.tokenizer import tokenize as default_tokenize
 from daclip_torch.transforms import DecodedImage
 
@@ -112,7 +114,10 @@ class CsvDataset:
     def __init__(self, input_filename: str, transforms: Callable, img_key: str = "filepath",
                  caption_key: str = "title", sep: str = "\t",
                  tokenizer: Callable = default_tokenize, da: bool = False, crop: bool = False,
-                 exact_bins: bool = False, seed: Optional[int] = None):
+                 exact_bins: bool = False, seed: Optional[int] = None, decode: str = "pil"):
+        if decode not in ("pil", "cv2"):
+            raise ValueError(f"decode must be 'pil' or 'cv2', got {decode!r}")
+        self.decode = decode
         self.transforms = transforms
         self.tokenize = tokenizer
         self.da = da
@@ -133,10 +138,19 @@ class CsvDataset:
     def __len__(self):
         return len(self.captions)
 
+    def _open(self, path: str) -> DecodedImage:
+        if self.decode == "pil":
+            return imread_decoded(path)
+        cv2 = _cv2("decode='cv2'")
+        arr = cv2.imread(path, cv2.IMREAD_COLOR)
+        if arr is None:
+            raise FileNotFoundError(path)
+        return DecodedImage(np.ascontiguousarray(arr[:, :, ::-1]), None, "RGB")
+
     def __getitem__(self, idx: int) -> Dict:
         path = str(self.images[idx])
-        image = imread_decoded(path)
-        gt_image = imread_decoded(path.replace("LQ", "GT"))
+        image = self._open(path)
+        gt_image = self._open(path.replace("LQ", "GT"))
         deg_type = np.zeros(4, np.float32)
         gt_val = np.zeros(4, np.float32)
         for k, v in self.degradations[idx].items():

@@ -6,6 +6,8 @@ universal-image-restoration/data/):
   MDDataset   — MD_dataset.py:27-120: train picks the degradation type
                 round-robin by index and a random item of it; random crop,
                 flip/rot, BGR→RGB and the CLIP view of each sample
+  MDGTDataset — MDGT_dataset.py:15-81: GT-only folders degraded on the fly
+                by `degradations.random_degrade` (wild-ir's training set)
   LQGTDataset — LQGT_dataset.py:14-151: paired folders or LMDBs, 20%
                 grayscale at train; `clip_view` for frozen-context caching
   CachedContextDataset — precomputed frozen DA-CLIP contexts
@@ -18,14 +20,14 @@ CLIP view for 'LQ_clip' (HWC; `loader.to_device` makes NCHW tensors). Each
 dataset draws from one `random.Random(opt["seed"])`, in the JAX package's
 order, so a seed gives the same samples in both.
 
-The MDGT mode (on-the-fly random degradation) waits for the rest of
-`degradations.py` (ROADMAP queue 1 item 3).
+The thread-pool loader shares a dataset's Random between its threads, so a
+seed gives the JAX package's batches at `n_workers: 0`.
 """
 from __future__ import annotations
 
 import os
 import random
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -103,14 +105,75 @@ class MDDataset:
 
 
 class MDGTDataset:
-    """GT-only folders with on-the-fly random degradation (wild-ir's
-    training set); not ported yet."""
+    """GT-only folders with on-the-fly degradation synthesis, wild-ir's
+    training set (MDGT_dataset.py:15-81): at train, a random crop at decode
+    time, the colour convert, flip/rot, 10% grayscale (converted back to the
+    dataset's colour), then `degradations.random_degrade`; at val/test,
+    `random_degrade` over the full image.
+
+    With `lq_cache: N` (opt-in, the JAX package's addition, not the
+    reference's) the dataset keeps a pool of N synthesized (GT, LQ) pairs:
+    each fetch synthesizes anew with probability `lq_cache_refresh` (default
+    1/4) and otherwise serves a random cached pair under a fresh flip/rot
+    draw; a full pool replaces a random entry. It bounds the loader's
+    synthesis cost at N·2·patch²·3·4 bytes (≈1.5 MB a pair at 256²)."""
 
     def __init__(self, opt: Dict):
-        raise NotImplementedError(
-            "dataset mode 'MDGT' synthesizes LQ with data/degradations.py:random_degrade "
-            "(blur, resize, JPEG re-encoding), which daclip_torch has not ported yet "
-            "(ROADMAP queue 1 item 3); use MD, LQGT, LQ or GT")
+        self.opt = opt
+        self.GT_size = opt.get("patch_size")
+        self.phase = opt.get("phase", "train")
+        self.GT_paths = util.get_image_paths(opt.get("data_type"), opt["dataroot_GT"])
+        self.rng = random.Random(opt.get("seed"))
+        self.lq_cache_size = int(opt.get("lq_cache", 0) or 0)
+        self.lq_cache_refresh = float(opt.get("lq_cache_refresh", 0.25))
+        self._lq_cache: List = []
+
+    def __len__(self):
+        return len(self.GT_paths)
+
+    def _synthesize(self, index: int):
+        GT_path = self.GT_paths[index]
+        # the colour convert commutes with the crop, so it follows the read
+        (img_GT,), _ = util.read_imgs_cropped([GT_path], self.GT_size, self.rng)
+        if self.opt.get("color"):
+            img_GT = util.channel_convert(img_GT.shape[2], self.opt["color"], [img_GT])[0]
+        img_GT = util.augment([img_GT], self.opt.get("use_flip", True),
+                              self.opt.get("use_rot", True), rng=self.rng)[0]
+        if self.rng.random() < 0.1:  # MDGT_dataset.py:62-64
+            img_GT = util.channel_convert(img_GT.shape[2], "gray", [img_GT])[0]
+            img_GT = util.channel_convert(img_GT.shape[2], self.opt.get("color", "RGB"),
+                                          [img_GT])[0]
+        img_LQ = degradations.random_degrade(img_GT, rng=self.rng)
+        return img_GT, img_LQ, GT_path
+
+    def __getitem__(self, index: int) -> Dict:
+        clip_size = self.opt.get("clip_size", 224)
+        if self.phase != "train":
+            img_GT = util.read_img(None, self.GT_paths[index])
+            if self.opt.get("color"):
+                img_GT = util.channel_convert(img_GT.shape[2], self.opt["color"], [img_GT])[0]
+            img_LQ = degradations.random_degrade(img_GT, rng=self.rng)
+            out = _finalize(img_GT, img_LQ, clip_size)
+            out["GT_path"] = self.GT_paths[index]
+            return out
+
+        cache = self._lq_cache
+        if (self.lq_cache_size > 0 and len(cache) >= self.lq_cache_size
+                and self.rng.random() >= self.lq_cache_refresh):
+            img_GT, img_LQ, GT_path = cache[self.rng.randrange(len(cache))]
+            img_GT, img_LQ = util.augment([img_GT, img_LQ], self.opt.get("use_flip", True),
+                                          self.opt.get("use_rot", True), rng=self.rng)
+        else:
+            img_GT, img_LQ, GT_path = self._synthesize(index)
+            if self.lq_cache_size > 0:
+                entry = (img_GT, img_LQ, GT_path)
+                if len(cache) >= self.lq_cache_size:
+                    cache[self.rng.randrange(len(cache))] = entry
+                else:
+                    cache.append(entry)
+        out = _finalize(img_GT, img_LQ, clip_size)
+        out["GT_path"] = GT_path
+        return out
 
 
 class LQGTDataset:

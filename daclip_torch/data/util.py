@@ -91,14 +91,17 @@ def _read_img_lmdb(env, key: str, size) -> np.ndarray:
     return np.frombuffer(buf, dtype=np.uint8).reshape(H, W, C)
 
 
-def _cv2(what: str):
+_PNG_HINT = ("; daclip_torch decodes and encodes PNG itself: convert the images to PNG, or "
+             "pack them into an LMDB with daclip_torch.tools.create_lmdb on a host that has cv2")
+
+
+def _cv2(what: str, hint: str = ""):
+    """cv2, imported here; without it an ImportError that names `what`."""
     try:
         import cv2
     except ImportError as e:
-        raise ImportError(
-            f"{what} needs cv2 (opencv-python), which is not installed; daclip_torch "
-            "decodes and encodes PNG itself: convert the images to PNG, or pack them "
-            "into an LMDB with daclip_torch.tools.create_lmdb on a host that has cv2") from e
+        raise ImportError(f"{what} needs cv2 (opencv-python), which is not installed"
+                          + hint) from e
     return cv2
 
 
@@ -109,7 +112,7 @@ def imread(path: str) -> np.ndarray:
         data = f.read()
     if png.is_png(data):
         return png.decode(data, path)
-    cv2 = _cv2(f"reading {path!r} (not a PNG file)")
+    cv2 = _cv2(f"reading {path!r} (not a PNG file)", _PNG_HINT)
     img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
     if img is None:
         raise ValueError(f"cv2 cannot decode {path!r}")
@@ -187,7 +190,7 @@ def save_img(img: np.ndarray, img_path: str):
     if img_path.lower().endswith(".png"):
         png.write(img_path, img)
         return
-    if not _cv2(f"writing {img_path!r} (not a .png path)").imwrite(img_path, img):
+    if not _cv2(f"writing {img_path!r} (not a .png path)", _PNG_HINT).imwrite(img_path, img):
         raise OSError(f"cv2 could not write {img_path!r}")
 
 

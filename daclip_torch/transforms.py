@@ -1,6 +1,9 @@
-"""CLIP's image transforms, in numpy, without PIL or cv2.
+"""CLIP's image transforms, in numpy, without PIL (and cv2 only in the
+opt-in cv2 view's calls).
 
-Counterpart of `daclip_tpu/transforms.py`'s PIL path:
+Counterpart of `daclip_tpu/transforms.py`: its PIL path, which the
+reference's torchvision transforms give, and its cv2 path
+(`image_transform(backend="cv2")`, `--fast-clip-view`). The PIL path:
   * `clip_transform` (predict.py:94-106; open_clip/transform.py:124-133):
     [0,1] float RGB → uint8 → resize the shorter side to `resolution` with
     PIL's antialiased bicubic filter → center crop → normalise with the
@@ -248,15 +251,24 @@ def _random_resized_crop(img: np.ndarray, size: int, scale=(0.9, 1.0), ratio=(3 
 def image_transform(image_size=224, is_train: bool = False,
                     mean: Optional[Sequence[float]] = None,
                     std: Optional[Sequence[float]] = None,
-                    rng: Optional[random.Random] = None):
+                    rng: Optional[random.Random] = None, backend: str = "pil"):
     """fn(image) → normalised (size, size, 3) float32 HWC, for a uint8 RGB
     or [0,1] float RGB HWC image or a `DecodedImage`: the train transform (random resized crop,
     its draws from `rng`, the `random` module's stream when None, as
-    daclip_tpu's) or the val transform (`clip_transform`)."""
+    daclip_tpu's) or the val transform (`clip_transform`).
+
+    backend "pil" gives PIL's bytes, as the reference's torchvision path
+    does. "cv2" is daclip_tpu's opt-in fast path (`--fast-clip-view`): the
+    same geometry and draws, resized by cv2 (INTER_AREA down, INTER_CUBIC
+    up), so not PIL's bytes; cv2 is imported in the call."""
     mean = tuple(mean or OPENAI_DATASET_MEAN)
     std = tuple(std or OPENAI_DATASET_STD)
     if isinstance(image_size, (tuple, list)):
         image_size = image_size[0]
+    if backend == "cv2":
+        return _cv2_transform(image_size, is_train, mean, std, rng)
+    if backend != "pil":
+        raise ValueError(f"backend must be 'pil' or 'cv2', got {backend!r}")
 
     def train_fn(img):
         img = img.rgb if isinstance(img, DecodedImage) else _to_uint8(img)
@@ -264,5 +276,61 @@ def image_transform(image_size=224, is_train: bool = False,
 
     def val_fn(img):
         return clip_transform(img, image_size, mean, std)
+
+    return train_fn if is_train else val_fn
+
+
+def _cv2_input(img) -> np.ndarray:
+    """uint8 HWC RGB of any input the cv2 view takes, as daclip_tpu's
+    `_to_u8rgb` gives it (a 2-D array as one gray channel)."""
+    if isinstance(img, DecodedImage):
+        return img.rgb
+    arr = np.asarray(img)
+    return _to_uint8(arr[:, :, None] if arr.ndim == 2 else arr)
+
+
+def _cv2_resize(arr: np.ndarray, w: int, h: int) -> np.ndarray:
+    from daclip_torch.data.util import _cv2
+
+    cv2 = _cv2("the cv2 CLIP view")
+    shrinking = w * h < arr.shape[0] * arr.shape[1]
+    return cv2.resize(arr, (w, h), interpolation=cv2.INTER_AREA if shrinking
+                      else cv2.INTER_CUBIC)
+
+
+def _cv2_transform(size: int, is_train: bool, mean, std, rng: Optional[random.Random]):
+    """daclip_tpu/transforms.py:181-222: shorter side to `size` and a center
+    crop (no padding), or torchvision's RandomResizedCrop draws with the box
+    cropped and then resized (the val view when no draw fits)."""
+    def val_fn(img):
+        arr = _cv2_input(img)
+        h, w = arr.shape[:2]
+        if w <= h:
+            nw, nh = size, max(1, int(round(size * h / w)))
+        else:
+            nw, nh = max(1, int(round(size * w / h))), size
+        arr = _cv2_resize(arr, nw, nh)
+        h, w = arr.shape[:2]
+        top = int(round((h - size) / 2.0))
+        left = int(round((w - size) / 2.0))
+        return _normalize(arr[top:top + size, left:left + size], mean, std)
+
+    def train_fn(img):
+        arr = _cv2_input(img)
+        h, w = arr.shape[:2]
+        r = rng or random
+        area = w * h
+        log_ratio = (math.log(3 / 4), math.log(4 / 3))
+        for _ in range(10):
+            target_area = area * r.uniform(0.9, 1.0)
+            aspect = math.exp(r.uniform(log_ratio[0], log_ratio[1]))
+            cw = int(round(math.sqrt(target_area * aspect)))
+            ch = int(round(math.sqrt(target_area / aspect)))
+            if 0 < cw <= w and 0 < ch <= h:
+                left = r.randint(0, w - cw)
+                top = r.randint(0, h - ch)
+                crop = arr[top:top + ch, left:left + cw]
+                return _normalize(_cv2_resize(crop, size, size), mean, std)
+        return val_fn(arr)
 
     return train_fn if is_train else val_fn

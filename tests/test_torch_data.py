@@ -1,7 +1,8 @@
 """daclip_torch's restoration data layer against daclip_tpu's on the CPU: the
 PNG codec against cv2, image IO and augmentation, LMDB both ways,
-create_lmdb, the noise degradations, the datasets over two epochs of the
-sampler, the loader's batches, and the context cache on a tiny DA-CLIP."""
+create_lmdb, the noise degradations, the datasets (MDGT's on-the-fly
+degradations included) over two epochs of the sampler, the loader's
+batches, and the context cache on a tiny DA-CLIP."""
 import os
 import random
 import struct
@@ -328,6 +329,8 @@ def _dataset_opts(root):
     lqgt = dict(mode="LQGT", dataroot_GT=str(root / "lqgt" / "GT"),
                 dataroot_LQ=str(root / "lqgt" / "LQ"), patch_size=16, data_type="img",
                 clip_size=32, seed=6)
+    mdgt = dict(mode="MDGT", dataroot_GT=str(root / "lqgt" / "GT"), patch_size=16,
+                color="RGB", clip_size=32, seed=8)
     lmdb = dict(lqgt, dataroot_GT=str(root / "lmdb" / "GT"),
                 dataroot_LQ=str(root / "lmdb" / "LQ"), data_type="lmdb")
     return {"MD_train": dict(md, phase="train"), "MD_val": dict(md, phase="val"),
@@ -336,7 +339,8 @@ def _dataset_opts(root):
             "LQGT_lmdb_test": dict(lmdb, phase="test"),
             "LQ": dict(mode="LQ", dataroot_LQ=str(root / "lqgt" / "LQ"), clip_size=32),
             "GT_train": dict(mode="GT", dataroot_GT=str(root / "lqgt" / "GT"), phase="train",
-                             patch_size=16, sigma=15, clip_size=32, seed=7)}
+                             patch_size=16, sigma=15, clip_size=32, seed=7),
+            "MDGT_train": dict(mdgt, phase="train"), "MDGT_val": dict(mdgt, phase="val")}
 
 
 def _assert_samples_equal(s, j):
@@ -351,7 +355,8 @@ def _assert_samples_equal(s, j):
 
 
 @pytest.mark.parametrize("case", ["MD_train", "MD_val", "LQGT_train", "LQGT_test",
-                                  "LQGT_lmdb_train", "LQGT_lmdb_test", "LQ", "GT_train"])
+                                  "LQGT_lmdb_train", "LQGT_lmdb_test", "LQ", "GT_train",
+                                  "MDGT_train", "MDGT_val"])
 def test_dataset_samples_equal_jax_over_two_epochs(trees, case):
     opt = _dataset_opts(trees)[case]
     ours, ref = tds.create_dataset(dict(opt)), jds.create_dataset(dict(opt))
@@ -399,9 +404,19 @@ def test_to_device_gives_nchw():
     assert set(tloader.to_device(batch, "cpu", keys=("LQ",))) == {"LQ"}
 
 
-def test_mdgt_raises_not_implemented(trees):
-    with pytest.raises(NotImplementedError, match="degradations"):
-        tds.create_dataset({"mode": "MDGT", "dataroot_GT": str(trees / "lqgt" / "GT")})
+def test_mdgt_loader_batches_equal_jax_and_an_unknown_mode_raises(trees):
+    """MDGT through the loader at 0 workers (its degradations draw from the
+    dataset's one Random), against daclip_tpu's batches."""
+    opt = dict(_dataset_opts(trees)["MDGT_train"], lq_cache=2)
+    ours = tloader.DataLoader(tds.create_dataset(dict(opt)), batch_size=2,
+                              sampler=tloader.IterSampler(3, ratio=2), num_workers=0)
+    ref = jloader.DataLoader(jds.create_dataset(dict(opt)), batch_size=2,
+                             sampler=jloader.IterSampler(3, ratio=2), num_workers=0)
+    for epoch in range(2):
+        ours.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        for b, jb in zip(ours, ref):
+            _assert_samples_equal(b, jb)
     with pytest.raises(NotImplementedError, match="not recognized"):
         tds.create_dataset({"mode": "XY"})
 

@@ -178,17 +178,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'daclip_torch.eval.imagenet_zero_shot', 'daclip_torch.eval.plots',\n"
         "        'daclip_torch.tools.encode_folder', 'daclip_torch.tools.inspect_checkpoint',\n"
         "        'daclip_torch.tools.visualize', 'daclip_torch.utils.lpips',\n"
-        "        'daclip_torch.utils.profile', 'daclip_torch.utils.stage_profile']\n"
+        "        'daclip_torch.utils.profile', 'daclip_torch.utils.stage_profile',\n"
+        "        'daclip_torch.data.degradations', 'daclip_torch.tools.generate_lq',\n"
+        "        'daclip_torch.tools.generate_masked']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "# imported only inside calls: the card's machine is not known to have them\n"
         "absent = [m for m in sys.modules if m.split('.')[0] in ('regex', 'cv2', 'PIL', 'ftfy',\n"
-        "                                                        'matplotlib', 'sklearn')]\n"
+        "                                                        'matplotlib', 'sklearn',\n"
+        "                                                        'scipy')]\n"
         "assert not absent, absent\n"
         "print(len([m for m in sys.modules if m.startswith('daclip_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 66
+    assert int(res.stdout.strip()) >= 68
 
 
 # -- a restore without DA-CLIP, as daclip_tpu's `load` serves it ------------------

@@ -4,7 +4,8 @@ resize), `CsvDataset` / `SyntheticDataset` samples over seeded PNG trees of
 every 8-bit layout, the factory from a plain CLIP and a full DaCLIP `.pt`,
 `eval.retrieval.evaluate`, the CLI's first batches, and `cli.train_daclip`
 itself on `daclip_test-tiny`: two epochs, a resume to three, validation,
-checkpoints that `DACLIPRestorer.load` takes, and each refused flag."""
+checkpoints that `DACLIPRestorer.load` takes, and each refused flag; the
+cv2 view of `--fast-clip-view` and its batches."""
 import json
 import os
 import random
@@ -103,6 +104,29 @@ def test_train_transform_bytes_equal_jax(shape, size):
         np.testing.assert_array_equal(ours(img), ref(Image.fromarray(img)))
     val = ttf.image_transform(size, is_train=False)(img)
     np.testing.assert_array_equal(val, jtf.image_transform(size)(Image.fromarray(img)))
+
+
+@pytest.mark.parametrize("shape,size", [((70, 90), 32), ((61, 45), 48), ((100, 12), 32),
+                                        ((40, 40), 64), ((224, 288), 224)])
+def test_cv2_views_bytes_equal_jax(shape, size):
+    """The cv2 backend (`--fast-clip-view`): the same crop draws, cv2's area
+    and bicubic resizes, on uint8, [0, 1] float and one-channel inputs."""
+    rng = np.random.RandomState(sum(shape) + 1)
+    u8 = (rng.rand(*shape, 3) * 255).astype(np.uint8)
+    for img in (u8, rng.rand(*shape, 3).astype(np.float32), u8[:, :, :1], u8[:, :, 0]):
+        ours = ttf.image_transform(size, is_train=True, rng=random.Random(5), backend="cv2")
+        ref = jtf.image_transform(size, is_train=True, seed=5, backend="cv2")
+        for _ in range(3):
+            got = ours(img)
+            assert got.shape == (size, size, 3) and got.dtype == np.float32
+            np.testing.assert_array_equal(got, ref(img))
+        np.testing.assert_array_equal(ttf.image_transform(size, backend="cv2")(img),
+                                      jtf.image_transform(size, backend="cv2")(img))
+    decoded = ttf.DecodedImage(u8, None, "RGB")
+    np.testing.assert_array_equal(ttf.image_transform(size, backend="cv2")(decoded),
+                                  jtf.image_transform(size, backend="cv2")(Image.fromarray(u8)))
+    with pytest.raises(ValueError, match="backend"):
+        ttf.image_transform(size, backend="pillow")
 
 
 def test_box_resize_is_not_crop_then_resize():
@@ -421,11 +445,41 @@ def test_cli_first_batches_equal_jax_loader(tmp_path):
     assert batch["images"].shape == (4, 3, 32, 32) and batch["texts"].shape == (4, 2 * L)
 
 
+def test_cli_fast_clip_view_first_batches_equal_jax_loader(tmp_path):
+    """`--fast-clip-view`: the train set decodes with cv2 and takes the cv2
+    view, as daclip_tpu's CLI builds it (its view draws from the global
+    `random`, seeded here); the val set keeps the PIL path."""
+    root = str(tmp_path)
+    train, val = _cli_tree(root)
+    args = tparams.parse_args(_argv(root, train, val, 1, "--fast-clip-view"))
+    _, pp_train, pp_val = tfactory.create_model_and_transforms(
+        NAME, seed=args.seed, rng=random.Random(args.seed))
+    size = get_model_config(NAME)["vision_cfg"]["image_size"]
+    loader, _, val_ds = tcli.build_data(args, pp_train, pp_val,
+                                        partial(ttokenize, context_length=L), size)
+    assert loader.dataset.decode == "cv2" and val_ds.decode == "pil"
+    jds = jdata.CsvDataset(train, jtf.image_transform(size, is_train=True, backend="cv2"),
+                           tokenizer=partial(jtokenize, context_length=L), da=True, crop=True,
+                           seed=args.seed, decode="cv2")
+    jl = jloader.DataLoader(jds, batch_size=4, shuffle=True, num_workers=0, seed=args.seed)
+    random.seed(args.seed)
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        jl.set_epoch(epoch)
+        for ours, ref in zip(loader, jl):
+            assert set(ours) == set(ref)
+            for k in ours:
+                np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+    plain = tcli.build_data(tparams.parse_args(_argv(root, train, val, 1)), pp_train, pp_val,
+                            partial(ttokenize, context_length=L), size)[0]
+    assert not np.array_equal(next(iter(plain))["images"], next(iter(loader))["images"])
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--mesh", "2"], "6"), (["--dataset-type", "webdataset"], "4"),
     (["--train-data", "shards/{000..009}.tar"], "4"), (["--remote-sync", "s3://x"], "4"),
     (["--imagenet-val", "/data/val"], "4"), (["--zeroshot-frequency", "1"], "4"),
-    (["--force-patch-dropout", "0.5"], "4"), (["--fast-clip-view"], "4"),
+    (["--force-patch-dropout", "0.5"], "4"),
     (["--report-to", "tensorboard,wandb"], "4")])
 def test_cli_refuses_flags_it_does_not_carry(tmp_path, monkeypatch, extra, item):
     def no_work(*a, **k):
