@@ -14,9 +14,12 @@ Phases, each printing JSON lines:
              against torch.logsumexp); the wrap and flash called twice (the
              bytes must repeat);
              times (median of CUDA-event timed calls after warm-up, and the
-             device time of the kernels alone from torch.profiler), the bound,
+             device time: CUDA events around ten calls queued behind a
+             torch.cuda._sleep that outlasts their enqueue, so the span holds
+             no host gap; torch.profiler only names the kernels), the bound,
              and for flash the one-call PyTorch yardstick
-             (scaled_dot_product_attention, timed here only, event and device)
+             (scaled_dot_product_attention, timed here only, event and device);
+             a device time at or under its bound fails the run
   2b kernels_alt  the kernels of the UNet's other wirings, each against its
              plain version: linear_attention_fused (v4), attn_wrap_fused (v3,
              with and without prenorm/residual) at the six sites on
@@ -70,6 +73,12 @@ Phases, each printing JSON lines:
              prompts' unit-norm features, the four images' probabilities,
              the predictor's outputs (of their max); and each bf16 text
              feature's cosine to its f32 one ≥ 0.99
+ 4e gradio   serve/gradio_app.build_app on the serve phase's restorer (gradio,
+             or a stand-in for the UI library alone where it does not
+             import): one 256² uint8 request through the app's handler, the
+             exact launches of #1 (600) and #2 (300), the degradation name
+             equal to classify_degradation's, a uint8 RGB image of the
+             input's shape
   5 profile  one sampler step (a UNet forward at 256²): wall time, device
              kernel time by name, by the port's kernel namespaces and that of
              the 3×3 convs (torch.profiler)
@@ -102,9 +111,9 @@ Phases, each printing JSON lines:
              production options (configs/daclip-sde/train.yml, distortion cut
              to the tree's two types) on seeded PNG folders (2 × 8 pairs at
              288 × 320, half with Up rows and half with Paeth; 2 val pairs at
-             256 × 272) with a seeded ViT-B-32 DA-CLIP .pt: 2 steps with
-             validation (2 images, 10 sampler steps) and checkpoints every 2,
-             a resume to 4, the exact launches of kernels #1-#4 (steps and
+             256 × 272) with a seeded ViT-B-32 DA-CLIP .pt: 1 step with
+             validation (2 images, 10 sampler steps) and a checkpoint, a
+             resume to 2, the exact launches of kernels #1-#4 (steps and
              validation), the step function timed by a hook; before it, PNG
              decode ms per row filter and the DataLoader's samples/s alone at
              0 and 8 workers; after it, `cli.test_restoration
@@ -146,10 +155,16 @@ Phases, each printing JSON lines:
              2 × 256 and one f32 step at B = 8 on the card against the same
              on the CPU (loss and parameters within 1e-4 of their max); no
              hand kernel launched
+12b patch_dropout  train_daclip's step with --force-patch-dropout 0.5 (the
+             same seeded model and batch): each tower's ln_pre sees 1 + 24
+             tokens in training and 1 + 49 without; the step's ms, samples/s
+             and peak memory beside train_daclip's; then the f32 step at B = 8
+             on the card against the CPU with one patch noise (the same
+             limits); no hand kernel launched
 13 train_daclip_cli  `cli.train_daclip.main` in process on a seeded CSV of 24
              LQ/GT PNG pairs (224-288 px sides, half Up and half Paeth rows)
              and a val CSV of 8: --da, daclip_ViT-B-32, --precision amp,
-             batch 8, 4 workers, 2 epochs, then --resume latest to 3; the
+             batch 8, 4 workers, 1 epoch, then --resume latest to 2; the
              loader's samples/s alone, the step by a hook on the trainer's
              `make_train_step`; the epochs' checkpoints, best/, finite val
              metrics, and the last checkpoint through DACLIPRestorer.load
@@ -159,6 +174,18 @@ Phases, each printing JSON lines:
              then fast_clip_view: the loader alone with `--fast-clip-view`'s
              cv2 decode and view beside the PIL path's, and one epoch of the
              CLI with it (no val set), no hand kernel launched
+13b train_daclip_wds  `cli.train_daclip.main` on a plain ViT-B-32 (bf16) over
+             4 seeded tar shards of Up-filtered PNG + txt (32 samples), B = 8,
+             --force-patch-dropout 0.5, ImageNet zero-shot every epoch on a
+             seeded 4-class tree, --remote-sync to a local path by fsspec, 2
+             epochs; then the local checkpoints deleted and --resume latest
+             to 3, which fetches them from the remote (the step counter and
+             AdamW's moments go on); its weights a registry tag, a seeded .pt
+             in a cache dir under a URL that names its sha256, loaded through
+             download_pretrained_from_url and the factory while urlopen
+             refuses any call; the loader's samples/s alone, the step by a
+             hook, step to step; the zero-shot rows, the remote mirroring the
+             log dir; no hand kernel launched
 14 eval     the eval CLIs and tools at full width on a seeded daclip_ViT-B-32
              with the level predictor, saved as a port .pt and as a
              daclip_tpu .npz, over a seeded tree of 4 classes × 16 LQ PNGs
@@ -361,26 +388,80 @@ def time_ms(fn, iters=20, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(fn, match, iters=10):
-    """Device time per call of `fn` of the kernels whose name holds `match`
-    (torch.profiler, after one warm-up call). Unlike `time_ms`, which times
-    a call between two CUDA events, it leaves out the wrapper's host time,
-    which a small kernel can take less than."""
+_SLEEP_CYCLES_PER_MS = []
+
+
+def sleep_cycles_per_ms():
+    """The device clock cycles `torch.cuda._sleep` spins a millisecond,
+    timed once by CUDA events."""
+    if not _SLEEP_CYCLES_PER_MS:
+        torch.cuda._sleep(1000)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def kernel_names(fn, iters=10):
+    """The names of the device kernels that `iters` calls of `fn` launch
+    (torch.profiler); a window that records none is taken again, twice at
+    most (a window can keep none of its kernels, and a window of one call
+    often records none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a profile that records none of the kernels is taken again
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and match in e.name)
-        if us:
-            return us / iters / 1e3
-    return None
+        names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+        if names:
+            return names
+    return []
+
+
+def device_ms(fn, match, iters=10):
+    """Device time per call of `fn`: CUDA events around `iters` calls queued
+    behind a `torch.cuda._sleep` that outlasts the host's enqueue of them
+    all, so that the span holds the calls' device work back to back and no
+    host gap. Unlike `time_ms`, which times each call between two events,
+    it leaves out the wrapper's host time, which a small kernel can take
+    less than. torch.profiler only names the kernels: the calls must launch
+    one whose name holds `match`. Fails if the device reached the calls
+    before the host had queued them all."""
+    fn()
+    torch.cuda.synchronize()
+    names = kernel_names(fn, iters)
+    check(any(match in n for n in names), f"no kernel named {match!r} among {names}")
+    t0 = time.perf_counter()
+    fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 * iters
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int((2.0 + 4.0 * enqueue_ms) * sleep_cycles_per_ms()))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    queued_first = not start.query()
+    end.synchronize()
+    check(queued_first, f"device_ms: the device reached the calls before the host had "
+          f"queued them ({names[:3]}, enqueue {enqueue_ms:.3f} ms)")
+    return start.elapsed_time(end) / iters
+
+
+def check_above_bounds(rows):
+    """A kernel's or its library call's device time at or under the row's
+    bound is a fault of the measurement: fail there."""
+    for r in rows:
+        for key in ("device_ms", "library_device_ms"):
+            if r.get(key) is not None and r.get("bound_ms") is not None:
+                check(r[key] > r["bound_ms"], f"{r['kernel']} {r['shape']} {r['dtype']}: "
+                      f"{key} {r[key]} at or under its bound {r['bound_ms']} ms")
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -1264,6 +1345,65 @@ def run_text(restorer, daclip_sd):
     check(float(cos.min()) >= TEXT_COS_MIN, f"bf16 text feature cosine {float(cos.min())}")
 
 
+def gradio_module():
+    """(gradio, what it is): the installed package, or a stand-in for the UI
+    library alone (Interface, Image, Text) where gradio does not import."""
+    import importlib
+    import types
+
+    try:
+        gr = importlib.import_module("gradio")
+        return gr, f"gradio {gr.__version__}"
+    except ImportError:
+        pass
+
+    class Interface:
+        def __init__(self, fn, inputs, outputs, title):
+            self.fn, self.inputs, self.outputs, self.title = fn, inputs, outputs, title
+
+    gr = types.ModuleType("gradio")
+    gr.Interface = Interface
+    gr.Image = lambda label: {"Image": label}
+    gr.Text = lambda label: {"Text": label}
+    return gr, "a stand-in (gradio does not import here)"
+
+
+def run_gradio(restorer):
+    """serve/gradio_app.build_app on the serve phase's full-width restorer
+    (ViT-B-32 DaCLIP, nf 64 UNet, bf16, T = 100): one 256² request through
+    the app's handler, with the exact launches of #1 (600) and #2 (300)."""
+    from daclip_torch.serve import gradio_app
+
+    gr, used = gradio_module()
+    saved = sys.modules.get("gradio")
+    sys.modules["gradio"] = gr
+    try:
+        app = gradio_app.build_app(restorer)
+    finally:
+        if saved is None:
+            sys.modules.pop("gradio")
+    handler = app.fn
+    img = (np.random.RandomState(61).rand(256, 256, 3) * 255).round().astype(np.uint8)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, name = handler(img)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v for k, v in read_counts().items() if v}
+    want_name = restorer.classify_degradation(img.astype(np.float32) / 255.0)[0]
+    steps = restorer.sde.sample_T
+    emit(phase="gradio", what="gradio_app.build_app's handler, one 256x256 uint8 request "
+         "(classify, then restore at T=100)", gradio=used, latency_ms=ms, degradation=name,
+         output_shape=list(out.shape), output_dtype=str(out.dtype), launches=counts)
+    check(counts == {"wrap": 6 * steps, "flash": 3 * steps},
+          f"gradio: launches {counts}, expected wrap {6 * steps}, flash {3 * steps}")
+    check(name == want_name, f"gradio named {name}, classify_degradation {want_name}")
+    check(out.shape == img.shape and out.dtype == np.uint8, f"gradio output {out.shape} "
+          f"{out.dtype}")
+    return {"wrap": counts["wrap"], "flash": counts["flash"]}
+
+
 def run_profile(restorer, forwards=5, wiring="v5"):
     """Where one sampler step's time goes: one ConditionalUNet forward at 256²,
     B=1, bf16 — host wall time unprofiled, then the device kernels that
@@ -1336,7 +1476,7 @@ def wgrad_yardstick(la, B, n, C, dtype, gen):
     """The weight-gradient launch alone at a wrap site, dW_qkv = xnᵀ·dqkv over
     the B·n rows (the larger of its two products), beside its one-call
     yardstick torch.matmul(xn.T, dqkv) on the same inputs (timed here only;
-    device ms from torch.profiler)."""
+    device ms by `device_ms`)."""
     from daclip_torch.ops import _build
 
     xn = torch.randn(B * n, C, generator=gen, device="cuda").to(dtype)
@@ -1715,9 +1855,10 @@ CLI_MD_SHAPE = (288, 320)      # (H, W) of the MD tree's images: H != W, both pa
 CLI_VAL_SHAPE = (256, 272)
 CLI_TEST_SHAPE = (256, 256)
 # depth cut from 12 steps and a resume to 16 (validation every 6), then to 2 and a
-# resume to 4 when the wild_ir phases came, to keep the script well inside its time
-# limit: the steps wait on the host's PNG decode (~37 s a step)
-CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ, CLI_VAL_T = 2, 4, 2, 10
+# resume to 4 when the wild_ir phases came, then to 1 and a resume to 2 (validation
+# every step) once a slower host took the script to 1103 s, to keep the script well
+# inside its time limit: the steps wait on the host's PNG decode (~37 s a step)
+CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ, CLI_VAL_T = 1, 2, 1, 10
 
 
 def write_md_tree(root, types, pairs, shape, seed):
@@ -1909,7 +2050,8 @@ def run_train_cli(train_step_ms, lpips_weights):
     # the wait for the loader and, after every CLI_VAL_FREQ-th step, validation
     # and a save
     gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
-            if b["step"] == a["step"] + 1]
+            if b["step"] == a["step"] + 1 and b["step"] != CLI_STEPS]
+    gap_ms = float(np.median(gaps)) if gaps else None   # none at one step a run
     B = opt["datasets"]["train"]["batch_size"]
     row = dict(phase="train_cli", what=f"cli.train_restoration -opt train.yml ({CLI_STEPS} steps, "
                f"resume to {CLI_RESUME_STEPS}), then cli.test_restoration over an LMDB at "
@@ -1925,8 +2067,8 @@ def run_train_cli(train_step_ms, lpips_weights):
                checkpoints=ckpts, ms_per_step=step_ms,
                median_ms_per_step=float(np.median(step_ms)),
                samples_per_s=B * 1e3 / float(np.median(step_ms)),
-               median_ms_step_to_step=float(np.median(gaps)),
-               samples_per_s_step_to_step=B * 1e3 / float(np.median(gaps)),
+               median_ms_step_to_step=gap_ms,
+               samples_per_s_step_to_step=gap_ms and B * 1e3 / gap_ms,
                train_phase_median_ms_per_step=train_step_ms,
                over_train_phase=float(np.median(step_ms)) / train_step_ms,
                loader_samples_per_s=loader, png_decode_ms_320x288=decode_ms,
@@ -2500,10 +2642,11 @@ def clip_batch(B, seed, device, res=224, L=77):
             "gt_val": torch.from_numpy(gt_val).to(device)}
 
 
-def daclip_model(dtype_name, device, sd):
+def daclip_model(dtype_name, device, sd, patch_dropout=None):
     from daclip_torch.factory import create_model
 
-    model = create_model(DACLIP_MODEL, precision=dtype_name, use_predictor=True)
+    model = create_model(DACLIP_MODEL, precision=dtype_name, use_predictor=True,
+                         force_patch_dropout=patch_dropout)
     model.load_state_dict(sd, strict=True)
     return model.to(device)
 
@@ -2609,15 +2752,18 @@ def run_train_daclip(steps=5, warmup=2):
           f"(worst {f32['update_worst']})")
     counts = read_counts()
     check(not any(counts.values()), f"train_daclip launched hand kernels: {counts}")
-    return step_ms
+    return dict(step_ms=step_ms, samples_per_s=DACLIP_B * 1e3 / step_ms, peak=peak, sd=sd,
+                banks=banks, shape=shape, cfg=cfg)
 
 
 
-def daclip_f32_step(cfg, sd, banks, shape):
+def daclip_f32_step(cfg, sd, banks, shape, patch_dropout=None):
     """One f32 step (TF32 off) from the seeded weights on a seeded B = 8
     batch, on the card and on the CPU: the loss, the trainable parameters
     and the update (p_after - p_before), card against CPU, each as a share
     of its max. A card step that changed nothing reads an update error of 1.
+    With `patch_dropout` (and `cfg.patch_dropout`), both devices take the
+    same patch noise: the i-th draw is drawn on the CPU from seed i.
 
     The step runs at lr 1e-3 and Adam eps 1e-3, as the CPU tests do. The
     key projection's bias has a gradient that is 0 up to rounding; at eps
@@ -2627,17 +2773,31 @@ def daclip_f32_step(cfg, sd, banks, shape):
     gradients' different sums on the two devices add the rest."""
     from daclip_torch.train.clip_train import init_state, make_train_step
 
+    import itertools
+
+    from daclip_torch.models.transformer import VisionTransformer
+
     f32 = dataclasses.replace(cfg, lr=1e-3, eps=1e-3, warmup=1)  # the first step at full lr
     small = clip_batch(DACLIP_F32_B, seed=33, device="cpu", **shape)
     out = {}
-    for device in ("cuda", "cpu"):
-        model = daclip_model("fp32", device, {k: v.to(device) for k, v in sd.items()})
-        state = init_state(model, f32, device=device)
-        _, m = make_train_step(model, f32, banks, device=device)(
-            state, {k: v.to(device) for k, v in small.items()})
-        out[device] = (float(m["total_loss"]),
-                       {n: p.detach().float().cpu() for n, p in state.params})
-        del model, state
+    real_noise = VisionTransformer.patch_dropout_noise
+    try:
+        for device in ("cuda", "cpu"):
+            seeds = itertools.count()
+            VisionTransformer.patch_dropout_noise = lambda self, size, dev, generator=None: (
+                torch.randn(size, generator=torch.Generator().manual_seed(next(seeds))).to(dev))
+            model = daclip_model("fp32", device, {k: v.to(device) for k, v in sd.items()},
+                                 patch_dropout)
+            state = init_state(model, f32, device=device)
+            _, m = make_train_step(model, f32, banks, device=device)(
+                state, {k: v.to(device) for k, v in small.items()})
+            out[device] = (float(m["total_loss"]),
+                           {n: p.detach().float().cpu() for n, p in state.params}, next(seeds))
+            del model, state
+    finally:
+        VisionTransformer.patch_dropout_noise = real_noise
+    check(out["cuda"][2] == out["cpu"][2] == (3 if patch_dropout else 0),
+          f"patch noise draws: card {out['cuda'][2]}, CPU {out['cpu'][2]}")
     card, cpu = out["cuda"][1], out["cpu"][1]
     update = {n: (card[n] - sd[n].float().cpu(), p - sd[n].float().cpu())
               for n, p in cpu.items()}
@@ -2656,6 +2816,8 @@ def daclip_f32_step(cfg, sd, banks, shape):
 CLIP_TREE = (24, 8)            # train and val LQ/GT pairs
 CLIP_SIDES = (224, 288)        # image sides, drawn per image
 CLIP_CLI_B, CLIP_CLI_WORKERS = 8, 4
+# 1 epoch and a resume to 2 (2 and 3 before, cut for the script's time)
+CLIP_CLI_EPOCHS = 1
 
 
 def write_clip_tree(root, pairs, seed):
@@ -2687,10 +2849,35 @@ def write_clip_tree(root, pairs, seed):
     return str(root / "data.csv")
 
 
+def timed_steps(make_step, records):
+    """`make_step` whose steps append {step, start, ms} to `records`: each
+    step timed on the host clock between two synchronizes."""
+    def timed_make(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = state.step
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            records.append(dict(step=before, start=t0, ms=(time.perf_counter() - t0) * 1e3))
+            return out
+
+        return timed
+
+    return timed_make
+
+
+def step_to_step_ms(records):
+    return [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
+            if b["step"] == a["step"] + 1]
+
+
 def run_train_daclip_cli(train_daclip_ms):
     """`daclip_torch.cli.train_daclip.main` in process: --da, daclip_ViT-B-32,
     --precision amp, seeded weights, a seeded CSV of 24 LQ/GT PNG pairs and a
-    val CSV of 8, batch 8, 4 workers, 2 epochs, then --resume latest to 3;
+    val CSV of 8, batch 8, 4 workers, 1 epoch, then --resume latest to 2;
     the step timed by a hook on the trainer's `make_train_step`; the
     loader's samples/s alone before; the last checkpoint through
     DACLIPRestorer.load with a seeded production UNet, which classifies."""
@@ -2714,20 +2901,7 @@ def run_train_daclip_cli(train_daclip_ms):
     torch.cuda.empty_cache()
     records = []
     real_make = clip_train.make_train_step
-
-    def timed_make(*args, **kw):
-        step = real_make(*args, **kw)
-
-        def timed(state, batch):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            before = state.step
-            out = step(state, batch)
-            torch.cuda.synchronize()
-            records.append(dict(step=before, start=t0, ms=(time.perf_counter() - t0) * 1e3))
-            return out
-
-        return timed
+    timed_make = timed_steps(real_make, records)
 
     with tempfile.TemporaryDirectory() as d:
         root = pathlib.Path(d)
@@ -2757,9 +2931,10 @@ def run_train_daclip_cli(train_daclip_ms):
         clip_train.make_train_step = timed_make
         t0 = time.perf_counter()
         try:
-            first = cli.main(argv + ["--epochs", "2"])
+            first = cli.main(argv + ["--epochs", str(CLIP_CLI_EPOCHS)])
             n_first = len(records)
-            second = cli.main(argv + ["--epochs", "3", "--resume", "latest"])
+            second = cli.main(argv + ["--epochs", str(CLIP_CLI_EPOCHS + 1), "--resume",
+                                      "latest"])
         finally:
             clip_train.make_train_step = real_make
         torch.cuda.synchronize()
@@ -2771,10 +2946,11 @@ def run_train_daclip_cli(train_daclip_ms):
         rows = [json_mod.loads(x) for x in
                 (root / "logs" / "cli" / "results.jsonl").read_text().splitlines()]
         val_rows = [r for r in rows if "val/image_to_text_R@1" in r]
-        last = torch.load(ckpt.checkpoint_path(str(ckpt_dir), 3, ckpt.EPOCH), map_location="cpu",
+        last = torch.load(ckpt.checkpoint_path(str(ckpt_dir), CLIP_CLI_EPOCHS + 1, ckpt.EPOCH),
+                          map_location="cpu",
                           weights_only=False)
         restorer = DACLIPRestorer.load(str(unet_pth), ckpt.checkpoint_path(
-            str(ckpt_dir), 3, ckpt.EPOCH), RestorerConfig(model_name=DACLIP_MODEL, linear_attention="v5",
+            str(ckpt_dir), CLIP_CLI_EPOCHS + 1, ckpt.EPOCH), RestorerConfig(model_name=DACLIP_MODEL, linear_attention="v5",
                                 pointwise=False), device="cuda")
         name, probs = restorer.classify_degradation(
             np.random.RandomState(43).rand(256, 256, 3).astype(np.float32))
@@ -2819,10 +2995,9 @@ def run_train_daclip_cli(train_daclip_ms):
     check(not any(fast_counts.values()), f"--fast-clip-view launched hand kernels: "
           f"{fast_counts}")
     step_ms = [r["ms"] for r in records]
-    gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
-            if b["step"] == a["step"] + 1]
-    emit(phase="train_daclip_cli", what="cli.train_daclip.main: 2 epochs, then --resume "
-         "latest to 3, val every epoch",
+    gaps = step_to_step_ms(records)
+    emit(phase="train_daclip_cli", what=f"cli.train_daclip.main: {CLIP_CLI_EPOCHS} epoch, then "
+         f"--resume latest to {CLIP_CLI_EPOCHS + 1}, val every epoch",
          config=dict(model=DACLIP_MODEL, precision="amp", B=CLIP_CLI_B,
                      workers=CLIP_CLI_WORKERS, train_pairs=CLIP_TREE[0],
                      val_pairs=CLIP_TREE[1], sides=list(CLIP_SIDES),
@@ -2839,11 +3014,13 @@ def run_train_daclip_cli(train_daclip_ms):
          checkpoints=epochs, best=best, last_step=last["step"], val_rows=val_rows,
          classified=name, top_probability=max(probs.values()), launches=counts)
     steps_per_epoch = CLIP_TREE[0] // CLIP_CLI_B
-    check(epochs == [1, 2, 3] and len(best) == 1, f"checkpoints {epochs}, best {best}")
-    check(last["step"] == 3 * steps_per_epoch and len(records) == 3 * steps_per_epoch
-          and records[n_first]["step"] == 2 * steps_per_epoch,
+    total = CLIP_CLI_EPOCHS + 1
+    check(epochs == list(range(1, total + 1)) and len(best) == 1,
+          f"checkpoints {epochs}, best {best}")
+    check(last["step"] == total * steps_per_epoch and len(records) == total * steps_per_epoch
+          and records[n_first]["step"] == CLIP_CLI_EPOCHS * steps_per_epoch,
           f"train_daclip_cli ran steps {[r['step'] for r in records]}")
-    check(len(val_rows) == 3 and all(np.isfinite(list(r.values())).all() for r in val_rows),
+    check(len(val_rows) == total and all(np.isfinite(list(r.values())).all() for r in val_rows),
           "train_daclip_cli: val metrics missing or not finite")
     check(np.isfinite([first["best_loss"], second["best_loss"]]).all(),
           "train_daclip_cli: a train loss is not finite")
@@ -2851,6 +3028,295 @@ def run_train_daclip_cli(train_daclip_ms):
     check(not any(counts.values()) and not any(counts_after.values()),
           f"train_daclip_cli launched hand kernels: {counts} / {counts_after}")
     return inspected
+
+
+# -- phase 13b -----------------------------------------------------------------
+PATCH_DROPOUT = 0.5
+
+
+def run_patch_dropout(base, steps=5, warmup=2):
+    """train_daclip's step with --force-patch-dropout 0.5: the same seeded
+    daclip_ViT-B-32 with the predictor, bf16, B = 512, the same batch; the
+    tokens each tower's ln_pre sees with and without `train`; the step's ms,
+    samples/s and peak memory beside train_daclip's (`base`); then the f32
+    step at B = 8 with one patch noise on the card and the CPU."""
+    import gc
+
+    from daclip_torch.train.clip_train import init_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    cfg = dataclasses.replace(base["cfg"], patch_dropout=True)
+    model = daclip_model("amp", "cuda", base["sd"], PATCH_DROPOUT)
+    state = init_state(model, cfg, device="cuda")
+    step_fn = make_train_step(model, cfg, base["banks"], device="cuda")
+    batch = clip_batch(DACLIP_B, seed=32, device="cuda", **base["shape"])
+    grid = (base["shape"]["res"] // model.cfg.vision.patch_size) ** 2
+    tokens = {"visual_control": [], "visual": []}
+    hooks = [getattr(model, name).ln_pre.register_forward_hook(
+        lambda m, i, o, name=name: tokens[name].append(int(o.shape[1]))) for name in tokens]
+    step_fn(state, batch)
+    dropped = {k: list(v) for k, v in tokens.items()}
+    for v in tokens.values():
+        v.clear()
+    with torch.no_grad():
+        model.encode_image(batch["images"][:2], control=True)
+    kept_all = {k: list(v) for k, v in tokens.items()}
+    for h in hooks:
+        h.remove()
+    for _ in range(warmup - 1):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(ms))
+    counts = read_counts()
+    keep = max(1, int(grid * (1 - PATCH_DROPOUT)))
+    emit(phase="patch_dropout", what=f"train_daclip's step with --force-patch-dropout "
+         f"{PATCH_DROPOUT} ({warmup} warm-up, {steps} timed steps, host clock to a "
+         "synchronize), beside train_daclip's step in this run",
+         config=dict(model=DACLIP_MODEL, B=DACLIP_B, precision="amp",
+                     patch_dropout=PATCH_DROPOUT),
+         ln_pre_tokens_train=dropped, ln_pre_tokens_eval=kept_all, ms_per_step=ms,
+         median_ms_per_step=step_ms, samples_per_s=DACLIP_B * 1e3 / step_ms,
+         max_memory_allocated=peak, no_dropout_median_ms_per_step=base["step_ms"],
+         no_dropout_samples_per_s=base["samples_per_s"],
+         no_dropout_max_memory_allocated=base["peak"], over_no_dropout=step_ms / base["step_ms"],
+         metrics=metrics, launches=counts)
+    # the controller once; the frozen tower for the images and the GT images
+    check(dropped == {"visual_control": [1 + keep], "visual": [1 + keep] * 2},
+          f"patch dropout: ln_pre saw {dropped}, expected 1 + {keep} tokens")
+    check(kept_all == {"visual_control": [1 + grid], "visual": [1 + grid]},
+          f"patch dropout: ln_pre without train saw {kept_all}, expected 1 + {grid}")
+    check(all(np.isfinite(list(m.values())).all() for m in metrics),
+          "patch_dropout: a loss term is not finite")
+    check(not any(counts.values()), f"patch_dropout launched hand kernels: {counts}")
+    del model, state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f32 = daclip_f32_step(cfg, base["sd"], base["banks"], base["shape"], PATCH_DROPOUT)
+    emit(phase="patch_dropout", what=f"one f32 step with patch dropout, card vs CPU on one "
+         f"patch noise, B={DACLIP_F32_B}", **f32, limit=DACLIP_F32_LIMIT,
+         update_limit=DACLIP_UPDATE_LIMIT)
+    check(f32["loss_rel_err"] <= DACLIP_F32_LIMIT,
+          f"patch_dropout f32 loss: card vs CPU {f32['loss_rel_err']}")
+    check(f32["params_err_of_max"] <= DACLIP_F32_LIMIT,
+          f"patch_dropout f32 params: {f32['params_err_of_max']} of their max")
+    check(f32["update_err_of_max"] <= DACLIP_UPDATE_LIMIT,
+          f"patch_dropout f32 update: {f32['update_err_of_max']} of its max "
+          f"(worst {f32['update_worst']})")
+    counts = read_counts()
+    check(not any(counts.values()), f"patch_dropout launched hand kernels: {counts}")
+
+
+# -- phase 13c -----------------------------------------------------------------
+WDS_MODEL = "ViT-B-32"         # webdataset refuses --da, so a plain CLIP
+WDS_SHARDS, WDS_PER_SHARD = 4, 8
+WDS_ZS = (["blurry", "noisy", "rainy", "hazy"], 4)   # the zero-shot tree: classes, images
+WDS_EPOCHS = 2
+
+
+def write_wds_shards(root, shards, per_shard, seed):
+    """`root/shard-<s>.tar` of (png, txt) samples: seeded images with sides
+    drawn from CLIP_SIDES, every row Up-filtered; returns the brace pattern."""
+    import io
+    import tarfile
+
+    from daclip_torch.data import png
+
+    rng = np.random.RandomState(seed)
+    root.mkdir(parents=True)
+    scratch = root / "sample.png"
+    for s in range(shards):
+        with tarfile.open(root / f"shard-{s:03d}.tar", "w") as tf:
+            for i in range(per_shard):
+                h, w = rng.randint(CLIP_SIDES[0], CLIP_SIDES[1] + 1, 2)
+                png.write(str(scratch), (rng.rand(h, w, 3) * 255).round().astype(np.uint8), "up")
+                tf.add(str(scratch), arcname=f"{s:03d}_{i:03d}.png")
+                text = f"a photo of scene {s}-{i}, outdoors".encode()
+                info = tarfile.TarInfo(f"{s:03d}_{i:03d}.txt")
+                info.size = len(text)
+                tf.addfile(info, io.BytesIO(text))
+    scratch.unlink()
+    return str(root / ("shard-{000..%03d}.tar" % (shards - 1)))
+
+
+def seeded_tag(cache, seed):
+    """A seeded ViT-B-32 CLIP `.pt` in `cache`, under an OpenAI-style URL that
+    names its sha256, registered as the tag "seeded" of ViT-B-32 (the caller
+    removes it). Returns (url, state dict)."""
+    import hashlib
+
+    from daclip_torch.models import pretrained
+    from daclip_torch.models.clip import CLIP, CLIPCfg, get_model_config
+
+    sd = {k: v.cpu() for k, v in seeded_state_dict(
+        lambda: CLIP(CLIPCfg.from_dict(get_model_config(WDS_MODEL))), seed).items()}
+    cache.mkdir(parents=True)
+    tmp = cache / "tmp.pt"
+    torch.save(sd, tmp)
+    h = hashlib.sha256(tmp.read_bytes()).hexdigest()
+    url = f"https://openaipublic.azureedge.net/clip/models/{h}/ViT-B-32-seeded.pt"
+    tmp.rename(cache / "ViT-B-32-seeded.pt")
+    pretrained._PRETRAINED[WDS_MODEL]["seeded"] = pretrained._pcfg(url)
+    return url, sd
+
+
+def file_digest(path):
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def tree(top):
+    """{relative path: size} of the files under `top` but out.log (which
+    grows with the final sync's own log lines after it is copied): what the
+    sync compares."""
+    return {str(p.relative_to(top)): p.stat().st_size for p in top.rglob("*")
+            if p.is_file() and p.name != "out.log"}
+
+
+def run_train_daclip_wds():
+    """cli.train_daclip.main in process on a plain ViT-B-32, bf16, over 4 seeded
+    tar shards of PNG + txt (32 samples), B = 8, --force-patch-dropout 0.5,
+    ImageNet zero-shot every epoch on a seeded 4-class tree, --remote-sync to
+    a local path by fsspec, 2 epochs; then the local checkpoints deleted and
+    --resume latest to 3, which fetches them from the remote. Its weights are
+    a registry tag: a seeded .pt in a cache dir under a URL that names its
+    sha256, loaded through download_pretrained_from_url and the factory with
+    urlopen refusing any call (a cache miss fails the phase)."""
+    import gc
+    import json as json_mod
+    import shutil
+    import urllib.request
+    from functools import partial as part
+
+    from daclip_torch.cli import train_daclip as cli
+    from daclip_torch.data.webdataset import ClipWebLoader, WebDataset
+    from daclip_torch.factory import create_model
+    from daclip_torch.models import pretrained
+    from daclip_torch.tokenizer import tokenize
+    from daclip_torch.train import clip_train
+    from daclip_torch.transforms import image_transform
+    from daclip_torch.utils import checkpoint as ckpt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    records = []
+    real_make, real_urlopen = clip_train.make_train_step, urllib.request.urlopen
+
+    def no_network(*a, **k):
+        raise RuntimeError("train_daclip_wds: a pretrained download was attempted")
+
+    with tempfile.TemporaryDirectory() as d:
+        root = pathlib.Path(d)
+        t0 = time.perf_counter()
+        pattern = write_wds_shards(root / "shards", WDS_SHARDS, WDS_PER_SHARD, seed=51)
+        write_class_tree(root / "zs", WDS_ZS[0], WDS_ZS[1], CLIP_SIDES, seed=52, layout="")
+        urllib.request.urlopen = no_network
+        try:
+            url, sd = seeded_tag(root / "cache", seed=53)
+            path = pretrained.download_pretrained_from_url(url, cache_dir=str(root / "cache"))
+            tagged = create_model(WDS_MODEL, pretrained="seeded", cache_dir=str(root / "cache"))
+        finally:
+            urllib.request.urlopen = real_urlopen
+            pretrained._PRETRAINED[WDS_MODEL].pop("seeded", None)
+        loaded = all(torch.equal(tagged.state_dict()[k], v) for k, v in sd.items())
+        del tagged, sd
+        setup_s = time.perf_counter() - t0
+
+        res = 224
+        loader = ClipWebLoader(WebDataset(pattern, shuffle_buffer=5000, seed=0),
+                               image_transform(res, is_train=True),
+                               part(tokenize, context_length=77), CLIP_CLI_B,
+                               WDS_SHARDS * WDS_PER_SHARD)
+        t0 = time.perf_counter()
+        n = sum(len(b["images"]) for b in loader)
+        loader_sps = n / (time.perf_counter() - t0)
+
+        logs, remote = root / "logs", root / "remote"
+        argv = ["--train-data", pattern, "--train-num-samples",
+                str(WDS_SHARDS * WDS_PER_SHARD), "--model", WDS_MODEL, "--pretrained", path,
+                "--precision", "amp", "--batch-size", str(CLIP_CLI_B), "--logs", str(logs),
+                "--name", "wds", "--lr", "2e-5", "--device", "cuda", "--force-patch-dropout",
+                str(PATCH_DROPOUT), "--imagenet-val", str(root / "zs"),
+                "--zeroshot-frequency", "1", "--remote-sync", str(remote),
+                "--remote-sync-protocol", "fsspec"]
+        reset_counts()
+        clip_train.make_train_step = timed_steps(real_make, records)
+        t0 = time.perf_counter()
+        try:
+            first = cli.main(argv + ["--epochs", str(WDS_EPOCHS)])
+            run_dir, remote_dir = logs / "wds", remote / "wds"
+            mirrored = tree(run_dir) == tree(remote_dir)
+            saved = file_digest(run_dir / "checkpoints" / "epoch_2.pt")
+            n_first = len(records)
+            shutil.rmtree(run_dir / "checkpoints")
+            second = cli.main(argv + ["--epochs", str(WDS_EPOCHS + 1), "--resume", "latest"])
+        finally:
+            clip_train.make_train_step = real_make
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = read_counts()
+        ckpt_dir = run_dir / "checkpoints"
+        epochs = ckpt.steps(str(ckpt_dir), ckpt.EPOCH)
+        fetched = file_digest(ckpt_dir / "epoch_2.pt") == saved
+        before, after = (torch.load(ckpt_dir / f"epoch_{n}.pt", map_location="cpu",
+                                    weights_only=False, mmap=True) for n in (2, 3))
+        adam_steps = sorted({(int(before["optimizer"]["state"][k]["step"]), int(v["step"]))
+                             for k, v in after["optimizer"]["state"].items()})
+        rows = [json_mod.loads(x) for x in (run_dir / "results.jsonl").read_text().splitlines()]
+        zs_rows = [r for r in rows if "val/imagenet-zeroshot-val-top1" in r]
+        final_mirror = all(tree(remote_dir).get(k) == v for k, v in tree(run_dir).items())
+    step_ms = [r["ms"] for r in records]
+    gaps = step_to_step_ms(records)
+    steps_per_epoch = WDS_SHARDS * WDS_PER_SHARD // CLIP_CLI_B
+    emit(phase="train_daclip_wds", what="cli.train_daclip.main over webdataset shards with "
+         f"--force-patch-dropout {PATCH_DROPOUT}, zero-shot every epoch and --remote-sync "
+         f"(fsspec): {WDS_EPOCHS} epochs, the local checkpoints deleted, then --resume latest "
+         f"to {WDS_EPOCHS + 1} from the remote",
+         config=dict(model=WDS_MODEL, precision="amp", B=CLIP_CLI_B, shards=WDS_SHARDS,
+                     samples=WDS_SHARDS * WDS_PER_SHARD, sides=list(CLIP_SIDES),
+                     png_rows="Up", zero_shot=dict(classes=WDS_ZS[0], per_class=WDS_ZS[1])),
+         cuts=dict(batch=f"{CLIP_CLI_B}, not {DACLIP_B} (the host's PNG decode)",
+                   data=f"{WDS_SHARDS} shards of {WDS_PER_SHARD}"),
+         setup_s=setup_s, train_s=train_s, first=first, second=second,
+         steps_run=[r["step"] for r in records], ms_per_step=step_ms,
+         median_ms_per_step=float(np.median(step_ms)),
+         median_ms_step_to_step=float(np.median(gaps)),
+         samples_per_s_step_to_step=CLIP_CLI_B * 1e3 / float(np.median(gaps)),
+         loader_samples_per_s_alone=loader_sps, tag_cache_hit=loaded, checkpoints=epochs,
+         fetched_from_remote=fetched, adam_steps=adam_steps, zero_shot_rows=zs_rows,
+         remote_mirrors_local=mirrored, remote_holds_final=final_mirror, launches=counts)
+    check(loaded, "the seeded tag's weights did not load through the cache")
+    check(epochs == [1, 2, 3] and fetched, f"checkpoints {epochs}, fetched {fetched}")
+    check(len(records) == (WDS_EPOCHS + 1) * steps_per_epoch
+          and records[n_first]["step"] == WDS_EPOCHS * steps_per_epoch
+          and after["step"] == (WDS_EPOCHS + 1) * steps_per_epoch,
+          f"train_daclip_wds ran steps {[r['step'] for r in records]}")
+    check(adam_steps == [(WDS_EPOCHS * steps_per_epoch, (WDS_EPOCHS + 1) * steps_per_epoch)],
+          f"AdamW's step counts before/after the resume: {adam_steps}")
+    check(len(zs_rows) == WDS_EPOCHS + 1 and all(
+        set(r) == {"step", "val/imagenet-zeroshot-val-top1", "val/imagenet-zeroshot-val-top5"}
+        and 0 <= r["val/imagenet-zeroshot-val-top1"] <= 1 for r in zs_rows),
+        f"zero-shot rows {zs_rows}")
+    check(mirrored and final_mirror, "the remote does not mirror the log dir")
+    check(np.isfinite([first["best_loss"], second["best_loss"]]).all(),
+          "train_daclip_wds: a train loss is not finite")
+    check(not any(counts.values()), f"train_daclip_wds launched hand kernels: {counts}")
 
 
 # -- phase 14 ------------------------------------------------------------------
@@ -2931,12 +3397,13 @@ def write_class_tree(root, classes, per_class, sides, seed, layout="LQ"):
 
 
 def optional_packages():
-    """Whether matplotlib, sklearn and scipy import here, with versions:
-    the eval plots and tools/visualize need them."""
+    """Whether matplotlib, sklearn, scipy, gradio and fsspec import here, with
+    versions: the eval plots and tools/visualize need the first three,
+    serve/gradio_app gradio, and --remote-sync's fsspec protocol fsspec."""
     import importlib
 
     out = {}
-    for name in ("matplotlib", "sklearn", "scipy"):
+    for name in ("matplotlib", "sklearn", "scipy", "gradio", "fsspec"):
         try:
             out[name] = importlib.import_module(name).__version__
         except ImportError:
@@ -3288,6 +3755,7 @@ def main():
     serve_alt_totals, fwd = run_serve_alt(restorer, sds)
     forward_conv = run_forward_conv(restorer.unet, fwd)
     run_text(restorer, sds[1])
+    gradio_totals = run_gradio(restorer)
     del restorer, sds, fwd
     work = tempfile.TemporaryDirectory()
     lpips_weights = write_lpips_npz(pathlib.Path(work.name) / "alex.npz")
@@ -3306,20 +3774,29 @@ def main():
     wild_rows, wild_totals = run_wild_ir()
     for key, more in wild_rows.items():  # after each list's own rows: the picks stay
         rows[key].extend(more)
-    run_eval(run_train_daclip_cli(run_train_daclip()))
+    for key_rows in rows.values():
+        check_above_bounds(key_rows)
+    daclip = run_train_daclip()
+    run_patch_dropout(daclip)
+    inspect_dir = run_train_daclip_cli(daclip["step_ms"])
+    del daclip
+    run_train_daclip_wds()
+    run_eval(inspect_dir)
     stage_totals = run_stage_profile()
 
     # launches on each main path, each counted from 0 just before its run:
     # serve (the four requests), serve_alt (two requests per other wiring),
     # train (five timed steps), train_alt (three), train_cli (the CLI's two
-    # runs, 4 steps and 4 validations), test_lpips (cli.test_restoration
+    # runs, 2 steps and 4 validations), test_lpips (cli.test_restoration
     # --lpips-weights: two restores at T=100), wild_ir_train (train_wild's
     # two runs, 4 steps and 4 validations), wild_ir_test (test_wild's two
     # restores at T=100), wild_ir_predict (predict --wild-ir, one restore),
-    # stage_profile (its 11 rows, 31 calls each); for the attention core and
+    # stage_profile (its 11 rows, 31 calls each), gradio (one request at
+    # T=100); for the attention core and
     # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
     # and kernels_conv phases, and the conv's in the hooked forward_conv
-    paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, train=train_totals,
+    paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, gradio=gradio_totals,
+                 train=train_totals,
                  train_alt=train_alt_totals, train_cli=train_cli_totals,
                  test_lpips=test_lpips_totals, **wild_totals, stage_profile=stage_totals,
                  kernels=dict(core=core_path),
@@ -3332,7 +3809,8 @@ def main():
         # the forward also as training calls it, checked in kernels_bwd
         abs_err[fwd] = max(abs_err[fwd], *(x["forward"]["max_abs_err"] for x in bf16(bwd)))
     emit(phase="kernels_vs_library", what="each kernel's device ms over the one PyTorch call's "
-         "on the same inputs (torch.profiler), where one computes the same function",
+         "on the same inputs (`device_ms`: CUDA events behind a queued sleep), where one "
+         "computes the same function",
          rows=[dict(kernel=r["kernel"], shape=r["shape"], path=r.get("path"), form=r.get("form"),
                     over_library=r["device_ms"] / r["library_device_ms"])
                for key in ("flash", "dual", "flash_bwd", "conv3x3") for r in rows[key]

@@ -18,13 +18,21 @@ Usage (da-clip/src/single_train.sh):
       --model daclip_ViT-B-32 --pretrained pretrained/ViT-B-32.pt \\
       --batch-size 128 --epochs 50 --lr 2e-5 --device cuda
 
+Also webdataset shards (`--dataset-type webdataset` or a `::`, `.tar` or
+`{` pattern; `--train-data-upsampling-factors`, `--dataset-resampled`;
+`--train-num-samples` required), patch dropout (`--force-patch-dropout`),
+ImageNet zero-shot every `--zeroshot-frequency` epochs and at the last
+(`--imagenet-val`, a tree of class dirs), `--remote-sync` of the log dir
+(s3, gs or fsspec; `--resume latest` fetches the remote checkpoints when
+there are none here), and registry tags as `--pretrained`.
+
 `--device` defaults to cuda and raises without a GPU unless given `cpu`.
-Flags this CLI does not carry yet exit before any work, naming the ROADMAP
-item that holds them: `--mesh` past one device, webdataset data,
-`--remote-sync`, ImageNet zero-shot, `--force-patch-dropout`,
-`--report-to wandb`. `--fast-clip-view` trains on cv2's decode and resize
-(`transforms.image_transform(backend="cv2")`), as daclip_tpu's does: the
-same crop draws, not PIL's bytes.
+Flags this CLI does not carry exit before any work: `--mesh` past one
+device (ROADMAP queue 1 item 6), `--report-to wandb`, and `--imagenet-v2`,
+which daclip_tpu parses and evaluates nowhere either. `--fast-clip-view`
+trains on cv2's decode and resize (`transforms.image_transform(
+backend="cv2")`), as daclip_tpu's does: the same crop draws, not PIL's
+bytes.
 """
 from __future__ import annotations
 
@@ -41,37 +49,30 @@ import torch
 
 from daclip_torch.cli.params import parse_args
 
-_ITEM = {"4": "ROADMAP queue 1 item 4, waiting", "6": "ROADMAP queue 1 item 6"}
-
-
-def _given(argv, flag: str) -> bool:
-    return any(a == flag or a.startswith(flag + "=") for a in argv)
-
-
-def refuse_unported(args, argv) -> None:
-    """Exit, naming its ROADMAP item, on a flag this CLI does not carry."""
-    refused = []
+def refuse_unported(args) -> None:
+    """Exit before any work on a flag this CLI does not carry."""
     if args.mesh not in (None, "1", "none"):
-        refused.append(("--mesh", "multi-card training (fsdp/TP mesh, DDP global negatives)",
-                        "6"))
-    if args.dataset_type == "webdataset" or (
-            args.dataset_type == "auto" and args.train_data
-            and ("::" in args.train_data or args.train_data.endswith(".tar")
-                 or "{" in args.train_data)):
-        refused.append(("--dataset-type webdataset", "data/webdataset.py", "4"))
-    if args.remote_sync:
-        refused.append(("--remote-sync", "remote sync of the log dir", "4"))
-    if args.imagenet_val or args.imagenet_v2 or (
-            _given(argv, "--zeroshot-frequency") and args.zeroshot_frequency):
-        refused.append(("--imagenet-val/--zeroshot-frequency",
-                        "ImageNet zero-shot during training", "4"))
-    if args.force_patch_dropout is not None:
-        refused.append(("--force-patch-dropout", "patch dropout", "4"))
+        raise SystemExit("--mesh: multi-card training (fsdp/TP mesh, DDP global negatives) "
+                         "is not ported to daclip_torch yet (ROADMAP queue 1 item 6)")
     if "wandb" in args.report_to.split(","):
-        refused.append(("--report-to wandb", "wandb reporting", "4"))
-    if refused:
-        flag, what, item = refused[0]
-        raise SystemExit(f"{flag}: {what} is not ported to daclip_torch yet ({_ITEM[item]})")
+        raise SystemExit("--report-to wandb: wandb reporting is not ported to daclip_torch "
+                         "yet (ROADMAP queue 1 item 4, waiting)")
+    if args.imagenet_v2:
+        raise SystemExit("--imagenet-v2: daclip_tpu parses it and no module of it evaluates "
+                         "ImageNet-V2 either, so daclip_torch does not (not queued)")
+
+
+def dataset_type(args) -> str:
+    """--dataset-type, with `auto` resolved as get_dataset_fn does
+    (training/data.py:640-660): no data → synthetic; a `::`, `.tar` or `{`
+    pattern → webdataset; else csv."""
+    if args.dataset_type != "auto":
+        return args.dataset_type
+    if not args.train_data:
+        return "synthetic"
+    if "::" in args.train_data or args.train_data.endswith(".tar") or "{" in args.train_data:
+        return "webdataset"
+    return "csv"
 
 
 def _setup_logging(log_base: str, debug: bool):
@@ -93,39 +94,59 @@ def _setup_logging(log_base: str, debug: bool):
 
 def build_data(args, pp_train, pp_val, tokenizer, image_size: int = 224):
     """(train loader, banks or None, val dataset or None), as the JAX CLI
-    builds them (training/data.py:640-660 dispatch). With
+    builds them (daclip_tpu/cli/train_daclip.py:147-197). With
     `--fast-clip-view` the CSV train set decodes with cv2 and takes the cv2
-    train view at `image_size` (daclip_tpu/cli/train_daclip.py:158-179)."""
+    train view at `image_size`, normalised by --image-mean/--image-std, else
+    by the `--pretrained` tag's, as the factory's transforms are."""
     from daclip_torch.data.csv_dataset import CsvDataset, SyntheticDataset
     from daclip_torch.data.loader import DataLoader
 
-    if args.dataset_type == "synthetic" or (args.dataset_type == "auto"
-                                            and not args.train_data):
+    kind = dataset_type(args)
+    if kind == "webdataset":
+        from daclip_torch.data.webdataset import ClipWebLoader, WebDataset
+
+        if args.da:
+            raise SystemExit("--da needs the csv pipeline (degradation captions; "
+                             "training/data.py:29-156) — webdataset sources carry no "
+                             "degradation metadata")
+        weights = None
+        if args.train_data_upsampling_factors:
+            weights = [float(w) for w in args.train_data_upsampling_factors.split("::")]
+        wds = WebDataset(args.train_data, shuffle_buffer=5000, seed=args.seed,
+                         resampled=args.dataset_resampled, weights=weights)
+        loader = ClipWebLoader(wds, pp_train, tokenizer, args.batch_size,
+                               num_samples=args.train_num_samples or 0)
+        ds = None
+    elif kind == "synthetic":
         ds = SyntheticDataset(pp_train, dataset_size=args.train_num_samples or 512,
                               tokenizer=tokenizer, da=args.da)
     else:
         if args.fast_clip_view:
+            from daclip_torch.factory import tag_cfg
             from daclip_torch.transforms import image_transform
 
-            pp_train = image_transform(image_size, is_train=True, mean=args.image_mean,
-                                       std=args.image_std, rng=random.Random(args.seed),
-                                       backend="cv2")
+            tag = tag_cfg(args.model, args.pretrained)
+            pp_train = image_transform(image_size, is_train=True,
+                                       mean=args.image_mean or tag.get("mean"),
+                                       std=args.image_std or tag.get("std"),
+                                       rng=random.Random(args.seed), backend="cv2")
         ds = CsvDataset(args.train_data, pp_train, args.csv_img_key, args.csv_caption_key,
                         args.csv_separator, tokenizer=tokenizer, da=args.da, crop=args.crop,
                         seed=args.seed, decode="cv2" if args.fast_clip_view else "pil")
-    loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True,
-                        num_workers=args.workers, seed=args.seed)
+    if ds is not None:
+        loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True,
+                            num_workers=args.workers, seed=args.seed)
     val_ds = None
     if args.val_data:
         val_ds = CsvDataset(args.val_data, pp_val, args.csv_img_key, args.csv_caption_key,
                             args.csv_separator, tokenizer=tokenizer, da=args.da)
-    return loader, ds.banks(), val_ds
+    return loader, ds.banks() if ds is not None else None, val_ds
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    refuse_unported(args, argv)
+    refuse_unported(args)
 
     from daclip_torch.data.loader import to_device
     from daclip_torch.eval.retrieval import evaluate as eval_retrieval
@@ -138,6 +159,7 @@ def main(argv=None):
     from daclip_torch.train.locking import build_update_mask
     from daclip_torch.utils.checkpoint import (EPOCH, latest_step, restore_clip_checkpoint,
                                                save_clip_checkpoint)
+    from daclip_torch.utils import file_utils
     from daclip_torch.utils.logging import MetricWriter
 
     device = resolve_device(args.device)
@@ -164,6 +186,7 @@ def main(argv=None):
         args.model, pretrained=args.pretrained or None, precision=args.precision,
         use_predictor=args.da and not args.uir_variant, image_mean=args.image_mean,
         image_std=args.image_std, seed=args.seed, force_quick_gelu=args.force_quick_gelu,
+        force_patch_dropout=args.force_patch_dropout,
         force_image_size=args.force_image_size[0] if args.force_image_size else None,
         remat=args.grad_checkpointing, rng=random.Random(args.seed))
     if args.pretrained:
@@ -202,7 +225,8 @@ def main(argv=None):
         cooldown_steps=(opt_steps_per_epoch * args.epochs_cooldown
                         if args.epochs_cooldown else None),
         skip_scheduler=args.skip_scheduler, grad_clip_norm=args.grad_clip_norm,
-        accum_freq=args.accum_freq, variant=variant, distill=teacher is not None)
+        accum_freq=args.accum_freq, variant=variant, distill=teacher is not None,
+        patch_dropout=bool(args.force_patch_dropout))
     state = init_state(model, cfg, update_mask, device=device)
     if use_accum:
         step_fn = make_accum_train_step(model, cfg, banks, device=device)
@@ -212,6 +236,13 @@ def main(argv=None):
     start_epoch = 0
     if args.resume:  # main.py:131-163
         rdir = ckpt_dir if args.resume == "latest" else args.resume
+        if (args.resume == "latest" and args.remote_sync
+                and latest_step(rdir, EPOCH) is None):
+            # no checkpoint here: mirror the synced checkpoint dir down first
+            remote_ckpts = os.path.join(args.remote_sync, args.name, "checkpoints")
+            if file_utils.list_remote_dir(remote_ckpts):
+                file_utils.download_remote_dir(remote_ckpts, rdir)
+                log.info("downloaded remote checkpoints from %s", remote_ckpts)
         if os.path.isfile(rdir) or latest_step(rdir, EPOCH) is not None:
             start_epoch = restore_clip_checkpoint(rdir, model, state)
             log.info("resumed from %s epoch %d", rdir, start_epoch)
@@ -220,11 +251,35 @@ def main(argv=None):
 
     report_to = [r for r in args.report_to.split(",") if r]
     writer = MetricWriter(log_base, use_tensorboard="tensorboard" in report_to)
+    sync_thread = None
+    if args.remote_sync:  # main.py:121-129
+        remote_base = os.path.join(args.remote_sync, args.name)
+        if not file_utils.remote_sync(log_base, remote_base, args.remote_sync_protocol):
+            raise SystemExit("initial remote sync failed (main.py:121-129)")
+        sync_thread = file_utils.start_sync_process(
+            args.remote_sync_frequency, log_base, remote_base, args.remote_sync_protocol)
+        sync_thread.start()
 
     def run_val():
         metrics = eval_retrieval(model, val_ds, batch_size=args.batch_size, banks=banks,
                                  variant=cfg.variant, device=device)
         log.info("val: %s", {k: round(v, 4) for k, v in metrics.items()})
+        return metrics
+
+    @torch.no_grad()
+    def encode_views(views):
+        x = torch.from_numpy(np.ascontiguousarray(views, dtype=np.float32))
+        return model.encode_image(x.permute(0, 3, 1, 2).to(device), normalize=True)
+
+    def run_zero_shot():
+        """In-training ImageNet zero-shot (train.py:380 → zero_shot.py)."""
+        from daclip_torch.eval.imagenet_zero_shot import evaluate_with_encoders
+
+        metrics = evaluate_with_encoders(
+            encode_views, lambda toks: model.encode_text(toks, normalize=True),
+            args.imagenet_val, model.cfg.vision.image_size, batch_size=args.batch_size,
+            device=device)
+        log.info("zero-shot: %s", {k: round(v, 4) for k, v in metrics.items()})
         return metrics
 
     max_to_keep = 1 if args.delete_previous_checkpoint else 3
@@ -257,8 +312,14 @@ def main(argv=None):
         epoch_loss = float(np.mean(losses)) if losses else float("nan")
         log.info("epoch %d done: mean loss %.4f", epoch, epoch_loss)
 
+        evals = {}
         if val_ds is not None and (epoch + 1) % args.val_frequency == 0:
-            writer.write(global_step, run_val(), prefix="val/")
+            evals.update(run_val())
+        if args.imagenet_val and args.zeroshot_frequency and (
+                (epoch + 1) % args.zeroshot_frequency == 0 or epoch + 1 == args.epochs):
+            evals.update(run_zero_shot())
+        if evals:
+            writer.write(global_step, evals, prefix="val/")
         save = partial(save_clip_checkpoint, model=model, state=state, epoch=epoch + 1,
                        name=args.name)
         if (epoch + 1) % args.save_frequency == 0:
@@ -270,6 +331,8 @@ def main(argv=None):
             save(os.path.join(ckpt_dir, "best"), max_to_keep=1)
     log.info("training complete; best epoch loss %.4f", best_loss)
     writer.close()
+    if sync_thread is not None:
+        sync_thread.stop(final_sync=True)
     return {"best_loss": best_loss}
 
 

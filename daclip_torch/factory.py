@@ -11,13 +11,16 @@ the `test-tiny` config):
   * `pretrained` is a local file or directory: a full DaCLIP `.pt` (the
     predictor kept only with `use_predictor`), a plain CLIP `.pt` copied
     into the controller as `initial_controller` does (factory.py:236-239),
-    a JAX `.npz` params tree, or the port's DA-CLIP train dir;
+    a JAX `.npz` params tree, or the port's DA-CLIP train dir; or a
+    registry tag (`openai`, `laion2b_s34b_b79k`, …), downloaded into the
+    cache by `models/pretrained.py` and loaded as a local file;
   * `create_model_and_transforms` adds the train and val image transforms
-    (factory.py:312-360).
+    (factory.py:312-360), normalised by the tag's mean and std where it has
+    them and the caller gives none.
 
 Not ported yet, refused with an error that names ROADMAP queue 1 item 6:
-registry tags (they download), CoCa, and the ResNet, ConvNeXt, EVA, Swin,
-timm and HF-text towers (and ViT layer scale).
+CoCa, and the ResNet, ConvNeXt, EVA, Swin, timm and HF-text towers (and
+ViT layer scale).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Optional
 import torch
 
 from daclip_torch.models.clip import CLIP, CLIPCfg, DaCLIP, get_model_config
+from daclip_torch.models.pretrained import download_pretrained, get_pretrained_cfg
 from daclip_torch.transforms import image_transform
 
 PRECISIONS = {"fp32": torch.float32, "amp": torch.bfloat16, "amp_bf16": torch.bfloat16,
@@ -82,17 +86,26 @@ def _load_state_dict(path: str, cfg: CLIPCfg):
     return nc.load_daclip_any(path, cfg.vision.image_size, cfg.vision.patch_size)
 
 
+def tag_cfg(model_name: str, pretrained: Optional[str]) -> dict:
+    """The registry entry of a `pretrained` tag ({} for a local path or
+    none): its url, hf_hub, mean and std."""
+    if not pretrained or Path(str(pretrained)).exists():
+        return {}
+    return get_pretrained_cfg(model_name.replace("/", "-"), pretrained)
+
+
 def create_model(model_name: str, pretrained: Optional[str] = None, precision: str = "fp32",
-                 use_predictor: Optional[bool] = None, seed: int = 0,
-                 force_quick_gelu: bool = False, force_image_size: Optional[int] = None,
-                 remat: bool = False):
+                 use_predictor: Optional[bool] = None, cache_dir: Optional[str] = None,
+                 seed: int = 0, force_quick_gelu: bool = False,
+                 force_patch_dropout: Optional[float] = None,
+                 force_image_size: Optional[int] = None, remat: bool = False):
     """The model, its weights drawn from `seed` (torch's generator, forked
-    so the caller's stream is untouched), then `pretrained` loaded; on the
-    CPU, parameters float32, activations in the precision's dtype. There is
-    no `force_custom_text`: without an HF text tower daclip_tpu's
+    so the caller's stream is untouched), then `pretrained` loaded (a tag's
+    file downloaded into `cache_dir` first, `~/.cache/clip` by default); on
+    the CPU, parameters float32, activations in the precision's dtype. There
+    is no `force_custom_text`: without an HF text tower daclip_tpu's
     CustomTextCLIP computes what CLIP does, and the port's CLIP inlines its
-    text tower either way; no `force_patch_dropout` either (patch dropout
-    waits, ROADMAP queue 1 item 4)."""
+    text tower either way."""
     model_name = model_name.replace("/", "-")
     is_daclip = "daclip" in model_name
     if precision not in PRECISIONS:
@@ -100,6 +113,8 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
     model_dict = get_model_config(model_name)
     if force_quick_gelu:
         model_dict["quick_gelu"] = True
+    if force_patch_dropout is not None:
+        model_dict.setdefault("vision_cfg", {})["patch_dropout"] = force_patch_dropout
     if force_image_size is not None:
         model_dict.setdefault("vision_cfg", {})["image_size"] = force_image_size
     cfg = CLIPCfg.from_dict(model_dict)
@@ -112,11 +127,14 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
     if not pretrained:
         return model
 
-    if not Path(pretrained).exists():
-        raise NotImplementedError(
-            f"pretrained {pretrained!r} is not a local file: registry tags download their "
-            f"weights, which is {_ITEM6}")
-    sd = _load_state_dict(str(pretrained), cfg)
+    path = str(pretrained)
+    if not Path(path).exists():
+        url_cfg = get_pretrained_cfg(model_name, path)
+        if not url_cfg:
+            raise FileNotFoundError(f"pretrained {path!r} is neither a local file nor a "
+                                    f"known tag for {model_name!r}")
+        path = download_pretrained(url_cfg, cache_dir=cache_dir)
+    sd = _load_state_dict(path, cfg)
     if is_daclip and any(k.startswith("visual_control.") for k in sd):
         if not use_predictor:
             sd = {k: v for k, v in sd.items() if not k.startswith("predictor.")}
@@ -136,14 +154,21 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
 
 def create_model_and_transforms(model_name: str, pretrained: Optional[str] = None,
                                 precision: str = "fp32", use_predictor: Optional[bool] = None,
-                                image_mean=None, image_std=None, seed: int = 0,
-                                force_quick_gelu: bool = False,
+                                cache_dir: Optional[str] = None, image_mean=None,
+                                image_std=None, seed: int = 0, force_quick_gelu: bool = False,
+                                force_patch_dropout: Optional[float] = None,
                                 force_image_size: Optional[int] = None, remat: bool = False,
                                 rng: Optional[random.Random] = None):
     """(model, preprocess_train, preprocess_val); the train transform draws
-    from `rng` (the `random` module's stream when None)."""
-    model = create_model(model_name, pretrained, precision, use_predictor, seed=seed,
-                         force_quick_gelu=force_quick_gelu, force_image_size=force_image_size, remat=remat)
+    from `rng` (the `random` module's stream when None). The transforms
+    normalise by `image_mean` / `image_std`, else by the tag's, else by
+    OpenAI's."""
+    model = create_model(model_name, pretrained, precision, use_predictor, cache_dir,
+                         seed=seed, force_quick_gelu=force_quick_gelu,
+                         force_patch_dropout=force_patch_dropout,
+                         force_image_size=force_image_size, remat=remat)
     size = model.cfg.vision.image_size
-    return (model, image_transform(size, is_train=True, mean=image_mean, std=image_std, rng=rng),
-            image_transform(size, is_train=False, mean=image_mean, std=image_std))
+    tag = tag_cfg(model_name, pretrained)
+    mean, std = image_mean or tag.get("mean"), image_std or tag.get("std")
+    return (model, image_transform(size, is_train=True, mean=mean, std=std, rng=rng),
+            image_transform(size, is_train=False, mean=mean, std=std))

@@ -214,7 +214,8 @@ class CLIP(nn.Module):
             image_size=v.image_size, patch_size=v.patch_size, width=v.width,
             layers=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
             output_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu,
-            global_average_pool=v.global_average_pool, remat=remat)
+            global_average_pool=v.global_average_pool, patch_dropout=v.patch_dropout,
+            remat=remat)
         self.transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
                                        cfg.quick_gelu, remat)
         self.token_embedding = nn.Embedding(t.vocab_size, t.width)
@@ -223,8 +224,12 @@ class CLIP(nn.Module):
         self.text_projection = nn.Parameter(t.width ** -0.5 * torch.randn(t.width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
-    def encode_image(self, image, normalize: bool = False, control=None):
-        return _normalize(self.visual(image, control=control, dtype=self.dtype), normalize)
+    def encode_image(self, image, normalize: bool = False, control=None, train: bool = False,
+                     generator: Optional[torch.Generator] = None):
+        """`train` turns the tower's patch dropout on (where the config has
+        one), its noise drawn from `generator`."""
+        return _normalize(self.visual(image, control=control, dtype=self.dtype, train=train,
+                                      generator=generator), normalize)
 
     def encode_text(self, text, normalize: bool = False):
         """text (B, L) token ids → (B, embed_dim): causal stack, ln_final on
@@ -237,9 +242,11 @@ class CLIP(nn.Module):
         pooled = x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
         return _normalize(pooled @ self.text_projection.to(self.dtype), normalize)
 
-    def forward(self, image=None, text=None):
+    def forward(self, image=None, text=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         return {
-            "image_features": (self.encode_image(image, normalize=True)
+            "image_features": (self.encode_image(image, normalize=True, train=train,
+                                                 generator=generator)
                                if image is not None else None),
             "text_features": (self.encode_text(text, normalize=True)
                               if text is not None else None),
@@ -304,41 +311,50 @@ class DaCLIP(nn.Module):
             image_size=v.image_size, patch_size=v.patch_size, width=v.width,
             layers=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
             output_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu, controller=True,
-            global_average_pool=v.global_average_pool, remat=remat)
+            global_average_pool=v.global_average_pool, patch_dropout=v.patch_dropout,
+            remat=remat)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
         self.predictor = MultiTypeDegradationPredictor() if use_predictor else None
 
-    def encode_image(self, image, control: bool = False, normalize: bool = False):
+    def encode_image(self, image, control: bool = False, normalize: bool = False,
+                     train: bool = False, generator: Optional[torch.Generator] = None):
         """image (B, 3, H, W), CLIP-normalised. With `control`, returns
         (image_features, degra_features): the controller runs first and its
-        per-block hiddens enter the frozen tower in reversed block order."""
+        per-block hiddens enter the frozen tower in reversed block order.
+        `train` turns patch dropout on in both towers, each drawing its own
+        subset from `generator` (daclip_model.py:17-38)."""
         if control:
-            degra, hiddens = self.visual_control(image, output_hiddens=True,
-                                                 dtype=self.dtype)
-            feats = self.clip.encode_image(image, normalize, control=hiddens)
+            degra, hiddens = self.visual_control(image, output_hiddens=True, dtype=self.dtype,
+                                                 train=train, generator=generator)
+            feats = self.clip.encode_image(image, normalize, control=hiddens, train=train,
+                                           generator=generator)
             return feats, _normalize(degra, normalize)
-        return self.clip.encode_image(image, normalize)
+        return self.clip.encode_image(image, normalize, train=train, generator=generator)
 
     def encode_text(self, text, normalize: bool = False):
         return self.clip.encode_text(text, normalize)
 
     def forward(self, image=None, text=None, gt_images=None, deg_type=None, gt_val=None,
-                bin_center_bank=None, all_d_type_tokens=None):
+                bin_center_bank=None, all_d_type_tokens=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """The training forward's outputs, without a loss
         (daclip_tpu/models/clip.py:424-467). `text` is caption‖degradation
         tokens, split in half along the token axis. With the predictor,
         `all_d_type_tokens` (28, L) or a constant (B, 28, L) bank is encoded
-        once and `bin_center_bank` is (4, 7)."""
+        once and `bin_center_bank` is (4, 7). `train` turns patch dropout on
+        for the images and the GT images, drawn from `generator` in that
+        order (controller, frozen tower, GT)."""
         out = {"logit_scale": self.logit_scale.exp()}
         if image is not None:
             out["image_features"], out["image_degra_features"] = self.encode_image(
-                image, control=True, normalize=True)
+                image, control=True, normalize=True, train=train, generator=generator)
         if text is not None:
             caption, degradation = text.chunk(2, dim=-1)
             out["text_features"] = self.encode_text(caption, normalize=True)
             out["text_degra_features"] = self.encode_text(degradation, normalize=True)
         if gt_images is not None:
-            out["gt_image_features"] = self.encode_image(gt_images, normalize=True)
+            out["gt_image_features"] = self.encode_image(gt_images, normalize=True, train=train,
+                                                         generator=generator)
         if self.predictor is not None and all_d_type_tokens is not None:
             toks = all_d_type_tokens
             if toks.ndim == 3:  # a constant (B, 28, L) bank: encode it once

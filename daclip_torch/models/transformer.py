@@ -101,16 +101,22 @@ class ControlTransformer(nn.Module):
 class VisionTransformer(nn.Module):
     """CLIP ViT (open_clip/transformer.py:372-555) on NCHW images that are
     already normalised. `controller=True` wraps the stack in a
-    ControlTransformer (daclip_model.py:22-23)."""
+    ControlTransformer (daclip_model.py:22-23).
+
+    `patch_dropout` > 0 (PatchDropout, arXiv 2212.00794; transformer.py:
+    47-84): a forward with `train` keeps the CLS token and
+    max(1, int(n·(1 − p))) of the n patch tokens after the positional add,
+    the top-k of standard normal noise drawn by `patch_dropout_noise`."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 32, width: int = 768,
                  layers: int = 12, heads: int = 12, mlp_ratio: float = 4.0,
                  output_dim: int = 512, quick_gelu: bool = False,
                  controller: bool = False, global_average_pool: bool = False,
-                 remat: bool = False):
+                 patch_dropout: float = 0.0, remat: bool = False):
         super().__init__()
         self.patch_size = patch_size
         self.global_average_pool = global_average_pool
+        self.patch_dropout = patch_dropout
         grid = image_size // patch_size
         scale = width ** -0.5
         self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size, bias=False)
@@ -122,15 +128,29 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(scale * torch.randn(width, output_dim))
 
+    def patch_dropout_noise(self, shape, device, generator=None) -> torch.Tensor:
+        """The (B, n) standard normal noise whose top-k picks the kept
+        patches, from `generator` (the default stream when None)."""
+        return torch.randn(shape, generator=generator, device=device)
+
     def forward(self, x, control=None, output_hiddens: bool = False,
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """x (B, 3, H, W) → pooled (B, output_dim); with `output_hiddens`
-        (controller only) also the per-block hiddens."""
+        (controller only) also the per-block hiddens. `train` turns patch
+        dropout on, its noise drawn from `generator`."""
         B = x.shape[0]
         h = F.conv2d(x.to(dtype), self.conv1.weight.to(dtype), stride=self.patch_size)
         h = h.reshape(B, h.shape[1], -1).transpose(1, 2)
         cls = self.class_embedding.to(dtype).expand(B, 1, -1)
         h = torch.cat([cls, h], dim=1) + self.positional_embedding.to(dtype)
+        if self.patch_dropout > 0.0 and train:
+            rest = h[:, 1:]
+            n_keep = max(1, int(rest.shape[1] * (1.0 - self.patch_dropout)))
+            noise = self.patch_dropout_noise((B, rest.shape[1]), h.device, generator)
+            keep = noise.topk(n_keep, dim=1).indices
+            rest = torch.gather(rest, 1, keep[..., None].expand(-1, -1, rest.shape[2]))
+            h = torch.cat([h[:, :1], rest], dim=1)
         h = self.ln_pre(h)
         hiddens = None
         if isinstance(self.transformer, ControlTransformer):

@@ -19,6 +19,10 @@ src/training/main.py:219-459, train.py:64-245):
   * `make_train_step`: the fork (FCRC + regression), uir, plain clip and
     distillation variants; `logit_scale` clamped to [0, ln 100] after each
     update (train.py:187-189).
+  * `ClipTrainConfig.patch_dropout` (--force-patch-dropout): every forward
+    runs with `train=True`, its patch noise drawn from a generator seeded
+    from the optimizer step (`dropout_generator`); daclip_tpu folds the step
+    into PRNGKey(0) instead, so the subsets differ between the packages;
   * `make_accum_train_step`: the reference's cached-feature two-pass
     accumulation (train.py:124-162), the JAX package's
     `make_accum_train_step`, with its quirks kept: the gradient is not
@@ -78,6 +82,7 @@ class ClipTrainConfig:
     accum_freq: int = 1
     variant: str = "fork"              # fork | uir | clip
     distill: bool = False
+    patch_dropout: bool = False        # --force-patch-dropout is set
 
 
 @dataclasses.dataclass
@@ -154,13 +159,26 @@ def _bank_tensors(banks, dev):
             torch.as_tensor(np.asarray(banks[1]), device=dev).long())
 
 
-def _forward(model, cfg, banks, batch, include_gt: bool = True):
+def dropout_generator(cfg: ClipTrainConfig, device, step: int,
+                      micro: int = 0) -> Optional[torch.Generator]:
+    """The patch-dropout noise's generator of optimizer step `step` and
+    micro-batch `micro` (None without patch dropout): seeded from both, so
+    both passes of an accumulation step draw the same subsets."""
+    if not cfg.patch_dropout:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(step * max(cfg.accum_freq, 1) + micro)
+    return g
+
+
+def _forward(model, cfg, banks, batch, include_gt: bool = True, generator=None):
+    kw = dict(train=cfg.patch_dropout, generator=generator)
     if cfg.variant == "fork" and banks is not None:
         return model(image=batch["images"], text=batch["texts"],
                      gt_images=batch.get("gt_images") if include_gt else None,
                      deg_type=batch["deg_type"], gt_val=batch["gt_val"],
-                     bin_center_bank=banks[0], all_d_type_tokens=banks[1])
-    return model(image=batch["images"], text=batch["texts"])
+                     bin_center_bank=banks[0], all_d_type_tokens=banks[1], **kw)
+    return model(image=batch["images"], text=batch["texts"], **kw)
 
 
 def _losses(cfg, banks, out, teacher_out=None) -> Dict[str, torch.Tensor]:
@@ -230,7 +248,8 @@ def make_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=None,
             _check_device(f"batch[{key!r}]", batch.get(key), dev)
         for _, p in state.params:
             p.grad = None
-        out = _forward(model, cfg, banks, batch)
+        out = _forward(model, cfg, banks, batch,
+                       generator=dropout_generator(cfg, dev, state.step))
         teacher_out = None
         if cfg.distill and distill_model is not None and cfg.variant == "clip":
             with torch.no_grad():
@@ -261,9 +280,9 @@ def make_accum_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=No
     only in pass 1. One optimizer update per call.
 
     Returns train_step(state, batches) -> (state, metrics), `batches` a list
-    of accum_freq batch dicts; `train_step.loss_and_grads(batches)` leaves
-    the accumulated gradients in the parameters and returns (total, losses)
-    summed over the micro-batches. Distillation is refused, as in the
+    of accum_freq batch dicts; `train_step.loss_and_grads(batches, step)`
+    leaves the accumulated gradients in the parameters and returns (total,
+    losses) summed over the micro-batches. Distillation is refused, as in the
     reference (train.py:109-121)."""
     if cfg.accum_freq <= 1:
         raise ValueError("make_accum_train_step needs accum_freq > 1; use make_train_step "
@@ -276,13 +295,15 @@ def make_accum_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=No
     schedule = make_schedule(cfg)
     params = [p for _, p in partition_daclip_params(model)[0]]
 
-    def loss_and_grads(batches):
+    def loss_and_grads(batches, step: int = 0):
         for mb in batches:
             for key in _BATCH_KEYS:
                 _check_device(f"batch[{key!r}]", mb.get(key), dev)
         B = batches[0]["images"].shape[0]
         with torch.no_grad():  # pass 1 (train.py:125-135)
-            outs = [_forward(model, cfg, banks, mb) for mb in batches]
+            outs = [_forward(model, cfg, banks, mb,
+                             generator=dropout_generator(cfg, dev, step, j))
+                    for j, mb in enumerate(batches)]
             cache = {k: torch.cat([o[k] for o in outs])
                      for k in _ACCUM_SPLICE_KEYS if outs[0].get(k) is not None}
         del outs
@@ -290,7 +311,8 @@ def make_accum_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=No
             p.grad = None
         total, losses = 0.0, {}
         for j, mb in enumerate(batches):  # pass 2 (train.py:148-162)
-            out = _forward(model, cfg, banks, mb, include_gt=False)
+            out = _forward(model, cfg, banks, mb, include_gt=False,
+                           generator=dropout_generator(cfg, dev, step, j))
             spliced = dict(out)
             for k, flat in cache.items():
                 live = out.get(k)
@@ -306,7 +328,7 @@ def make_accum_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=No
 
     def train_step(state: ClipTrainState, batches):
         A = len(batches)
-        total, losses = loss_and_grads(batches)
+        total, losses = loss_and_grads(batches, state.step)
         norm = _apply(model, state, cfg, schedule)
         return state, _metrics(model, {k: v / A for k, v in losses.items()}, total / A, norm)
 
