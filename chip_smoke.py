@@ -213,12 +213,40 @@ Phases, each printing JSON lines:
              the 256² UNet on the card, whose parameter counts and FLOPs must
              equal those on the CPU, and encode_image(control=True)'s ms at
              B = 1 beside its FLOPs
+17 ddp_train  (after patch_dropout, in one NCCL group that torchrun's
+             environment for one process forms in process, through
+             daclip_torch.parallel) train's step at full width from its
+             seeded UNet, 3 steps on one batch and draw sequence: in one
+             process twice (the second a control), through DDP and through
+             FSDP2 (fsdp_train), cuDNN deterministic; DDP's and FSDP's
+             parameters equal the single process's bit for bit; step ms and
+             peak memory of each beside train's; the exact
+             launches of #1-#4 on each path
+18 fsdp_train  (printed with ddp_train)
+19 ddp_daclip  train_daclip's step (B = 512, bf16) through DDP and the
+             gathered losses in that group: ms, samples/s, peak memory beside
+             train_daclip's; an f32 step at B = 8 through DDP within 1e-6 of
+             the largest |parameter| of the same step without it; no hand
+             kernel launched
+20 two_ranks_one_card  two processes on cuda:0 over gloo (NCCL refuses two
+             ranks on one device), DDP and the gathered losses at world size
+             2: an f32 DA-CLIP step on 32 rows each within 1e-6 of the largest
+             |parameter| of one process's step on all 64; no hand kernel
+21 torchrun_cli  `python -m torch.distributed.run --standalone
+             --nproc_per_node 1 -m` each train CLI with `--mesh 1`:
+             train_daclip one epoch over train_daclip_cli's seeded CSV tree,
+             train_restoration 2 steps over train_cli's options and MD tree
+             (both trees' PNGs with Up rows only: the Paeth decode is those
+             phases' to time); exactly one checkpoint each, loaded into the
+             single-card model
 (train_check runs the default wiring, then (v4, pointwise) and (v3, pointwise).)
 Then each kernel's device time over its library call's (kernels_vs_library),
-the per-kernel summary line, the nvidia-smi line, and as the last line
+the script's seconds (total), the per-kernel summary line, the nvidia-smi
+line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
 without a CUDA device it exits non-zero before printing any result.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -1861,9 +1889,10 @@ CLI_TEST_SHAPE = (256, 256)
 CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ, CLI_VAL_T = 1, 2, 1, 10
 
 
-def write_md_tree(root, types, pairs, shape, seed):
-    """`root/<type>/{GT,LQ}/<i>.png`: seeded GT and GT + noise as LQ, the
-    even pairs written with Up row filters and the odd ones with Paeth."""
+def write_md_tree(root, types, pairs, shape, seed, filters=("up", "paeth")):
+    """`root/<type>/{GT,LQ}/<i>.png`: seeded GT and GT + noise as LQ, pair i
+    written with the row filter filters[i % len(filters)] (the even pairs
+    Up, the odd Paeth)."""
     from daclip_torch.data import png
 
     rng = np.random.RandomState(seed)
@@ -1875,7 +1904,7 @@ def write_md_tree(root, types, pairs, shape, seed):
             lq = np.clip(gt + 0.1 * rng.randn(*shape, 3), 0, 1)
             for sub, img in (("GT", gt), ("LQ", lq)):
                 png.write(str(root / t / sub / f"{i:03d}.png"),
-                          (img * 255).round().astype(np.uint8), ("up", "paeth")[i % 2])
+                          (img * 255).round().astype(np.uint8), filters[i % len(filters)])
 
 
 def png_decode_ms(shape=CLI_MD_SHAPE, repeats=3, seed=0):
@@ -2820,10 +2849,10 @@ CLIP_CLI_B, CLIP_CLI_WORKERS = 8, 4
 CLIP_CLI_EPOCHS = 1
 
 
-def write_clip_tree(root, pairs, seed):
-    """`root/{LQ,GT}/<i>.png` (sides drawn from CLIP_SIDES, the even pairs
-    with Up rows, the odd with Paeth) and a TSV of their paths and
-    "caption| degradation" titles."""
+def write_clip_tree(root, pairs, seed, filters=("up", "paeth")):
+    """`root/{LQ,GT}/<i>.png` (sides drawn from CLIP_SIDES, pair i with the
+    row filter filters[i % len(filters)]: the even pairs Up, the odd Paeth)
+    and a TSV of their paths and "caption| degradation" titles."""
     from daclip_torch.data import png
 
     rng = np.random.RandomState(seed)
@@ -2838,7 +2867,7 @@ def write_clip_tree(root, pairs, seed):
         lq = np.clip(gt + 0.1 * rng.randn(h, w, 3), 0, 1)
         for sub, img in (("GT", gt), ("LQ", lq)):
             png.write(str(root / sub / f"{i:03d}.png"), (img * 255).round().astype(np.uint8),
-                      ("up", "paeth")[i % 2])
+                      filters[i % len(filters)])
         present = rng.rand(4) > 0.5
         present[i % 4] = True
         vals = lows + rng.rand(4) * (highs - lows)
@@ -3713,6 +3742,450 @@ def run_stage_profile():
     return counts
 
 
+# -- phases 17-21: the port's multi-card paths on the one card ---------------
+DDP_STEPS = 3
+# an f32 DA-CLIP step through DDP against the same step without it (read: 0
+# at one rank, 1.8e-7 at two ranks on one card), each parameter's
+# difference over the largest |parameter|
+DDP_F32_LIMIT = 1e-6
+# fsdp_train against the single process: per-block FSDP2 puts its hooks'
+# autograd nodes between the blocks, so the gradients of inputs several
+# blocks share (the time embedding, the skips) are summed in another order;
+# the first loss must still be bitwise equal, the later losses and every
+# step's gradient norm within this relative difference
+FSDP_TRAIN_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """torchrun's environment for one process (MASTER_ADDR localhost, a free
+    port, RANK 0, WORLD_SIZE 1, LOCAL_RANK 0), the NCCL group formed by
+    `daclip_torch.parallel.initialize_distributed` as the CLIs form it, and
+    torchrun's one-process `Mesh`; the group destroyed and the environment
+    restored after."""
+    import socket
+
+    from daclip_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        got = parallel.initialize_distributed()
+        check(got == (0, 1, 0, torch.device("cuda", 0)), f"initialize_distributed: {got}")
+        check(torch.distributed.get_backend() == "nccl",
+              f"backend {torch.distributed.get_backend()}")
+        yield parallel.mesh_from_spec("1", 1, "cuda")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_ddp_train(mesh, train_step_ms):
+    """`train`'s production step (B=16, 256², nf 64, ch_mult 1,2,4,8, v5,
+    bf16, remat, AdamW, EMA) for DDP_STEPS steps from the same seeded UNet
+    on the same batch, contexts and (t, noise) draws: twice in one process
+    (the second a control of the card's determinism), through DDP
+    (`parallel.parallelize` on torchrun's one-process mesh, NCCL, DDP's
+    static graph) and through FSDP2 (`parallel.apply_fsdp`, fully_shard at
+    one rank, one unit per ResBlock and attention wrap). cuDNN
+    picks deterministic algorithms here. Each run's step ms, peak memory
+    and launches of #1-#4 (paths `ddp_train`, `fsdp_train`); the DDP run's
+    parameters must equal the single process's bit for bit (an average over
+    one rank is exact). The FSDP run's first loss must too, and its later
+    losses and gradient norms within FSDP_TRAIN_RTOL (FSDP's units reorder
+    the sums of shared inputs' gradients), its parameters within Adam's
+    bound 2·Σ lr of the single process's; its optimizer groups keep shards
+    and whole tensors apart, so its AdamW takes torch's foreach path too."""
+    import gc
+
+    from daclip_torch import parallel
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.sde import IRSDE
+    from daclip_torch.train.restoration import (RestorationTrainConfig, init_state,
+                                                make_schedule, make_train_step)
+    from daclip_torch.transforms import clip_transform
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, P = 16, 256
+    kw = dict(nf=64, ch_mult=(1, 2, 4, 8), context_dim=512, use_degra_context=True,
+              use_image_context=True)
+    sd = seeded_state_dict(lambda: ConditionalUNet(**kw), seed=11)
+    clip_cfg = CLIPCfg.from_dict(get_model_config("daclip_ViT-B-32"))
+    daclip = DaCLIP(clip_cfg, dtype=torch.bfloat16)
+    daclip.load_state_dict(seeded_state_dict(lambda: DaCLIP(clip_cfg), seed=12), strict=True)
+    daclip.cuda().eval().requires_grad_(False)
+    rng = np.random.RandomState(0)
+    gt_np = rng.rand(B, P, P, 3).astype(np.float32)
+    lq_np = np.clip(gt_np + 0.1 * rng.randn(B, P, P, 3), 0, 1).astype(np.float32)
+    views_np = np.stack([clip_transform(im, clip_cfg.vision.image_size) for im in lq_np])
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2))).cuda()
+    with torch.no_grad():
+        img_f, degra_f = daclip.encode_image(dev(views_np), control=True, normalize=True)
+    batch = dict(LQ=dev(lq_np), GT=dev(gt_np), text_context=degra_f.float(),
+                 image_context=img_f.float())
+    del daclip
+    sde = IRSDE(max_sigma=50, T=100, schedule="cosine", eps=0.005)
+    cfg = RestorationTrainConfig()
+    want_calls = {k: DDP_STEPS * v for k, v in zip(TRAIN_KERNELS["v5"], (12, 6, 6, 3))}
+
+    def trained(kind):
+        unet = ConditionalUNet(dtype=torch.bfloat16, remat=True, **kw)
+        unet.load_state_dict(sd)
+        unet.train().cuda()
+        wrapped = {"ddp": lambda: parallel.parallelize(unet, mesh, "cuda", static_graph=True),
+                   "fsdp": lambda: parallel.apply_fsdp(unet, mesh)}.get(kind, lambda: unet)()
+        state = init_state(unet, cfg, device="cuda")
+        step = make_train_step(wrapped, sde, cfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ms, losses, norms = [], [], []
+        for _ in range(DDP_STEPS):
+            t0 = time.perf_counter()
+            _, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        counts = {k: v for k, v in read_counts().items() if v}
+        params = parallel.full_tensors(dict(unet.named_parameters()))
+        # the first step holds cuDNN's and the allocator's warm-up
+        row = dict(ms_per_step=ms, median_ms_after_first=float(np.median(ms[1:])), losses=losses,
+                   grad_norms=norms, max_memory_allocated=torch.cuda.max_memory_allocated(), calls=counts,
+                   sharded=sum(type(p).__name__ == "DTensor" for p in unet.parameters()),
+                   wrapper=type(wrapped).__name__)
+        del unet, wrapped, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return params, row
+
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {kind: trained(kind) for kind in ("train", "control", "ddp", "fsdp")}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    ref = runs["train"][0]
+    p_max = max(float(v.abs().max()) for v in ref.values())
+
+    def diff(kind):
+        d = {k: float((runs[kind][0][k] - v).abs().max()) for k, v in ref.items()}
+        worst = max(d, key=d.get)
+        return dict(max_abs_diff=d[worst], worst=worst, of_max=d[worst] / p_max,
+                    tensors_differing=sum(x > 0 for x in d.values()),
+                    bitwise=all(torch.equal(runs[kind][0][k], v) for k, v in ref.items()))
+
+    out = {}
+    for kind, phase in (("ddp", "ddp_train"), ("fsdp", "fsdp_train")):
+        row = runs[kind][1]
+        emit(phase=phase, what=f"train's step through {row['wrapper']} at world size 1 (NCCL), "
+             f"{DDP_STEPS} steps from the seeded UNet, against the single-process trainer on "
+             "the same draws (cuDNN deterministic)",
+             config=dict(B=B, patch=P, remat=True, dtype="bfloat16", wiring="v5", **kw),
+             **row, single_process=runs["train"][1], control=diff("control"),
+             vs_single_process=diff(kind), train_phase_median_ms=train_step_ms,
+             params_max=p_max)
+        check(row["calls"] == want_calls, f"{phase}: kernel calls {row['calls']}, expected "
+              f"{want_calls}")
+        check(np.isfinite(row["losses"]).all(), f"{phase}: a loss is not finite")
+        out[kind] = row["calls"]
+    check(runs["fsdp"][1]["sharded"] > 0, "fsdp_train: no parameter is an FSDP shard")
+    check(diff("ddp")["bitwise"], f"ddp_train: parameters differ from the single "
+          f"process ({diff('ddp')}; control {diff('control')})")
+    fsdp, one = runs["fsdp"][1], runs["train"][1]
+    check(fsdp["losses"][0] == one["losses"][0],
+          f"fsdp_train: first loss {fsdp['losses'][0]} against {one['losses'][0]}")
+    for key in ("losses", "grad_norms"):
+        check(np.allclose(fsdp[key], one[key], rtol=FSDP_TRAIN_RTOL, atol=0),
+              f"fsdp_train: {key} {fsdp[key]} against the single process's {one[key]}")
+    adam_bound = 2 * sum(make_schedule(cfg)(i) for i in range(DDP_STEPS))
+    check(diff("fsdp")["max_abs_diff"] <= adam_bound,
+          f"fsdp_train: parameters {diff('fsdp')} past Adam's bound {adam_bound}")
+    return out["ddp"], out["fsdp"]
+
+
+def run_ddp_daclip(mesh, base, steps=3, warmup=1):
+    """train_daclip's step (README's launch line: daclip_ViT-B-32 with the
+    predictor, bf16, B = 512 at 224²) through DDP and the gathered losses
+    on torchrun's one-process mesh: step ms, samples/s and peak memory
+    beside train_daclip's (`base`); then an f32 step at B = DACLIP_F32_B on
+    the card through DDP against the same step without it (DDP_F32_LIMIT of
+    the largest |parameter|); no hand kernel launched."""
+    import gc
+
+    from daclip_torch import parallel
+    from daclip_torch.train.clip_train import (init_state, make_train_step,
+                                               partition_daclip_params)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+
+    def make(dtype_name, cfg, ddp):
+        model = daclip_model(dtype_name, "cuda", base["sd"])
+        partition_daclip_params(model)
+        wrapped = parallel.parallelize(model, mesh, "cuda") if ddp else model
+        state = init_state(model, cfg, device="cuda")
+        return model, state, make_train_step(wrapped, cfg, base["banks"], device="cuda")
+
+    model, state, step = make("amp", base["cfg"], True)
+    batch = clip_batch(DACLIP_B, seed=32, device="cuda", **base["shape"])
+    for _ in range(warmup):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(ms))
+    del model, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f32 = dataclasses.replace(base["cfg"], lr=1e-3, eps=1e-3, warmup=1)
+    small = clip_batch(DACLIP_F32_B, seed=33, device="cuda", **base["shape"])
+    after = {}
+    for ddp in (False, True):
+        model, state, step = make("fp32", f32, ddp)
+        step(state, small)
+        after[ddp] = {n: p.detach().clone() for n, p in state.params}
+        del model, state, step
+    p_max = max(float(p.abs().max()) for p in after[False].values())
+    err = {n: float((after[True][n] - p).abs().max()) for n, p in after[False].items()}
+    worst = max(err, key=err.get)
+    emit(phase="ddp_daclip", what=f"train_daclip's step through DDP at world size 1 (NCCL, "
+         f"the features all-gathered), {DACLIP_MODEL} with the predictor, bf16, B={DACLIP_B} "
+         f"({warmup} warm-up, {steps} timed steps); then an f32 step at B={DACLIP_F32_B}, DDP "
+         "against no DDP, on the card",
+         ms_per_step=ms, median_ms_per_step=step_ms, samples_per_s=DACLIP_B * 1e3 / step_ms,
+         max_memory_allocated=peak, metrics=metrics,
+         train_daclip=dict(median_ms_per_step=base["step_ms"],
+                           samples_per_s=base["samples_per_s"],
+                           max_memory_allocated=base["peak"]),
+         f32=dict(max_abs_diff=err[worst], worst=worst, params_max=p_max,
+                  of_max=err[worst] / p_max, bitwise=all(v == 0 for v in err.values())),
+         limit=DDP_F32_LIMIT)
+    check(all(np.isfinite(list(m.values())).all() for m in metrics),
+          "ddp_daclip: a loss term is not finite")
+    check(err[worst] <= DDP_F32_LIMIT * p_max,
+          f"ddp_daclip f32: DDP vs no DDP {err[worst]} ({worst}), max |p| {p_max}")
+    counts = read_counts()
+    check(not any(counts.values()), f"ddp_daclip launched hand kernels: {counts}")
+
+
+TWO_RANK_B = 64   # the global batch of two_ranks_one_card, 32 rows a rank
+
+
+def two_ranks_worker(rank, store, out):
+    """One of two ranks on cuda:0, the group gloo's (NCCL refuses two ranks
+    on one device), formed through `daclip_torch.parallel` from torchrun's
+    variables: the f32 DA-CLIP step (lr 1e-3, eps 1e-3) through DDP on its
+    32 rows of a seeded B = TWO_RANK_B batch; rank 0 then takes the same step
+    in one process on all 64 rows and writes both parameter sets' largest
+    difference to `out`."""
+    import datetime
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from daclip_torch import parallel
+    from daclip_torch.data.csv_dataset import build_banks
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+    from daclip_torch.tokenizer import tokenize
+    from daclip_torch.train.clip_train import (ClipTrainConfig, init_state, make_train_step,
+                                               partition_daclip_params)
+
+    got = parallel.initialize_distributed(f"file://{store}", "gloo", "cuda",
+                                          set_device_rank=False,
+                                          timeout=datetime.timedelta(seconds=300))
+    mesh = parallel.mesh_from_spec("2", 2, "cuda")
+    clip_cfg = CLIPCfg.from_dict(get_model_config(DACLIP_MODEL))
+    sd = seeded_state_dict(lambda: DaCLIP(clip_cfg, use_predictor=True), seed=31)
+    banks = build_banks(partial(tokenize, context_length=clip_cfg.text.context_length))
+    cfg = ClipTrainConfig(lr=1e-3, wd=0.2, beta1=0.9, beta2=0.98, eps=1e-3, warmup=1,
+                          variant="fork")
+    batch = clip_batch(TWO_RANK_B, seed=34, device="cpu", res=clip_cfg.vision.image_size,
+                       L=clip_cfg.text.context_length)
+
+    def stepped(wrap, rows):
+        model = daclip_model("fp32", "cuda", sd)
+        partition_daclip_params(model)
+        wrapped = parallel.parallelize(model, mesh, "cuda") if wrap else model
+        state = init_state(model, cfg, device="cuda")
+        _, m = make_train_step(wrapped, cfg, banks, device="cuda")(
+            state, {k: v[rows].cuda() for k, v in batch.items()})
+        return float(m["total_loss"]), {n: p.detach().clone() for n, p in state.params}
+
+    half = TWO_RANK_B // 2
+    reset_counts()
+    loss, ddp = stepped(True, slice(rank * half, (rank + 1) * half))
+    counts = read_counts()
+    if rank == 0:
+        loss_one, one = stepped(False, slice(0, TWO_RANK_B))
+        err = {n: float((ddp[n] - p).abs().max()) for n, p in one.items()}
+        worst = max(err, key=err.get)
+        p_max = max(float(p.abs().max()) for p in one.values())
+        pathlib.Path(out).write_text(json.dumps(dict(
+            initialized=[str(x) for x in got], backend=torch.distributed.get_backend(),
+            loss_two_ranks=loss, loss_one_process=loss_one, max_abs_diff=err[worst],
+            worst=worst, params_max=p_max, of_max=err[worst] / p_max, hand_kernels=counts)))
+    parallel.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def run_two_ranks_one_card():
+    """Two ranks on the one card over gloo with CUDA tensors
+    (`two_ranks_worker`): DDP with the all-gathered losses at world size 2,
+    the f32 step against one process on the same 64 rows, within
+    DDP_F32_LIMIT of the largest |parameter|; no hand kernel launched."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = pathlib.Path(d) / "out.json"
+        procs = [ctx.Process(target=two_ranks_worker, args=(r, f"{d}/store", str(out)))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0, 0], f"two_ranks_one_card: the ranks exited {codes}")
+        row = json.loads(out.read_text())
+    emit(phase="two_ranks_one_card", what=f"two processes on cuda:0 over gloo, DDP and the "
+         f"gathered losses, an f32 step of {DACLIP_MODEL} on {TWO_RANK_B // 2} rows each, "
+         f"against one process on all {TWO_RANK_B}", seconds=time.perf_counter() - t0,
+         **row, limit=DDP_F32_LIMIT)
+    check(row["backend"] == "gloo", f"two_ranks_one_card backend {row['backend']}")
+    check(row["of_max"] <= DDP_F32_LIMIT, f"two_ranks_one_card: {row}")
+    check(not any(row["hand_kernels"].values()), f"hand kernels: {row['hand_kernels']}")
+
+
+def torchrun(module, args, cwd, timeout=900):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    <module> <args>` in `cwd` (the repository on PYTHONPATH), its output to
+    `cwd/<module>.log`; the seconds it took and the log's tail. Fails on a
+    non-zero exit. (torchrun's parser takes an abbreviation of its own
+    options, so `--logs` would be its `--logs-specs`: the DA-CLIP CLI logs
+    to its default ./logs under `cwd`.)"""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", module, *args]
+    log = pathlib.Path(cwd) / f"{module}.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        res = subprocess.run(cmd, cwd=cwd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                             timeout=timeout)
+    seconds = time.perf_counter() - t0
+    tail = log.read_text()[-3000:]
+    check(res.returncode == 0, f"torchrun -m {module} exited {res.returncode}:\n{tail}")
+    return seconds, tail
+
+
+def run_torchrun_cli():
+    """Both train CLIs launched by torchrun (one process, `--mesh 1`, NCCL):
+    `cli.train_daclip` for one epoch over train_daclip_cli's seeded CSV tree
+    (--da, daclip_ViT-B-32, amp, batch 8, 4 workers), and
+    `cli.train_restoration -opt` on train_cli's options and seeded MD tree
+    for 2 steps (a validation and a checkpoint at 2), both trees' PNGs with
+    Up rows only; each must write
+    exactly its one checkpoint (no temporary file left), which loads into
+    the single-card model."""
+    import gc
+    import tempfile
+
+    import yaml
+
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.utils.checkpoint import load_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        root = pathlib.Path(d)
+        # the same seeded pixels as train_daclip_cli's and train_cli's trees,
+        # every PNG with Up rows: the Paeth decode (~1 s an image, the host's
+        # GIL) is those phases' to measure, and would double this one's time
+        train_csv = write_clip_tree(root / "clip", CLIP_TREE[0], seed=41, filters=("up",))
+        daclip_s, daclip_log = torchrun("daclip_torch.cli.train_daclip", [
+            "--mesh", "1", "--train-data", train_csv, "--da", "--model", DACLIP_MODEL,
+            "--precision", "amp", "--batch-size", str(CLIP_CLI_B), "--workers",
+            str(CLIP_CLI_WORKERS), "--name", "run", "--lr", "2e-5", "--epochs", "1"], root)
+        ckpts = root / "logs" / "run" / "checkpoints"
+        files = sorted(str(p.relative_to(ckpts)) for p in ckpts.rglob("*") if p.is_file())
+        check(files == ["best/epoch_1.pt", "epoch_1.pt"], f"torchrun train_daclip wrote {files}")
+        clip_cfg = CLIPCfg.from_dict(get_model_config(DACLIP_MODEL))
+        ck = torch.load(ckpts / "epoch_1.pt", map_location="cpu", weights_only=False)
+        DaCLIP(clip_cfg, use_predictor=True).load_state_dict(ck["state_dict"], strict=True)
+        clip_steps = int(ck["step"])
+
+        types = ["noisy", "rainy"]
+        write_md_tree(root / "train", types, 8, CLI_MD_SHAPE, seed=21, filters=("up",))
+        write_md_tree(root / "val", types, 1, CLI_VAL_SHAPE, seed=22, filters=("up",))
+        daclip_pt = root / "daclip_ViT-B-32.pt"
+        torch.save({k: v.cpu() for k, v in seeded_state_dict(lambda: DaCLIP(clip_cfg),
+                                                             seed=12).items()}, daclip_pt)
+        opt = yaml.safe_load((REPO / "configs" / "daclip-sde" / "train.yml").read_text())
+        opt["distortion"] = types
+        opt["datasets"]["train"]["dataroot"] = str(root / "train")
+        opt["datasets"]["val"]["dataroot"] = str(root / "val")
+        opt["path"].update(root=str(root / "out"), daclip=str(daclip_pt))
+        opt["train"].update(niter=2, val_freq=2)
+        opt["logger"].update(print_freq=1, save_checkpoint_freq=2)
+        train_yml = root / "train.yml"
+        train_yml.write_text(yaml.safe_dump(opt))
+        resto_s, resto_log = torchrun("daclip_torch.cli.train_restoration", [
+            "-opt", str(train_yml), "--mesh", "1", "--val-sample-T", str(CLI_VAL_T)], root)
+        state_dir = root / "out" / "experiments" / opt["name"] / "training_state"
+        resto_files = sorted(p.name for p in state_dir.iterdir())
+        check(resto_files == ["2.pt"], f"torchrun train_restoration wrote {resto_files}")
+        net_opt = opt["network_G"]["setting"]
+        unet = ConditionalUNet(nf=net_opt["nf"], ch_mult=tuple(net_opt["ch_mult"]),
+                               context_dim=net_opt["context_dim"],
+                               use_degra_context=net_opt["use_degra_context"],
+                               use_image_context=net_opt["use_image_context"])
+        unet.load_state_dict(load_params(str(state_dir)), strict=True)
+        resto_step = int(torch.load(state_dir / "2.pt", map_location="cpu",
+                                    weights_only=False)["step"])
+    emit(phase="torchrun_cli", what="python -m torch.distributed.run --standalone "
+         "--nproc_per_node 1 -m <cli> --mesh 1: train_daclip one epoch, train_restoration 2 "
+         "steps; one checkpoint each, loaded into the single-card model",
+         train_daclip=dict(seconds=daclip_s, files=files, step=clip_steps,
+                           log_tail=daclip_log[-600:]),
+         train_restoration=dict(seconds=resto_s, files=resto_files, step=resto_step,
+                                log_tail=resto_log[-600:]))
+    check(clip_steps == CLIP_TREE[0] // CLIP_CLI_B, f"train_daclip took {clip_steps} steps")
+    check(resto_step == 2, f"train_restoration stopped at step {resto_step}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3722,6 +4195,7 @@ def main():
 
     if len(sys.argv) != 1:
         sys.exit(f"usage: {sys.argv[0]} (no arguments: every phase runs)")
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3778,6 +4252,13 @@ def main():
         check_above_bounds(key_rows)
     daclip = run_train_daclip()
     run_patch_dropout(daclip)
+    t0 = time.perf_counter()
+    with world_of_one() as mesh:
+        ddp_totals, fsdp_totals = run_ddp_train(mesh, train_step_ms)
+        run_ddp_daclip(mesh, daclip)
+    run_two_ranks_one_card()
+    run_torchrun_cli()
+    multi_card_s = time.perf_counter() - t0
     inspect_dir = run_train_daclip_cli(daclip["step_ms"])
     del daclip
     run_train_daclip_wds()
@@ -3786,7 +4267,8 @@ def main():
 
     # launches on each main path, each counted from 0 just before its run:
     # serve (the four requests), serve_alt (two requests per other wiring),
-    # train (five timed steps), train_alt (three), train_cli (the CLI's two
+    # train (five timed steps), train_alt (three), ddp_train and fsdp_train
+    # (three steps each, through DDP and FSDP2), train_cli (the CLI's two
     # runs, 2 steps and 4 validations), test_lpips (cli.test_restoration
     # --lpips-weights: two restores at T=100), wild_ir_train (train_wild's
     # two runs, 4 steps and 4 validations), wild_ir_test (test_wild's two
@@ -3796,7 +4278,7 @@ def main():
     # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
     # and kernels_conv phases, and the conv's in the hooked forward_conv
     paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, gradio=gradio_totals,
-                 train=train_totals,
+                 train=train_totals, ddp_train=ddp_totals, fsdp_train=fsdp_totals,
                  train_alt=train_alt_totals, train_cli=train_cli_totals,
                  test_lpips=test_lpips_totals, **wild_totals, stage_profile=stage_totals,
                  kernels=dict(core=core_path),
@@ -3855,6 +4337,8 @@ def main():
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"],
                             library_device_ms=r.get("library_device_ms")))
+    emit(phase="total", seconds=time.perf_counter() - started,
+         multi_card_phases_seconds=multi_card_s)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,10 +4,12 @@ surface (da-clip/src/training/params.py:26-459), flag for flag.
 Counterpart of `daclip_tpu/cli/params.py`: `parse_args` gives the same
 namespace for the same argv, `get_default_params` filling `--lr`, `--beta*`
 and `--eps` per model (params.py:5-11, 452-457), plus one flag of the
-port's, `--device`. Flags whose mechanism one card does not need (DDP,
-horovod, torchscript, the gather knobs) are accepted and do nothing; the
-ones `cli/train_daclip.py` does not carry yet exit there, before any work,
-naming the ROADMAP item that holds them.
+port's, `--device`. `--dist-url`, `--dist-backend`, `--no-set-device-rank`
+and `--mesh` form the process group and mesh (`daclip_torch.parallel`);
+flags whose mechanism the port does not need (horovod, torchscript, the
+gather knobs, whose loss is global either way) are accepted and do
+nothing; the ones `cli/train_daclip.py` does not carry yet exit there,
+before any work, naming the ROADMAP item that holds them.
 """
 from __future__ import annotations
 
@@ -118,11 +120,11 @@ def parse_args(args=None):
                         help="recompute the transformer blocks in the backward "
                              "(torch.utils.checkpoint)")
     parser.add_argument("--local-loss", default=False, action="store_true",
-                        help="accepted for script compat: one card holds the "
-                             "whole batch")
+                        help="accepted for script compat: over several ranks the "
+                             "loss is the global batch's whatever this says")
     parser.add_argument("--gather-with-grad", default=False, action="store_true",
-                        help="accepted for script compat: one card holds the "
-                             "whole batch")
+                        help="accepted for script compat: the features are always "
+                             "gathered with their gradient (the exact global loss)")
     parser.add_argument("--force-image-size", type=int, nargs="+", default=None)
     parser.add_argument("--force-quick-gelu", default=False, action="store_true")
     parser.add_argument("--force-patch-dropout", default=None, type=float)
@@ -138,15 +140,16 @@ def parse_args(args=None):
     parser.add_argument("--accum-freq", type=int, default=1)
     # ---- distributed ---------------------------------------------------------
     parser.add_argument("--dist-url", default="env://", type=str,
-                        help="accepted for script compat: one card, no process group")
+                        help="process group rendezvous under torchrun/SLURM: env://, "
+                             "tcp:// or file://")
     parser.add_argument("--dist-backend", default="nccl", type=str,
-                        help="accepted for script compat; no effect")
+                        help="nccl on cuda; gloo on the cpu or when asked")
     parser.add_argument("--horovod", default=False, action="store_true",
                         help="accepted for script compat; no effect")
     parser.add_argument("--ddp-static-graph", default=False, action="store_true",
-                        help="accepted for script compat; no effect")
-    parser.add_argument("--no-set-device-rank", default=False,
-                        action="store_true", help="accepted for script compat; no effect")
+                        help="DDP's static graph (the --mesh data axis alone)")
+    parser.add_argument("--no-set-device-rank", default=False, action="store_true",
+                        help="do not pin cuda:LOCAL_RANK (the reference's flag)")
     # ---- reporting -----------------------------------------------------------
     parser.add_argument("--report-to", default="", type=str,
                         help="comma-separated: wandb, tensorboard")
@@ -182,8 +185,9 @@ def parse_args(args=None):
     parser.add_argument("--crop", default=False, action="store_true")
     # ---- the JAX package's extensions ---------------------------------------------
     parser.add_argument("--mesh", type=str, default=None,
-                        help="device mesh; one card here: any value but 1 exits "
-                             "(ROADMAP queue 1 item 6)")
+                        help="'data[,fsdp[,model]]' over the world size (default: all "
+                             "processes on data, DDP); fsdp shards the parameters, "
+                             "model splits the towers (tensor parallel)")
     parser.add_argument("--debug-nans", action="store_true", default=False,
                         help="torch.autograd.set_detect_anomaly")
     parser.add_argument("--uir-variant", action="store_true", default=False,

@@ -1,5 +1,6 @@
-"""CLIP / DA-CLIP training CLI on one card — the `python -m training.main`
-equivalent (reference da-clip/src/training/main.py:71-498).
+"""CLIP / DA-CLIP training CLI, on one card or over torchrun's processes —
+the `python -m training.main` equivalent (reference da-clip/src/training/
+main.py:71-498).
 
 Counterpart of `daclip_tpu/cli/train_daclip.py:70-478`: the reference's flag
 surface (`cli/params.py`), the run's name and log dir, the CSV or synthetic
@@ -18,6 +19,21 @@ Usage (da-clip/src/single_train.sh):
       --model daclip_ViT-B-32 --pretrained pretrained/ViT-B-32.pt \\
       --batch-size 128 --epochs 50 --lr 2e-5 --device cuda
 
+Several cards (da-clip/src/multi_train.sh): one run over torchrun's
+processes, one card each, `--batch-size` per process (so 4 × 512 is the
+reference's global batch of 2048), the loss over the global batch:
+  torchrun --nproc_per_node 4 -m daclip_torch.cli.train_daclip \\
+      --train-data data/train.csv --da --model daclip_ViT-B-32 \\
+      --pretrained pretrained/ViT-B-32.pt --batch-size 512 --epochs 200 --lr 3e-5
+`--mesh data[,fsdp[,model]]` (default: all processes on `data`, DDP) must
+span the world size: fsdp > 1 shards the parameters (FSDP2, HSDP over
+(data, fsdp)), model > 1 splits the towers' attention heads and MLPs
+(tensor parallel). The CSV loader stripes one seeded order by rank; each
+rank draws its own crops; rank 0 alone writes logs, TensorBoard,
+checkpoints and the remote sync and runs the evaluations, the other ranks
+waiting. `--dist-url` (env://, tcp://, file://), `--dist-backend` and
+`--no-set-device-rank` are the reference's (`daclip_torch.parallel`).
+
 Also webdataset shards (`--dataset-type webdataset` or a `::`, `.tar` or
 `{` pattern; `--train-data-upsampling-factors`, `--dataset-resampled`;
 `--train-num-samples` required), patch dropout (`--force-patch-dropout`),
@@ -27,15 +43,16 @@ ImageNet zero-shot every `--zeroshot-frequency` epochs and at the last
 there are none here), and registry tags as `--pretrained`.
 
 `--device` defaults to cuda and raises without a GPU unless given `cpu`.
-Flags this CLI does not carry exit before any work: `--mesh` past one
-device (ROADMAP queue 1 item 6), `--report-to wandb`, and `--imagenet-v2`,
-which daclip_tpu parses and evaluates nowhere either. `--fast-clip-view`
+Flags this CLI does not carry exit before any work: `--report-to wandb`,
+and `--imagenet-v2`, which daclip_tpu parses and evaluates nowhere either;
+so does a `--mesh` whose product is not the world size. `--fast-clip-view`
 trains on cv2's decode and resize (`transforms.image_transform(
 backend="cv2")`), as daclip_tpu's does: the same crop draws, not PIL's
 bytes.
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import random
@@ -51,9 +68,6 @@ from daclip_torch.cli.params import parse_args
 
 def refuse_unported(args) -> None:
     """Exit before any work on a flag this CLI does not carry."""
-    if args.mesh not in (None, "1", "none"):
-        raise SystemExit("--mesh: multi-card training (fsdp/TP mesh, DDP global negatives) "
-                         "is not ported to daclip_torch yet (ROADMAP queue 1 item 6)")
     if "wandb" in args.report_to.split(","):
         raise SystemExit("--report-to wandb: wandb reporting is not ported to daclip_torch "
                          "yet (ROADMAP queue 1 item 4, waiting)")
@@ -92,12 +106,19 @@ def _setup_logging(log_base: str, debug: bool):
     return logging.getLogger("daclip")
 
 
-def build_data(args, pp_train, pp_val, tokenizer, image_size: int = 224):
+def build_data(args, pp_train, pp_val, tokenizer, image_size: int = 224, host_id: int = 0,
+               num_hosts: int = 1):
     """(train loader, banks or None, val dataset or None), as the JAX CLI
     builds them (daclip_tpu/cli/train_daclip.py:147-197). With
     `--fast-clip-view` the CSV train set decodes with cv2 and takes the cv2
     train view at `image_size`, normalised by --image-mean/--image-std, else
-    by the `--pretrained` tag's, as the factory's transforms are."""
+    by the `--pretrained` tag's, as the factory's transforms are. Over
+    `num_hosts` data-parallel ranks, the loaders stripe their order by
+    `host_id` (daclip_tpu's CSV loader does not: its GSPMD batch is split
+    over the devices) and each rank's crops draw from its own seed."""
+    from daclip_torch.parallel import rank_seed
+
+    data_seed = rank_seed(args.seed, host_id)
     from daclip_torch.data.csv_dataset import CsvDataset, SyntheticDataset
     from daclip_torch.data.loader import DataLoader
 
@@ -113,9 +134,10 @@ def build_data(args, pp_train, pp_val, tokenizer, image_size: int = 224):
         if args.train_data_upsampling_factors:
             weights = [float(w) for w in args.train_data_upsampling_factors.split("::")]
         wds = WebDataset(args.train_data, shuffle_buffer=5000, seed=args.seed,
+                         host_id=host_id, num_hosts=num_hosts,
                          resampled=args.dataset_resampled, weights=weights)
         loader = ClipWebLoader(wds, pp_train, tokenizer, args.batch_size,
-                               num_samples=args.train_num_samples or 0)
+                               num_samples=(args.train_num_samples or 0) // num_hosts)
         ds = None
     elif kind == "synthetic":
         ds = SyntheticDataset(pp_train, dataset_size=args.train_num_samples or 512,
@@ -129,13 +151,14 @@ def build_data(args, pp_train, pp_val, tokenizer, image_size: int = 224):
             pp_train = image_transform(image_size, is_train=True,
                                        mean=args.image_mean or tag.get("mean"),
                                        std=args.image_std or tag.get("std"),
-                                       rng=random.Random(args.seed), backend="cv2")
+                                       rng=random.Random(data_seed), backend="cv2")
         ds = CsvDataset(args.train_data, pp_train, args.csv_img_key, args.csv_caption_key,
                         args.csv_separator, tokenizer=tokenizer, da=args.da, crop=args.crop,
-                        seed=args.seed, decode="cv2" if args.fast_clip_view else "pil")
+                        seed=data_seed, decode="cv2" if args.fast_clip_view else "pil")
     if ds is not None:
         loader = DataLoader(ds, batch_size=args.batch_size, shuffle=True,
-                            num_workers=args.workers, seed=args.seed)
+                            num_workers=args.workers, seed=args.seed, num_hosts=num_hosts,
+                            host_id=host_id)
     val_ds = None
     if args.val_data:
         val_ds = CsvDataset(args.val_data, pp_val, args.csv_img_key, args.csv_caption_key,
@@ -148,10 +171,10 @@ def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
 
+    from daclip_torch import parallel
     from daclip_torch.data.loader import to_device
     from daclip_torch.eval.retrieval import evaluate as eval_retrieval
     from daclip_torch.factory import create_model, create_model_and_transforms
-    from daclip_torch.pipeline import resolve_device
     from daclip_torch.tokenizer import tokenize
     from daclip_torch.train.clip_train import (ClipTrainConfig, init_state,
                                                make_accum_train_step, make_train_step,
@@ -162,23 +185,40 @@ def main(argv=None):
     from daclip_torch.utils import file_utils
     from daclip_torch.utils.logging import MetricWriter
 
-    device = resolve_device(args.device)
+    rank, world, _, device = parallel.initialize_distributed(
+        args.dist_url, args.dist_backend, args.device, not args.no_set_device_rank)
+    try:
+        mesh = parallel.mesh_from_spec(args.mesh, world, device.type)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    host0 = rank == 0
+    dp_rank, dp_size = (0, 1) if mesh is None else (mesh.dp_rank, mesh.dp_size)
     if args.name is None:  # run identity (main.py:90-104)
         args.name = "-".join([time.strftime("%Y_%m_%d-%H_%M_%S"),
                               f"model_{args.model.replace('/', '-')}",
                               f"lr_{args.lr}", f"b_{args.batch_size}", f"p_{args.precision}"])
+        if world > 1:  # one name for the run: rank 0's clock
+            names = [args.name]
+            torch.distributed.broadcast_object_list(names, src=0)
+            args.name = names[0]
     log_base = os.path.join(args.logs, args.name)
     ckpt_dir = os.path.join(log_base, "checkpoints")
-    log = _setup_logging(log_base, args.debug)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    if args.copy_codebase:  # main.py:478-498
-        dst = os.path.join(log_base, "code", "daclip_torch")
-        if not os.path.exists(dst):
-            shutil.copytree(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), dst,
-                            ignore=shutil.ignore_patterns("__pycache__", "*.pyc", "build"))
+    if host0:
+        log = _setup_logging(log_base, args.debug)
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if args.copy_codebase:  # main.py:478-498
+            dst = os.path.join(log_base, "code", "daclip_torch")
+            if not os.path.exists(dst):
+                shutil.copytree(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                dst, ignore=shutil.ignore_patterns("__pycache__", "*.pyc",
+                                                                   "build"))
+    else:  # the other ranks log warnings only, to the console
+        log = logging.getLogger("daclip")
+        log.setLevel(logging.WARNING)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
-    log.info("device: %s", device)
+    log.info("device: %s, rank %d of %d, mesh %s", device, rank, world,
+             None if mesh is None else mesh.shape)
 
     # DA mode is implied by a daclip_* model (single_train.sh passes both)
     args.da = args.da or "daclip" in args.model
@@ -188,12 +228,12 @@ def main(argv=None):
         image_std=args.image_std, seed=args.seed, force_quick_gelu=args.force_quick_gelu,
         force_patch_dropout=args.force_patch_dropout,
         force_image_size=args.force_image_size[0] if args.force_image_size else None,
-        remat=args.grad_checkpointing, rng=random.Random(args.seed))
+        remat=args.grad_checkpointing, rng=random.Random(parallel.rank_seed(args.seed, dp_rank)))
     if args.pretrained:
         log.info("loaded pretrained weights: %s", args.pretrained)
     tokenizer = partial(tokenize, context_length=model.cfg.text.context_length)
     loader, banks, val_ds = build_data(args, pp_train, pp_val, tokenizer,
-                                       model.cfg.vision.image_size)
+                                       model.cfg.vision.image_size, dp_rank, dp_size)
 
     trainable, _ = partition_daclip_params(model)
     update_mask = build_update_mask(
@@ -227,32 +267,39 @@ def main(argv=None):
         skip_scheduler=args.skip_scheduler, grad_clip_norm=args.grad_clip_norm,
         accum_freq=args.accum_freq, variant=variant, distill=teacher is not None,
         patch_dropout=bool(args.force_patch_dropout))
+    # a whole copy to evaluate on rank 0 when the mesh shards the model
+    sharded = mesh is not None and (mesh.shape[1] > 1 or mesh.shape[2] > 1)
+    template = copy.deepcopy(model) if sharded and host0 else None
+    wrapped = parallel.parallelize(model.to(device), mesh, device,
+                                  static_graph=args.ddp_static_graph)
+    model = parallel.unwrap(wrapped)
     state = init_state(model, cfg, update_mask, device=device)
     if use_accum:
-        step_fn = make_accum_train_step(model, cfg, banks, device=device)
+        step_fn = make_accum_train_step(wrapped, cfg, banks, device=device)
     else:
-        step_fn = make_train_step(model, cfg, banks, distill_model=teacher, device=device)
+        step_fn = make_train_step(wrapped, cfg, banks, distill_model=teacher, device=device)
 
     start_epoch = 0
     if args.resume:  # main.py:131-163
         rdir = ckpt_dir if args.resume == "latest" else args.resume
-        if (args.resume == "latest" and args.remote_sync
+        if (args.resume == "latest" and args.remote_sync and host0
                 and latest_step(rdir, EPOCH) is None):
             # no checkpoint here: mirror the synced checkpoint dir down first
             remote_ckpts = os.path.join(args.remote_sync, args.name, "checkpoints")
             if file_utils.list_remote_dir(remote_ckpts):
                 file_utils.download_remote_dir(remote_ckpts, rdir)
                 log.info("downloaded remote checkpoints from %s", remote_ckpts)
+        parallel.barrier()
         if os.path.isfile(rdir) or latest_step(rdir, EPOCH) is not None:
-            start_epoch = restore_clip_checkpoint(rdir, model, state)
+            start_epoch = restore_clip_checkpoint(rdir, wrapped, state)
             log.info("resumed from %s epoch %d", rdir, start_epoch)
         elif args.resume != "latest":
             raise FileNotFoundError(args.resume)
 
     report_to = [r for r in args.report_to.split(",") if r]
-    writer = MetricWriter(log_base, use_tensorboard="tensorboard" in report_to)
+    writer = MetricWriter(log_base, use_tensorboard="tensorboard" in report_to) if host0 else None
     sync_thread = None
-    if args.remote_sync:  # main.py:121-129
+    if args.remote_sync and host0:  # main.py:121-129
         remote_base = os.path.join(args.remote_sync, args.name)
         if not file_utils.remote_sync(log_base, remote_base, args.remote_sync_protocol):
             raise SystemExit("initial remote sync failed (main.py:121-129)")
@@ -260,24 +307,36 @@ def main(argv=None):
             args.remote_sync_frequency, log_base, remote_base, args.remote_sync_protocol)
         sync_thread.start()
 
-    def run_val():
-        metrics = eval_retrieval(model, val_ds, batch_size=args.batch_size, banks=banks,
+    def eval_model():
+        """The model whole, on rank 0 (None on the others): under FSDP or
+        tensor parallelism every rank gathers its state into rank 0's copy,
+        which is on the card only while it evaluates."""
+        if not sharded:
+            return model if host0 else None
+        sd = parallel.model_state(model)
+        if not host0:
+            return None
+        template.load_state_dict(sd, strict=True)
+        return template.to(device)
+
+    def run_val(m):
+        metrics = eval_retrieval(m, val_ds, batch_size=args.batch_size, banks=banks,
                                  variant=cfg.variant, device=device)
         log.info("val: %s", {k: round(v, 4) for k, v in metrics.items()})
         return metrics
 
-    @torch.no_grad()
-    def encode_views(views):
-        x = torch.from_numpy(np.ascontiguousarray(views, dtype=np.float32))
-        return model.encode_image(x.permute(0, 3, 1, 2).to(device), normalize=True)
-
-    def run_zero_shot():
+    def run_zero_shot(m):
         """In-training ImageNet zero-shot (train.py:380 → zero_shot.py)."""
         from daclip_torch.eval.imagenet_zero_shot import evaluate_with_encoders
 
+        @torch.no_grad()
+        def encode_views(views):
+            x = torch.from_numpy(np.ascontiguousarray(views, dtype=np.float32))
+            return m.encode_image(x.permute(0, 3, 1, 2).to(device), normalize=True)
+
         metrics = evaluate_with_encoders(
-            encode_views, lambda toks: model.encode_text(toks, normalize=True),
-            args.imagenet_val, model.cfg.vision.image_size, batch_size=args.batch_size,
+            encode_views, lambda toks: m.encode_text(toks, normalize=True),
+            args.imagenet_val, m.cfg.vision.image_size, batch_size=args.batch_size,
             device=device)
         log.info("zero-shot: %s", {k: round(v, 4) for k, v in metrics.items()})
         return metrics
@@ -301,8 +360,8 @@ def main(argv=None):
                 state, m = step_fn(state, dev)
             losses.append(float(m["total_loss"]))
             global_step += 1
-            if (i + 1) % args.log_every_n_steps == 0 or i + 1 == steps_per_epoch:
-                sps = (i + 1) * args.batch_size / (time.time() - t0)
+            if host0 and ((i + 1) % args.log_every_n_steps == 0 or i + 1 == steps_per_epoch):
+                sps = (i + 1) * args.batch_size * dp_size / (time.time() - t0)
                 log.info("epoch %d step %d loss %.4f (%.1f samples/s)",
                          epoch, i + 1, losses[-1], sps)
                 writer.write(global_step, {"loss": losses[-1],
@@ -313,14 +372,22 @@ def main(argv=None):
         log.info("epoch %d done: mean loss %.4f", epoch, epoch_loss)
 
         evals = {}
-        if val_ds is not None and (epoch + 1) % args.val_frequency == 0:
-            evals.update(run_val())
-        if args.imagenet_val and args.zeroshot_frequency and (
-                (epoch + 1) % args.zeroshot_frequency == 0 or epoch + 1 == args.epochs):
-            evals.update(run_zero_shot())
+        do_val = val_ds is not None and (epoch + 1) % args.val_frequency == 0
+        do_zs = bool(args.imagenet_val and args.zeroshot_frequency and (
+            (epoch + 1) % args.zeroshot_frequency == 0 or epoch + 1 == args.epochs))
+        if do_val or do_zs:  # rank 0 evaluates; the others wait
+            m = eval_model()
+            if host0:
+                if do_val:
+                    evals.update(run_val(m))
+                if do_zs:
+                    evals.update(run_zero_shot(m))
+                if sharded:
+                    template.cpu()
+            parallel.barrier()
         if evals:
             writer.write(global_step, evals, prefix="val/")
-        save = partial(save_clip_checkpoint, model=model, state=state, epoch=epoch + 1,
+        save = partial(save_clip_checkpoint, model=wrapped, state=state, epoch=epoch + 1,
                        name=args.name)
         if (epoch + 1) % args.save_frequency == 0:
             save(ckpt_dir, max_to_keep=max_to_keep)
@@ -330,7 +397,8 @@ def main(argv=None):
             best_loss = epoch_loss
             save(os.path.join(ckpt_dir, "best"), max_to_keep=1)
     log.info("training complete; best epoch loss %.4f", best_loss)
-    writer.close()
+    if writer is not None:
+        writer.close()
     if sync_thread is not None:
         sync_thread.stop(final_sync=True)
     return {"best_loss": best_loss}

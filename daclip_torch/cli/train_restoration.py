@@ -12,8 +12,20 @@ the EMA UNet sampling up to 8 images, with the best PSNR tracked.
 Usage:
   python -m daclip_torch.cli.train_restoration -opt configs/daclip-sde/train.yml
 
+Several cards: one run over torchrun's processes, the options'
+`batch_size` the global batch (each of the W processes takes batch_size / W
+rows, as the reference's loader does), DDP by default, FSDP2 (HSDP) with
+`--mesh data,fsdp` (daclip_tpu/cli/train_restoration.py:117-121, 221-238):
+  torchrun --nproc_per_node 4 -m daclip_torch.cli.train_restoration \\
+      -opt configs/daclip-sde/train.yml --mesh 2,2
+Each rank draws its own t and noise (seeded by (seed, rank)); rank 0 alone
+validates from the whole EMA parameters and writes the checkpoints (the
+single-card files), the other ranks waiting. A `--mesh` whose product is
+not the world size, or whose data-parallel ranks do not divide the batch,
+exits before any work; the `model` axis is refused (the UNet has no
+tensor-parallel layout in either package).
+
 `--device` defaults to cuda and raises without a GPU unless given `cpu`.
-`--mesh` is not ported (one card): any value but 1 raises.
 """
 from __future__ import annotations
 
@@ -182,6 +194,11 @@ def _generator(device, *seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(hash(seed) & (2 ** 63 - 1))
 
 
+def _rank_generator(device, rank: int, *seed: int) -> torch.Generator:
+    """Rank 0 draws as one process does; rank r > 0 from (seed…, r)."""
+    return _generator(device, *seed) if rank == 0 else _generator(device, *seed, rank)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("-opt", required=True)
@@ -191,28 +208,41 @@ def main(argv=None):
     p.add_argument("--debug-nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly (the reference's detect_anomaly)")
     p.add_argument("--mesh", default=None,
-                   help="not ported: one card; any value but 1 raises")
+                   help="'data[,fsdp]' over the world size (default: all on data, DDP)")
+    p.add_argument("--dist-url", default="env://",
+                   help="process group rendezvous: env:// (torchrun), tcp:// or file://")
+    p.add_argument("--dist-backend", default=None,
+                   help="nccl on cuda (default), gloo on the cpu or when asked")
+    p.add_argument("--no-set-device-rank", action="store_true",
+                   help="do not pin cuda:LOCAL_RANK")
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     args = p.parse_args(argv)
 
     from daclip_torch import config as cfg_mod
+    from daclip_torch import parallel
     from daclip_torch.models.unet import ConditionalUNet
-    from daclip_torch.pipeline import resolve_device
     from daclip_torch.train.restoration import init_state, make_sampler
     from daclip_torch.utils import metrics
     from daclip_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 
-    if args.mesh not in (None, "1", "none"):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-card training is not ported yet (ROADMAP queue 1 "
-            "item 6); daclip_torch trains on one device")
-    device = resolve_device(args.device)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    rank, world, _, device = parallel.initialize_distributed(
+        args.dist_url, args.dist_backend, args.device, not args.no_set_device_rank)
+    opt = cfg_mod.parse(args.opt, is_train=True)
+    try:
+        if parallel.parse_mesh(args.mesh, world)[2] > 1:
+            raise ValueError(f"--mesh {args.mesh}: the model axis is not carried by the "
+                             "restoration trainer (the UNet has no tensor-parallel layout)")
+        mesh = parallel.mesh_from_spec(args.mesh, world, device.type,
+                                       batch_size=opt["datasets"]["train"].get("batch_size", 16))
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    host0 = rank == 0
+    logging.basicConfig(level=logging.INFO if host0 else logging.WARNING,
+                        format="%(asctime)s %(message)s")
     log = logging.getLogger("train")
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 
-    opt = cfg_mod.parse(args.opt, is_train=True)
     train_opt = opt["train"] or {}
     niter = args.max_steps or int(train_opt.get("niter", 700000))
     cfg = train_config(train_opt, niter)
@@ -231,16 +261,19 @@ def main(argv=None):
     # init from manual_seed, then resume from the newest checkpoint
     torch.manual_seed(train_opt.get("manual_seed", 0) or 0)
     unet = ConditionalUNet(dtype=torch.bfloat16, **kw)
+    wrapped = parallel.parallelize(unet.to(device), mesh, device, static_graph=True)
     state = init_state(unet, cfg, device=device)
     ckpt_dir = opt["path"]["training_state"]
     start_step = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
-        restore_checkpoint(ckpt_dir, unet, state)
+        restore_checkpoint(ckpt_dir, wrapped, state)
         start_step = state.step
         log.info("resumed from step %d", start_step)
-    step_fn = make_step(unet, sde, cfg, device, context_fn)
+    step_fn = make_step(wrapped, sde, cfg, device, context_fn)
+    log.info("rank %d of %d, mesh %s", rank, world, None if mesh is None else mesh.shape)
 
-    train_loader, val_ds = build_dataloaders(opt, context_fn=context_fn, log=log)
+    train_loader, val_ds = build_dataloaders(opt, num_hosts=world, host_id=rank,
+                                             context_fn=context_fn, log=log)
     val_freq = int(train_opt.get("val_freq", 1e4))
     save_freq = int((opt["logger"] or {}).get("save_checkpoint_freq", 1e4))
     print_freq = int((opt["logger"] or {}).get("print_freq", 200))
@@ -251,10 +284,15 @@ def main(argv=None):
     best_psnr, best_step = -1.0, -1
 
     def run_val(step):
+        """Rank 0 samples with the whole EMA parameters; the others wait."""
         nonlocal best_psnr, best_step
         if val_ds is None:
             return
-        val_unet.load_state_dict(state.ema.params, strict=True)
+        ema = parallel.full_tensors(state.ema.params)
+        if not host0:
+            parallel.barrier()
+            return
+        val_unet.load_state_dict(ema, strict=True)
         psnrs = []
         for i in range(min(len(val_ds), 8)):
             s = val_ds[i]
@@ -273,6 +311,7 @@ def main(argv=None):
         if psnr > best_psnr:
             best_psnr, best_step = psnr, step
         log.info("# val step %d: psnr %.4f (best %.4f @ %d)", step, psnr, best_psnr, best_step)
+        parallel.barrier()
 
     log.info("training from step %d to %d", start_step, niter)
     step = start_step
@@ -281,23 +320,23 @@ def main(argv=None):
     while step < niter:
         train_loader.set_epoch(epoch)
         for batch in train_loader:
-            state, m = step_fn(state, batch, _generator(device, 1234, step))
+            state, m = step_fn(state, batch, _rank_generator(device, rank, 1234, step))
             step += 1
             if step % print_freq == 0:
-                ips = print_freq * B / (time.time() - t0)
+                ips = print_freq * B / (time.time() - t0)  # B: the global batch
                 t0 = time.time()
                 log.info("step %d loss %.5f lr %.2e %.1f samples/s",
                          step, float(m["loss"]), float(m["lr"]), ips)
             if val_freq and step % val_freq == 0:
                 run_val(step)
             if ckpt_dir and save_freq and step % save_freq == 0:
-                save_checkpoint(ckpt_dir, unet, state, max_to_keep=5)
+                save_checkpoint(ckpt_dir, wrapped, state, max_to_keep=5)
                 log.info("saving checkpoint @ %d", step)
             if step >= niter:
                 break
         epoch += 1
     if ckpt_dir:
-        save_checkpoint(ckpt_dir, unet, state, max_to_keep=5)
+        save_checkpoint(ckpt_dir, wrapped, state, max_to_keep=5)
     run_val(step)
     log.info("done: best psnr %.4f @ step %d", best_psnr, best_step)
     return {"best_psnr": best_psnr, "best_step": best_step, "final_step": step}

@@ -65,11 +65,13 @@ def _collate(samples) -> Dict[str, np.ndarray]:
 
 class DataLoader:
     """Iterates batches of collated numpy dicts; `batch_size` is the host's
-    batch."""
+    batch. Without a sampler, `num_hosts` > 1 stripes the epoch's one
+    (seeded) order by `host_id`, each host taking len // num_hosts samples,
+    so every host runs the same number of batches."""
 
     def __init__(self, dataset, batch_size: int, sampler: Optional[IterSampler] = None,
                  shuffle: bool = False, num_workers: int = 0, drop_last: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, num_hosts: int = 1, host_id: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
@@ -77,10 +79,11 @@ class DataLoader:
         self.num_workers = num_workers
         self.drop_last = drop_last
         self.seed = seed
+        self.num_hosts, self.host_id = num_hosts, host_id
         self._epoch = 0
 
     def __len__(self):
-        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
+        n = len(self.sampler) if self.sampler is not None else len(self.dataset) // self.num_hosts
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _indices(self):
@@ -89,6 +92,8 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        if self.num_hosts > 1:
+            idx = idx[:len(idx) // self.num_hosts * self.num_hosts][self.host_id::self.num_hosts]
         return idx.tolist()
 
     def set_epoch(self, epoch: int):

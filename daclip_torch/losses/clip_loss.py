@@ -5,8 +5,20 @@ loss.py:66-132 ClipLoss, universal-image-restoration/open_clip/loss.py:
 179-196 DaClipLoss, the fork's da-clip/src/open_clip/loss.py:180-433 with
 FCRC and DistillClipLoss). Logits are float32: features of any dtype are
 cast up before the product (bf16 products are exact in f32), as the JAX
-package's `preferred_element_type=f32`. One card holds the whole batch, so
-there is no feature gather.
+package's `preferred_element_type=f32`.
+
+Over several ranks the losses are global, as daclip_tpu's are under GSPMD
+(the reference's gather_features, open_clip/loss.py:19-63):
+`gather_features` all-gathers a forward's per-sample outputs with a
+gradient (`torch.distributed.nn.all_gather`'s semantics, whose gloo
+backward cannot take a subgroup), and every rank computes the whole-batch
+loss on them. The gather's backward sums each rank's gradient of its rows
+over the ranks (a reduce-scatter), and DDP averages, so the averaged
+gradient is the global loss's exactly; FCRC's cross-sample λ, the masked means'
+denominators and the distillation term see the global batch. The
+reference's `--local-loss` and `--gather-with-grad` choose other forms of
+the same loss (without the gradient, its features get 1/W of theirs); here
+both give these numbers.
 """
 from __future__ import annotations
 
@@ -17,6 +29,45 @@ import torch.nn.functional as F
 
 TYPE_RANGES = ((0.5, 4.0), (5.0, 40.0), (0.5, 4.0), (10.0, 80.0))  # loss.py:209-214
 NUM_TYPES, NUM_BINS = 4, 7
+# the per-sample outputs of a forward that the losses read
+PER_SAMPLE_KEYS = ("image_features", "text_features", "image_degra_features",
+                   "text_degra_features", "gt_image_features", "pred", "deg_type", "gt_val")
+
+
+class _AllGather(torch.autograd.Function):
+    """Rows of every rank, in rank order; the backward sums each rank's
+    gradient of this rank's rows over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        n = dist.get_world_size(ctx.group)
+        mine = torch.empty((g.shape[0] // n,) + tuple(g.shape[1:]), dtype=g.dtype,
+                           device=g.device)
+        dist.reduce_scatter_tensor(mine, g.contiguous(), group=ctx.group)
+        return mine, None
+
+
+def gather_features(out: Dict, group=None) -> Dict:
+    """`out` with its per-sample entries all-gathered over `group` (the
+    default group when None) in rank order, the gradient flowing back to
+    each rank's rows; other entries (logit_scale, the level banks' features)
+    are the same on every rank and stay."""
+    out = dict(out)
+    for k in PER_SAMPLE_KEYS:
+        if out.get(k) is not None:
+            out[k] = _AllGather.apply(out[k], group)
+    return out
 
 
 def _logits(a, b, scale):

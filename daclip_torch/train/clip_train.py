@@ -28,6 +28,12 @@ src/training/main.py:219-459, train.py:64-245):
     `make_accum_train_step`, with its quirks kept: the gradient is not
     divided by `accum_freq`, `logit_scale` gets `accum_freq`× its full-batch
     gradient, and the GT features come from the first pass.
+  * Several ranks (`daclip_torch.parallel`): the steps take the model as
+    `parallel.parallelize` wrapped it (DDP, FSDP, tensor parallel). Each
+    rank's per-sample outputs are gathered over the data-parallel group and
+    every rank computes the global batch's loss (`losses.gather_features`),
+    so the averaged gradient is daclip_tpu's over its mesh; the clip norm is
+    the whole gradient's, and the metrics are the group's means.
 
 The entry points put the model on `device`, which defaults to CUDA and
 raises without a GPU unless the caller passes `device="cpu"`. Batches are
@@ -45,17 +51,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from daclip_torch.losses import clip_loss, daclip_loss_fork, daclip_loss_uir, distill_clip_loss
+from daclip_torch import parallel
+from daclip_torch.losses import (clip_loss, daclip_loss_fork, daclip_loss_uir,
+                                 distill_clip_loss, gather_features)
+from daclip_torch.losses.clip_loss import PER_SAMPLE_KEYS
 from daclip_torch.models.clip import DaCLIP
 from daclip_torch.train import schedules as sched
 from daclip_torch.train.locking import apply_update_mask
-from daclip_torch.train.restoration import (_check_device, _on_device, clip_by_global_norm,
-                                            global_norm)
+from daclip_torch.train.restoration import _check_device, _on_device, clip_by_global_norm
 
-# per-sample outputs the losses read, spliced into the first pass's cache
-# (the banks' features are the same for every micro-batch and stay live)
-_ACCUM_SPLICE_KEYS = ("image_features", "text_features", "image_degra_features",
-                      "text_degra_features", "gt_image_features", "pred", "deg_type", "gt_val")
 _BATCH_KEYS = ("images", "texts", "gt_images", "deg_type", "gt_val")
 LOGIT_SCALE_MAX = math.log(100.0)
 # modules daclip_tpu stacks along a leading axis (nn.scan blocks, the
@@ -131,13 +135,15 @@ def decays(name: str, p: torch.Tensor) -> bool:
 def make_optimizer(named: Sequence[Tuple[str, torch.nn.Parameter]], cfg: ClipTrainConfig,
                    update_mask: Optional[Dict[str, float]] = None) -> torch.optim.AdamW:
     """AdamW with one parameter group per (weight decay, mask value)
-    (`decays`); the group's `update_mask` scales its learning rate
-    (`locking.apply_update_mask`). The lr is set per step."""
+    (`decays`), split where FSDP shards sit beside whole tensors
+    (`parallel.make_optimizer`); the group's `update_mask` scales its
+    learning rate (`locking.apply_update_mask`). The lr is set per step."""
     groups: Dict[Tuple[bool, float], list] = {}
     for name, p in named:
         mask = 1.0 if update_mask is None else float(update_mask[name])
         groups.setdefault((decays(name, p), mask), []).append(p)
-    return torch.optim.AdamW(
+    return parallel.make_optimizer(
+        torch.optim.AdamW,
         [{"params": ps, "weight_decay": cfg.wd if decay else 0.0, "update_mask": mask}
          for (decay, mask), ps in groups.items()],
         lr=make_schedule(cfg)(0), betas=(cfg.beta1, cfg.beta2), eps=cfg.eps)
@@ -198,39 +204,49 @@ def _total(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
     return sum(v.float() for v in losses.values())
 
 
+def _global(out, group):
+    """A forward's outputs over the data-parallel group (themselves
+    without one)."""
+    return out if group is None or out is None else gather_features(out, group)
+
+
 def _apply(model, state: ClipTrainState, cfg: ClipTrainConfig, schedule) -> torch.Tensor:
     """One optimizer update from the parameters' gradients, as optax's
     chain(clip_by_global_norm, adamw(schedule)) then the update mask; then
     the logit_scale clamp. A parameter the loss did not reach gets a zero
-    gradient (optax still decays it). Returns the unclipped global norm."""
-    grads = []
+    gradient (optax still decays it). Returns the unclipped global norm
+    (of the whole gradient, FSDP shards and TP parts summed)."""
+    parallel.finish_grads(model)
     for _, p in state.params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-        grads.append(p.grad)
-    norm = global_norm(grads)
+    norm = parallel.grad_norm([p.grad for _, p in state.params])
     if cfg.grad_clip_norm:
-        clip_by_global_norm(grads, cfg.grad_clip_norm, norm)
+        clip_by_global_norm([parallel.local_tensor(p.grad) for _, p in state.params],
+                            cfg.grad_clip_norm, norm)
     apply_update_mask(state.optimizer, schedule(state.step))
     state.optimizer.step()
     state.step += 1
     with torch.no_grad():
-        model.logit_scale.clamp_(0.0, LOGIT_SCALE_MAX)
+        parallel.unwrap(model).logit_scale.clamp_(0.0, LOGIT_SCALE_MAX)
     return norm
 
 
 def _metrics(model, losses, total, norm) -> Dict[str, torch.Tensor]:
+    """The step's metrics, the data-parallel group's means under a mesh."""
     metrics = {k: v.detach().float() for k, v in losses.items()}
     metrics["total_loss"] = total.detach()
     metrics["grad_norm"] = norm.detach()
-    metrics["logit_scale"] = model.logit_scale.detach().exp()
-    return metrics
+    metrics["logit_scale"] = parallel.unwrap(model).logit_scale.detach().exp()
+    group = parallel.data_group(model)
+    return metrics if group is None else parallel.all_reduce_mean(metrics, group)
 
 
 def make_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=None,
                     distill_model: Optional[torch.nn.Module] = None, device=None):
     """Moves the model (and the teacher) to `device` (default CUDA) and
-    returns train_step(state, batch) -> (state, metrics).
+    returns train_step(state, batch) -> (state, metrics). `model` may be
+    wrapped by `parallel.parallelize`; the batch is then this rank's rows.
 
     `banks` = (bin_center_bank (4, 7), all_d_type_tokens (28, L)) arrays
     (the fork variant). `distill_model`: the frozen teacher of the clip
@@ -242,6 +258,7 @@ def make_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=None,
         distill_model.to(dev).requires_grad_(False)
     banks = _bank_tensors(banks, dev)
     schedule = make_schedule(cfg)
+    group = parallel.data_group(model)
 
     def train_step(state: ClipTrainState, batch):
         for key in _BATCH_KEYS:
@@ -254,13 +271,30 @@ def make_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=None,
         if cfg.distill and distill_model is not None and cfg.variant == "clip":
             with torch.no_grad():
                 teacher_out = distill_model(image=batch["images"], text=batch["texts"])
-        losses = _losses(cfg, banks, out, teacher_out)
+        losses = _losses(cfg, banks, _global(out, group), _global(teacher_out, group))
         total = _total(losses)
         total.backward()
         norm = _apply(model, state, cfg, schedule)
         return state, _metrics(model, losses, total, norm)
 
     return train_step
+
+
+def _per_rank(tensors: Dict[str, torch.Tensor], group) -> List[Dict[str, torch.Tensor]]:
+    """Every rank's per-sample `tensors` in rank order, gathered with their
+    gradient over `group` (this rank's alone without one)."""
+    if group is None:
+        return [tensors]
+    n = torch.distributed.get_world_size(group)
+    gathered = gather_features(tensors, group)
+    return [{k: v.chunk(n)[r] for k, v in gathered.items()} for r in range(n)]
+
+
+def _splice(flat: torch.Tensor, live: Optional[torch.Tensor], j: int, B: int) -> torch.Tensor:
+    """The cache `flat` with micro-batch j's rows replaced by `live`."""
+    if live is None:  # GT features: the cache's in pass 2
+        return flat
+    return torch.cat([flat[:j * B], live.to(flat.dtype), flat[(j + 1) * B:]])
 
 
 def make_accum_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=None,
@@ -279,6 +313,11 @@ def make_accum_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=No
     its gradient; it is not divided by accum_freq; GT images are encoded
     only in pass 1. One optimizer update per call.
 
+    Under a mesh the first pass's cache is gathered over the data-parallel
+    group, each pass-2 micro-batch's live features are gathered with their
+    gradient and spliced into every rank's block, and pass 2's backward
+    runs under `parallel.no_sync` but for the last micro-batch.
+
     Returns train_step(state, batches) -> (state, metrics), `batches` a list
     of accum_freq batch dicts; `train_step.loss_and_grads(batches, step)`
     leaves the accumulated gradients in the parameters and returns (total,
@@ -293,7 +332,8 @@ def make_accum_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=No
     dev = _on_device(model, device)
     banks = _bank_tensors(banks, dev)
     schedule = make_schedule(cfg)
-    params = [p for _, p in partition_daclip_params(model)[0]]
+    params = [p for _, p in partition_daclip_params(parallel.unwrap(model))[0]]
+    group = parallel.data_group(model)
 
     def loss_and_grads(batches, step: int = 0):
         for mb in batches:
@@ -304,23 +344,27 @@ def make_accum_train_step(model: torch.nn.Module, cfg: ClipTrainConfig, banks=No
             outs = [_forward(model, cfg, banks, mb,
                              generator=dropout_generator(cfg, dev, step, j))
                     for j, mb in enumerate(batches)]
+            # the per-sample outputs; the banks' features are the same for
+            # every micro-batch and stay live
             cache = {k: torch.cat([o[k] for o in outs])
-                     for k in _ACCUM_SPLICE_KEYS if outs[0].get(k) is not None}
+                     for k in PER_SAMPLE_KEYS if outs[0].get(k) is not None}
+            blocks = _per_rank(cache, group)
         del outs
         for p in params:
             p.grad = None
         total, losses = 0.0, {}
         for j, mb in enumerate(batches):  # pass 2 (train.py:148-162)
-            out = _forward(model, cfg, banks, mb, include_gt=False,
-                           generator=dropout_generator(cfg, dev, step, j))
-            spliced = dict(out)
-            for k, flat in cache.items():
-                live = out.get(k)
-                spliced[k] = flat if live is None else torch.cat(
-                    [flat[:j * B], live.to(flat.dtype), flat[(j + 1) * B:]])
-            lj = _losses(cfg, banks, spliced)
-            tj = _total(lj)
-            tj.backward()
+            with parallel.no_sync(model, enabled=j + 1 < len(batches)):
+                out = _forward(model, cfg, banks, mb, include_gt=False,
+                               generator=dropout_generator(cfg, dev, step, j))
+                lives = _per_rank({k: out[k] for k in cache if out.get(k) is not None}, group)
+                spliced = dict(out)
+                for k in cache:
+                    spliced[k] = torch.cat([_splice(b[k], live.get(k), j, B)
+                                            for b, live in zip(blocks, lives)])
+                lj = _losses(cfg, banks, spliced)
+                tj = _total(lj)
+                tj.backward()
             total = total + tj.detach()
             for k, v in lj.items():
                 losses[k] = losses.get(k, 0.0) + v.detach().float()

@@ -16,6 +16,13 @@ entry points (`init_state`, `make_train_step`, `make_sampler`) put the UNet
 on `device`, which defaults to CUDA and raises without a GPU unless the
 caller passes `device="cpu"`; the step runs eagerly there, and metrics stay
 on the device until the caller reads them.
+
+Several ranks (`daclip_torch.parallel`): `make_train_step` takes the UNet as
+`parallel.parallelize` wrapped it (DDP, or FSDP2 over the (data, fsdp)
+mesh); each rank's loss is the mean over its rows and the wrappers average
+the gradients, which is the global batch's mean. The EMA runs on each
+rank's shards, the clip norm is the whole gradient's, and the loss metric
+is the group's mean.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Callable, Optional
 
 import torch
 
+from daclip_torch import parallel
 from daclip_torch.losses.matching import matching_loss
 from daclip_torch.pipeline import resolve_device
 from daclip_torch.sde.irsde import IRSDE
@@ -99,17 +107,14 @@ def make_optimizer(params, cfg: RestorationTrainConfig) -> torch.optim.Optimizer
     name = cfg.optimizer.lower()
     lr = make_schedule(cfg)(0)
     betas = (cfg.beta1, cfg.beta2)
+    groups = [{"params": list(params)}]
     if name in ("adam", "adamw"):
-        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=1e-8,
-                                 weight_decay=cfg.weight_decay_G)
+        return parallel.make_optimizer(torch.optim.AdamW, groups, lr=lr, betas=betas, eps=1e-8,
+                                       weight_decay=cfg.weight_decay_G)
     if name == "lion":
-        return Lion(params, lr=lr, betas=betas, weight_decay=cfg.weight_decay_G)
+        return parallel.make_optimizer(Lion, groups, lr=lr, betas=betas,
+                                       weight_decay=cfg.weight_decay_G)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-
-
-def global_norm(grads) -> torch.Tensor:
-    """optax.global_norm: √(Σ g²) over every tensor, in f32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
 
 
 @torch.no_grad()
@@ -172,12 +177,14 @@ def apply_gradients(state: TrainState, module: torch.nn.Module, cfg: Restoration
                     schedule: Callable[[int], float]):
     """One optimizer update from the gradients in `module`'s parameters, as
     optax's chain(clip_by_global_norm, adamw/lion(schedule)) applies it, then
-    the EMA. Returns (global norm of the unclipped gradients, lr used)."""
-    named = trainable(module)
-    grads = [p.grad for _, p in named if p.grad is not None]
-    norm = global_norm(grads)
+    the EMA. `module` may be wrapped by `parallel.parallelize`. Returns
+    (global norm of the unclipped gradients, lr used)."""
+    parallel.finish_grads(module)
+    named = trainable(parallel.unwrap(module))
+    grads = [(k, p.grad) for k, p in named if p.grad is not None]
+    norm = parallel.grad_norm([g for _, g in grads])
     if cfg.grad_clip:
-        clip_by_global_norm(grads, cfg.grad_clip, norm)
+        clip_by_global_norm([parallel.local_tensor(g) for _, g in grads], cfg.grad_clip, norm)
     lr = schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
@@ -196,9 +203,11 @@ def make_train_step(unet: torch.nn.Module, sde: IRSDE, cfg: RestorationTrainConf
     optional 'text_context' / 'image_context' (B, D) f32; a tensor elsewhere
     raises. metrics: 'loss', 'grad_norm' (of the unclipped gradients) and
     'lr' (the schedule at the step before the update), as 0-dim tensors or a
-    float."""
+    float. `unet` may be wrapped by `parallel.parallelize`; the batch and
+    the generator are then this rank's."""
     dev = _on_device(unet, device)
     schedule = make_schedule(cfg)
+    group = parallel.data_group(unet)
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         for key in ("LQ", "GT", "text_context", "image_context"):
@@ -210,7 +219,10 @@ def make_train_step(unet: torch.nn.Module, sde: IRSDE, cfg: RestorationTrainConf
                        batch.get("image_context"))
         loss.backward()
         norm, lr = apply_gradients(state, unet, cfg, schedule)
-        return state, {"loss": loss.detach(), "grad_norm": norm.detach(), "lr": lr}
+        loss = loss.detach()
+        if group is not None:
+            loss = parallel.all_reduce_mean({"loss": loss}, group)["loss"]
+        return state, {"loss": loss, "grad_norm": norm.detach(), "lr": lr}
 
     return train_step
 

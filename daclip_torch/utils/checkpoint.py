@@ -21,6 +21,12 @@ model's under the reference's names (a DaCLIP's frozen CLIP included), so
 load_torch_state_dict` unwraps it; `optimizer` is the trainable parameters'
 AdamW state. The `best/` and `latest/` slots are such directories of one
 file each.
+
+Under a mesh (`daclip_torch.parallel`) the files are the same: rank 0
+gathers the whole tensors (torch.distributed.checkpoint's full state dicts;
+the other ranks take part only where a tensor is sharded) and writes, the
+others waiting at a barrier; every rank loads a file and keeps its part. A
+run saved under one mesh resumes under another, or on one card.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ import re
 from typing import Dict, List, Optional
 
 import torch
+
+from daclip_torch import parallel
 
 EPOCH = "epoch_"   # the DA-CLIP trainer's file prefix: epoch_<n>.pt
 
@@ -54,17 +62,20 @@ def latest_step(directory: str, prefix: str = "") -> Optional[int]:
 
 def _save(directory: str, n: int, payload: dict, max_to_keep: Optional[int],
           prefix: str = "") -> str:
-    """Write `payload` to a temporary name and rename it to
+    """On rank 0, write `payload` to a temporary name and rename it to
     `<directory>/<prefix><n>.pt`, then keep only the newest `max_to_keep`
-    such files (all when None); returns the path."""
-    os.makedirs(directory, exist_ok=True)
+    such files (all when None); every rank returns the path once it is
+    written."""
     path = checkpoint_path(directory, n, prefix)
-    tmp = f"{path}.tmp-{os.getpid()}"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    if max_to_keep is not None:
-        for old in steps(directory, prefix)[:-max_to_keep]:
-            os.remove(checkpoint_path(directory, old, prefix))
+    if parallel.rank() == 0:
+        os.makedirs(directory, exist_ok=True)
+        tmp = f"{path}.tmp-{os.getpid()}"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        if max_to_keep is not None:
+            for old in steps(directory, prefix)[:-max_to_keep]:
+                os.remove(checkpoint_path(directory, old, prefix))
+    parallel.barrier()
     return path
 
 
@@ -79,19 +90,17 @@ def _file(path: str, n: Optional[int], prefix: str = "") -> str:
     return checkpoint_path(path, n, prefix)
 
 
-def _cpu(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().cpu() for k, v in sd.items()}
-
-
 def save_checkpoint(directory: str, unet: torch.nn.Module, state,
                     max_to_keep: Optional[int] = None) -> str:
     """Save the UNet's parameters and the TrainState (optimizer, EMA, step)
     as `<directory>/<state.step>.pt`, then keep only the newest
-    `max_to_keep` step files (all when None); returns the path."""
+    `max_to_keep` step files (all when None); returns the path. `unet` may
+    be wrapped by `parallel.parallelize` (every rank calls this then)."""
+    unet = parallel.unwrap(unet)
     return _save(directory, state.step,
-                 {"params": _cpu(unet.state_dict()),
-                  "opt_state": state.optimizer.state_dict(),
-                  "params_ema": _cpu(state.ema.params),
+                 {"params": parallel.model_state(unet),
+                  "opt_state": parallel.optimizer_state(unet, state.optimizer),
+                  "params_ema": parallel.full_tensors(state.ema.params),
                   "ema_step": state.ema.step,
                   "step": state.step}, max_to_keep)
 
@@ -109,12 +118,14 @@ def load_params(directory: str, step: Optional[int] = None,
 def restore_checkpoint(directory: str, unet: torch.nn.Module, state,
                        step: Optional[int] = None):
     """Load `<directory>/<step>.pt` (the latest when step is None) into the
-    UNet and the TrainState, in place; returns the state."""
-    device = next(unet.parameters()).device
-    ckpt = torch.load(_file(directory, step), map_location=device, weights_only=False)
-    unet.load_state_dict(ckpt["params"], strict=True)
-    state.optimizer.load_state_dict(ckpt["opt_state"])
-    state.ema.load_state_dict({"params": ckpt["params_ema"], "step": ckpt["ema_step"]})
+    UNet and the TrainState, in place, each rank keeping its part under a
+    mesh; returns the state."""
+    unet = parallel.unwrap(unet)
+    ckpt = torch.load(_file(directory, step), map_location="cpu", weights_only=False)
+    parallel.load_model_state(unet, ckpt["params"])
+    parallel.load_optimizer_state(unet, state.optimizer, ckpt["opt_state"])
+    parallel.load_tensors(state.ema.params, ckpt["params_ema"])
+    state.ema.step = int(ckpt["ema_step"])
     state.step = int(ckpt["step"])
     return state
 
@@ -123,11 +134,14 @@ def save_clip_checkpoint(directory: str, model: torch.nn.Module, state, epoch: i
                          name: Optional[str] = None, max_to_keep: Optional[int] = None) -> str:
     """Save the model's state dict and the ClipTrainState (optimizer, step)
     as `<directory>/epoch_<epoch>.pt`, then keep only the newest
-    `max_to_keep` epoch files (all when None); returns the path."""
+    `max_to_keep` epoch files (all when None); returns the path. `model`
+    may be wrapped by `parallel.parallelize` (every rank calls this then)."""
+    model = parallel.unwrap(model)
     return _save(directory, epoch,
                  {"epoch": int(epoch), "name": name, "step": state.step,
-                  "state_dict": _cpu(model.state_dict()),
-                  "optimizer": state.optimizer.state_dict()}, max_to_keep, EPOCH)
+                  "state_dict": parallel.model_state(model),
+                  "optimizer": parallel.optimizer_state(model, state.optimizer)},
+                 max_to_keep, EPOCH)
 
 
 def load_clip_state_dict(path: str, epoch: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -141,10 +155,10 @@ def restore_clip_checkpoint(path: str, model: torch.nn.Module, state,
                             epoch: Optional[int] = None) -> int:
     """Load an `epoch_<n>.pt` file, or a train dir's `epoch` (the latest
     when None), into the model and the ClipTrainState, in place; returns
-    the checkpoint's epoch."""
-    device = next(model.parameters()).device
-    ckpt = torch.load(_file(path, epoch, EPOCH), map_location=device, weights_only=False)
-    model.load_state_dict(ckpt["state_dict"], strict=True)
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    the checkpoint's epoch. Each rank keeps its part under a mesh."""
+    model = parallel.unwrap(model)
+    ckpt = torch.load(_file(path, epoch, EPOCH), map_location="cpu", weights_only=False)
+    parallel.load_model_state(model, ckpt["state_dict"])
+    parallel.load_optimizer_state(model, state.optimizer, ckpt["optimizer"])
     state.step = int(ckpt["step"])
     return int(ckpt["epoch"])

@@ -260,7 +260,7 @@ def test_test_cli_metrics_equal_jax_metrics_on_its_output(tiny, trained):
 
 
 def test_clis_need_a_gpu_unless_told_cpu_and_refuse_a_mesh(tiny, monkeypatch):
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(SystemExit, match="spans 8 processes, and this run has 1"):
         t_train.main(["-opt", str(tiny / "train.yml"), "--mesh", "2,4", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -182,7 +182,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'daclip_torch.data.degradations', 'daclip_torch.tools.generate_lq',\n"
         "        'daclip_torch.tools.generate_masked', 'daclip_torch.data.webdataset',\n"
         "        'daclip_torch.utils.file_utils', 'daclip_torch.models.pretrained',\n"
-        "        'daclip_torch.tools.generate_captions', 'daclip_torch.serve.gradio_app']\n"
+        "        'daclip_torch.tools.generate_captions', 'daclip_torch.serve.gradio_app',\n"
+        "        'daclip_torch.parallel', 'daclip_torch.parallel.mesh',\n"
+        "        'daclip_torch.cli.train_restoration']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "# imported only inside calls: the card's machine is not known to have them\n"
         "absent = [m for m in sys.modules if m.split('.')[0] in ('regex', 'cv2', 'PIL', 'ftfy',\n"
@@ -195,7 +197,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 73
+    assert int(res.stdout.strip()) >= 75
 
 
 # -- a restore without DA-CLIP, as daclip_tpu's `load` serves it ------------------

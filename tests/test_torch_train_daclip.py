@@ -476,7 +476,7 @@ def test_cli_fast_clip_view_first_batches_equal_jax_loader(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--mesh", "2"], "ROADMAP queue 1 item 6"),
+    (["--mesh", "2"], "spans 2 processes, and this run has 1"),
     (["--report-to", "tensorboard,wandb"], "ROADMAP queue 1 item 4"),
     (["--imagenet-v2", "/data/v2"], "daclip_tpu parses it and no module of it evaluates")])
 def test_cli_refuses_flags_it_does_not_carry(tmp_path, monkeypatch, extra, match):
