@@ -239,6 +239,33 @@ Phases, each printing JSON lines:
              (both trees' PNGs with Up rows only: the Paeth decode is those
              phases' to time); exactly one checkpoint each, loaded into the
              single-card model
+22 towers   (after stage_profile) RN50, convnext_base, EVA02-B-16,
+             swin_base_patch4_window7_224, vit_medium_patch16_gap_256,
+             vit_relpos_medium_patch16_cls_224, ViT-M-16-alt and coca_ViT-B-32
+             through create_model_and_transforms at their published widths,
+             seeded (BatchNorm variances positive, layer-scale gammas near
+             0.5): f32 encode_image on the card against the CPU at B = 2
+             (1e-4 of the output's max), the bf16 features' cosine to f32
+             (>= 0.99), bf16 encode_image ms, images/s and peak memory at
+             B = 64; no hand kernel launched
+23 towers_train  an f32 plain-CLIP step under --lock-image on RN50 (B = 8)
+             and convnext_base (B = 4), card against CPU: the update
+             p_after - p_before within 1e-2 of its max, the locked parameters
+             unchanged bit for bit; `cli.train_daclip.main --model
+             convnext_base --lock-image` (amp, B = 8, 4 workers) one epoch
+             over train_daclip_cli's seeded CSV tree (Up rows), step to step;
+             imagenet_zero_shot.evaluate on a seeded convnext_base .pt over a
+             3-class tree with the 80 templates; no hand kernel launched
+24 coca     coca_ViT-B-32, seeded, f32 card against CPU: the latents and
+             caption logits (1e-4 of their max), coca_loss (1e-4 relative),
+             generate_beam (6 beams, 3 groups, B = 4, SOT + 30 tokens) and
+             generate (top-k 5, the same Gumbel draws on both) with equal
+             tokens; bf16 ms of a caption batch of each; no hand kernel
+25 hf_text  a roberta-base-shaped HFTextTower (mean pooler, mlp projection
+             to 512) from a config directory the phase writes, on
+             transformers' PyTorch model: f32 card against CPU (1e-4 of the
+             max), bf16 cosine (>= 0.99), bf16 ms at B = 256 × 77 tokens; no
+             hand kernel launched
 (train_check runs the default wiring, then (v4, pointwise) and (v3, pointwise).)
 Then each kernel's device time over its library call's (kernels_vs_library),
 the script's seconds (total), the per-kernel summary line, the nvidia-smi
@@ -3426,13 +3453,14 @@ def write_class_tree(root, classes, per_class, sides, seed, layout="LQ"):
 
 
 def optional_packages():
-    """Whether matplotlib, sklearn, scipy, gradio and fsspec import here, with
-    versions: the eval plots and tools/visualize need the first three,
-    serve/gradio_app gradio, and --remote-sync's fsspec protocol fsspec."""
+    """Whether matplotlib, sklearn, scipy, gradio, fsspec and transformers
+    import here, with versions: the eval plots and tools/visualize need the
+    first three, serve/gradio_app gradio, --remote-sync's fsspec protocol
+    fsspec, and the hf_text phase transformers."""
     import importlib
 
     out = {}
-    for name in ("matplotlib", "sklearn", "scipy", "gradio", "fsspec"):
+    for name in ("matplotlib", "sklearn", "scipy", "gradio", "fsspec", "transformers"):
         try:
             out[name] = importlib.import_module(name).__version__
         except ImportError:
@@ -4186,6 +4214,374 @@ def run_torchrun_cli():
     check(resto_step == 2, f"train_restoration stopped at step {resto_step}")
 
 
+# -- phases 22-25: the alternative towers, CoCa and the HF text tower ---------
+TOWER_MODELS = ["RN50", "convnext_base", "EVA02-B-16", "swin_base_patch4_window7_224",
+                "vit_medium_patch16_gap_256", "vit_relpos_medium_patch16_cls_224",
+                "ViT-M-16-alt", "coca_ViT-B-32"]
+TOWER_CHECK_B, TOWER_TIME_B = 2, 64
+TOWER_LIMIT = 1e-4         # f32 on the card vs f32 on the CPU, of the output's max
+TOWER_COS_MIN = 0.99       # bf16 vs f32 on the card, each feature's cosine
+TOWER_STEP_LIMIT = 1e-2    # an f32 step's update, card vs CPU, of the update's max
+TOWER_STEPS = (("RN50", 8), ("convnext_base", 4))   # (model, B) of the f32 steps
+TOWER_CLI_MODEL = "convnext_base"
+COCA_MODEL, COCA_BEAM_B, COCA_SEQ = "coca_ViT-B-32", 4, 31   # SOT + 30 new tokens
+HF_CONFIG = dict(model_type="roberta", vocab_size=50265, hidden_size=768,
+                 num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+                 max_position_embeddings=514, type_vocab_size=1, pad_token_id=1,
+                 bos_token_id=0, eos_token_id=2, layer_norm_eps=1e-5)   # roberta-base
+
+
+def tower_state_dict(name, seed):
+    """`seeded_state_dict` of `name`'s model, its BatchNorm variances
+    1 + 0.2|r| and counters 0, its layer-scale gammas 0.5 + 0.1 r (their
+    inits, 1e-6 to 1e-4, would hide the residual branches from the check)."""
+    from daclip_torch.factory import create_model
+
+    sd = seeded_state_dict(lambda: create_model(name), seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    for k, v in sd.items():
+        leaf = k.rsplit(".", 1)[-1]
+        r = torch.randn(v.shape, generator=gen, device="cuda")
+        if leaf == "running_var":
+            sd[k] = 1 + 0.2 * r.abs()
+        elif leaf == "num_batches_tracked":
+            sd[k] = torch.zeros((), dtype=torch.long, device="cuda")
+        elif leaf == "gamma":
+            sd[k] = 0.5 + 0.1 * r
+    return sd
+
+
+def tower_model(name, sd, device):
+    from daclip_torch.factory import create_model
+
+    model = create_model(name)
+    model.load_state_dict({k: v.cpu() for k, v in sd.items()}, strict=True)
+    return model.to(device).eval()
+
+
+def seeded_images(B, res, seed, device="cpu"):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(B, 3, res, res, generator=gen).to(device)
+
+
+def of_max(got, want):
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / want.float().abs().max())
+
+
+def run_towers():
+    """Each tower model through create_model_and_transforms at its published
+    width, seeded: f32 encode_image on the card against the same on the CPU
+    at B = 2 (TOWER_LIMIT of the output's max), the bf16 features' cosine to
+    the card's f32 (TOWER_COS_MIN), bf16 encode_image ms, images/s and peak
+    memory at B = 64; no hand kernel launched."""
+    import gc
+
+    from daclip_torch.factory import create_model_and_transforms
+
+    out = []
+    for i, name in enumerate(TOWER_MODELS):
+        t0 = time.perf_counter()
+        cpu, _, pp_val = create_model_and_transforms(name, precision="fp32", seed=i)
+        sd = tower_state_dict(name, seed=70 + i)
+        cpu.load_state_dict({k: v.cpu() for k, v in sd.items()}, strict=True)
+        cpu.eval()
+        res = cpu.cfg.vision.image_size
+        x = seeded_images(TOWER_CHECK_B, res, seed=80 + i)
+        view = pp_val((np.random.RandomState(i).rand(res + 17, res + 9, 3) * 255).astype(
+            np.uint8))
+        check(view.shape == (res, res, 3), f"{name}: the val transform gave {view.shape}")
+        with torch.no_grad():
+            want = cpu.encode_image(x)
+        card = cpu.to("cuda")
+        reset_counts()
+        with torch.no_grad():
+            got = card.encode_image(x.cuda())
+        err = of_max(got, want)
+        bf16 = card
+        bf16.dtype = torch.bfloat16  # precision="bf16": f32 parameters, bf16 activations
+        xb = seeded_images(TOWER_TIME_B, res, seed=90 + i, device="cuda")
+        with torch.no_grad():
+            cos = float(torch.nn.functional.cosine_similarity(
+                bf16.encode_image(x.cuda()).float(), got.float(), dim=-1).min())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            feats = bf16.encode_image(xb)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            ms = time_ms(lambda: bf16.encode_image(xb), iters=10)
+        counts = read_counts()
+        row = dict(model=name, tower=type(bf16.visual).__name__, image_size=res,
+                   params=sum(p.numel() for p in bf16.parameters()),
+                   visual_params=sum(p.numel() for p in bf16.visual.parameters()),
+                   f32_card_vs_cpu_of_max=err, min_cos_bf16_vs_f32=cos, batch=TOWER_TIME_B,
+                   bf16_encode_image_ms=ms, images_per_s=TOWER_TIME_B / (ms / 1e3),
+                   max_memory_allocated=peak, memory_allocated_before=resident,
+                   seconds=time.perf_counter() - t0, launches=counts)
+        emit(phase="towers", **row)
+        out.append(row)
+        check(err <= TOWER_LIMIT, f"{name}: f32 features card vs CPU {err} of their max")
+        check(cos >= TOWER_COS_MIN, f"{name}: bf16 feature cosine {cos}")
+        check(feats.shape == (TOWER_TIME_B, got.shape[1]) and bool(torch.isfinite(feats).all()),
+              f"{name}: bf16 features {tuple(feats.shape)} or not finite")
+        check(not any(counts.values()), f"{name}: the tower launched hand kernels: {counts}")
+        del bf16, card, cpu, feats, xb
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tower_step(name, B, seed):
+    """One f32 plain-CLIP step (TF32 off) under --lock-image from seeded
+    weights on a seeded batch, on the card and on the CPU: the loss and
+    the update p_after - p_before of each, card against CPU as a share of
+    its max (a card step that changed nothing reads 1); the locked
+    parameters unchanged bit for bit on the card."""
+    from daclip_torch.tokenizer import tokenize
+    from daclip_torch.train.clip_train import ClipTrainConfig, init_state, make_train_step
+    from daclip_torch.train.locking import build_update_mask
+
+    cfg = ClipTrainConfig(lr=1e-3, eps=1e-3, warmup=1, total_steps=4, variant="clip")
+    sd = tower_state_dict(name, seed)
+    before = {k: v.float().cpu() for k, v in sd.items()}
+    res = 224
+    batch = {"images": seeded_images(B, res, seed + 1),
+             "texts": torch.from_numpy(tokenize([f"a photo of scene {i}" for i in range(B)],
+                                                context_length=77))}
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = tower_model(name, sd, device).train()
+        mask = build_update_mask([n for n, _ in model.named_parameters()], lock_image=True)
+        state = init_state(model, cfg, mask, device=device)
+        reset_counts()
+        _, m = make_train_step(model, cfg, None, device=device)(
+            state, {k: v.to(device) for k, v in batch.items()})
+        out[device] = (float(m["total_loss"]),
+                       {n: p.detach().float().cpu() for n, p in model.named_parameters()},
+                       read_counts())
+        del model, state
+    card, cpu = out["cuda"][1], out["cpu"][1]
+    locked = [n for n, v in mask.items() if v == 0.0]
+    moved_locked = [n for n in locked if not torch.equal(card[n], before[n])]
+    u_err = {n: float(((card[n] - before[n]) - (p - before[n])).abs().max())
+             for n, p in cpu.items()}
+    u_max = max(float((p - before[n]).abs().max()) for n, p in cpu.items())
+    worst = max(u_err, key=u_err.get)
+    return dict(model=name, B=B, lr=cfg.lr, eps=cfg.eps, loss_card=out["cuda"][0],
+                loss_cpu=out["cpu"][0],
+                loss_rel_err=abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0]),
+                locked_params=len(locked), trainable_params=len(mask) - len(locked),
+                locked_moved=moved_locked, update_max=u_max,
+                update_err_of_max=u_err[worst] / u_max, update_worst=worst,
+                launches=out["cuda"][2])
+
+
+def run_towers_train():
+    """--lock-image training of the non-ViT towers: the f32 steps of
+    TOWER_STEPS, card against CPU; then `cli.train_daclip.main --model
+    convnext_base --lock-image` (bf16) for one epoch over train_daclip_cli's
+    seeded CSV tree at B = 8, its step timed by a hook; then
+    imagenet_zero_shot.evaluate on a seeded convnext_base .pt over a 3-class
+    tree with the 80 templates; no hand kernel launched."""
+    import gc
+    import tempfile
+
+    from daclip_torch.cli import train_daclip as cli
+    from daclip_torch.eval import imagenet_zero_shot as zs
+    from daclip_torch.train import clip_train
+    from daclip_torch.utils import checkpoint as ckpt
+
+    for i, (name, B) in enumerate(TOWER_STEPS):
+        row = tower_step(name, B, seed=100 + 10 * i)
+        emit(phase="towers_train", what="f32 step under --lock-image, card vs CPU", **row)
+        check(row["update_err_of_max"] <= TOWER_STEP_LIMIT,
+              f"{name}: the step's update card vs CPU {row['update_err_of_max']} of its max")
+        check(row["loss_rel_err"] <= TOWER_LIMIT, f"{name}: loss {row['loss_rel_err']}")
+        check(row["locked_params"] > 0 and not row["locked_moved"],
+              f"{name}: locked parameters moved on the card: {row['locked_moved'][:5]}")
+        check(not any(row["launches"].values()), f"{name}: step launched hand kernels")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    records = []
+    real_make = clip_train.make_train_step
+    with tempfile.TemporaryDirectory() as d:
+        root = pathlib.Path(d)
+        train_csv = write_clip_tree(root / "train", CLIP_TREE[0], seed=41, filters=("up",))
+        argv = ["--train-data", train_csv, "--model", TOWER_CLI_MODEL, "--lock-image",
+                "--precision", "amp", "--batch-size", str(CLIP_CLI_B), "--workers",
+                str(CLIP_CLI_WORKERS), "--logs", str(root / "logs"), "--name", "towers",
+                "--lr", "2e-5", "--epochs", "1", "--device", "cuda"]
+        reset_counts()
+        clip_train.make_train_step = timed_steps(real_make, records)
+        t0 = time.perf_counter()
+        try:
+            result = cli.main(argv)
+        finally:
+            clip_train.make_train_step = real_make
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = read_counts()
+        epochs = ckpt.steps(str(root / "logs" / "towers" / "checkpoints"), ckpt.EPOCH)
+        gaps = step_to_step_ms(records)
+        emit(phase="towers_train", what=f"cli.train_daclip.main --model {TOWER_CLI_MODEL} "
+             "--lock-image: one epoch", config=dict(precision="amp", B=CLIP_CLI_B,
+                                                    workers=CLIP_CLI_WORKERS,
+                                                    train_pairs=CLIP_TREE[0], png_rows="Up"),
+             train_s=train_s, result=result, steps_run=[r["step"] for r in records],
+             ms_per_step=[r["ms"] for r in records],
+             median_ms_step_to_step=float(np.median(gaps)) if gaps else None,
+             checkpoints=epochs, launches=counts)
+        check(np.isfinite(result["best_loss"]) and epochs == [1],
+              f"towers CLI: loss {result['best_loss']}, checkpoints {epochs}")
+        check(len(records) == CLIP_TREE[0] // CLIP_CLI_B, f"towers CLI ran {len(records)} steps")
+        check(not any(counts.values()), f"towers CLI launched hand kernels: {counts}")
+
+        pt = root / "convnext.pt"
+        torch.save({k: v.cpu() for k, v in tower_state_dict(TOWER_CLI_MODEL, 110).items()}, pt)
+        write_class_tree(root / "zs", EVAL_CLASSES[:3], 4, EVAL_SIDES, seed=53, layout="")
+        reset_counts()
+        t0 = time.perf_counter()
+        zres = zs.evaluate(str(pt), str(root / "zs"), TOWER_CLI_MODEL, device="cuda")
+        counts = read_counts()
+    emit(phase="towers_train", what=f"imagenet_zero_shot.evaluate, {TOWER_CLI_MODEL}",
+         classes=3, prompts=3 * 80, images=12, seconds=time.perf_counter() - t0, launches=counts,
+         **zres)
+    check(all(0 <= v <= 1 for v in zres.values()), f"zero-shot {zres}")
+    check(not any(counts.values()), f"zero-shot launched hand kernels: {counts}")
+
+
+def gumbel_table(steps, shape, seed):
+    """Per-step Gumbel noise drawn on the CPU from one seed, so that the
+    card and the CPU sample from the same draws."""
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.rand((steps,) + tuple(shape), generator=gen).clamp_min(1e-30)
+    return -torch.log(-torch.log(u))
+
+
+def run_coca():
+    """coca_ViT-B-32 at its published width, seeded, f32 on the card
+    against the CPU: the forward's latents and caption logits (TOWER_LIMIT
+    of their max) and coca_loss; generate_beam (6 beams in 3 groups,
+    SOT + 30 tokens, B = 4) and generate (top-k 5, every draw given) with
+    equal tokens; then bf16 ms of a caption batch of each; no hand kernel
+    launched."""
+    from daclip_torch.factory import get_tokenizer
+    from daclip_torch.losses import coca_loss
+    from daclip_torch.models import coca
+
+    sd = tower_state_dict(COCA_MODEL, seed=120)
+    models = {dev: tower_model(COCA_MODEL, sd, dev) for dev in ("cuda", "cpu")}
+    vocab = models["cpu"].cfg.text.vocab_size
+    tok = get_tokenizer(COCA_MODEL)
+    text = torch.from_numpy(tok([f"a photo of a cat number {i}" for i in range(2)])).long()
+    x = seeded_images(2, 224, seed=121)
+    xb = seeded_images(COCA_BEAM_B, 224, seed=122)
+    noise = gumbel_table(COCA_SEQ, (COCA_BEAM_B, vocab), seed=123)
+    out = {}
+    reset_counts()
+    for dev, m in models.items():
+        with torch.no_grad():
+            o = m(x.to(dev), text.to(dev))
+            loss = coca_loss(o["image_features"], o["text_features"], o["logits"], o["labels"],
+                             o["logit_scale"])
+        t0 = time.perf_counter()
+        beam = coca.generate_beam(m, xb.to(dev), seq_len=COCA_SEQ)
+        beam_s = time.perf_counter() - t0
+        m.sampling_noise = lambda shape, step, generator=None, device=None: (
+            noise[step].to(device))
+        t0 = time.perf_counter()
+        sampled = coca.generate(m, xb.to(dev), seq_len=COCA_SEQ, top_k=5)
+        out[dev] = dict(o={k: v for k, v in o.items() if torch.is_tensor(v)},
+                        loss={k: float(v) for k, v in loss.items()}, beam=beam.cpu(),
+                        sampled=sampled.cpu(), beam_s=beam_s,
+                        sample_s=time.perf_counter() - t0)
+    counts = read_counts()
+    card, cpu = out["cuda"], out["cpu"]
+    errs = {k: of_max(card["o"][k], cpu["o"][k])
+            for k in ("image_features", "text_features", "logits")}
+    loss_err = max(abs(card["loss"][k] - cpu["loss"][k]) / abs(cpu["loss"][k])
+                   for k in cpu["loss"])
+    beam_equal = torch.equal(card["beam"], cpu["beam"])
+    sampled_equal = torch.equal(card["sampled"], cpu["sampled"])
+    bf16 = models.pop("cuda")
+    bf16.dtype = torch.bfloat16
+    del bf16.sampling_noise, models
+    xb = xb.cuda()
+    reset_counts()
+    coca.generate_beam(bf16, xb, seq_len=COCA_SEQ)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beam16 = coca.generate_beam(bf16, xb, seq_len=COCA_SEQ)
+    torch.cuda.synchronize()
+    beam_ms = (time.perf_counter() - t0) * 1e3
+    gen = torch.Generator(device="cuda").manual_seed(124)
+    t0 = time.perf_counter()
+    sampled16 = coca.generate(bf16, xb, generator=gen, seq_len=COCA_SEQ, top_k=5)
+    torch.cuda.synchronize()
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    counts16 = read_counts()
+    emit(phase="coca", model=COCA_MODEL, f32_card_vs_cpu_of_max=errs,
+         coca_loss_card=card["loss"], coca_loss_cpu=cpu["loss"], loss_rel_err=loss_err,
+         beam=dict(B=COCA_BEAM_B, beams=6, groups=3, seq_len=COCA_SEQ, equal=beam_equal,
+                   tokens_card=card["beam"][0].tolist(), s_card_f32=card["beam_s"],
+                   s_cpu_f32=cpu["beam_s"]),
+         sampled=dict(top_k=5, equal=sampled_equal, tokens_card=card["sampled"][0].tolist(),
+                      s_card_f32=card["sample_s"], s_cpu_f32=cpu["sample_s"]),
+         bf16=dict(beam_ms_per_batch=beam_ms, sample_ms_per_batch=sample_ms, B=COCA_BEAM_B,
+                   beam_tokens=beam16[0].tolist(), sampled_tokens=sampled16[0].tolist()),
+         launches=counts, launches_bf16=counts16)
+    check(all(e <= TOWER_LIMIT for e in errs.values()), f"CoCa f32 card vs CPU {errs}")
+    check(loss_err <= TOWER_LIMIT, f"coca_loss card vs CPU {loss_err}")
+    check(beam_equal, f"generate_beam: card {card['beam'].tolist()} CPU {cpu['beam'].tolist()}")
+    check(sampled_equal, "generate under the same draws gave other tokens on the card")
+    check(bool((beam16[:, 0] == 49406).all()) and beam16.shape == (COCA_BEAM_B, COCA_SEQ),
+          "the bf16 beam search's output")
+    check(not any(counts.values()) and not any(counts16.values()),
+          f"CoCa launched hand kernels: {counts} / {counts16}")
+
+
+def run_hf_text():
+    """A roberta-base-shaped HFTextTower (mean pooler, mlp projection to
+    512) from a config directory this phase writes, seeded: f32 features on
+    the card against the CPU (TOWER_LIMIT of their max), the bf16 features'
+    cosine (TOWER_COS_MIN), bf16 ms at B = 256 × 77 tokens; no hand kernel
+    launched. Runs where transformers imports (the device phase says)."""
+    import tempfile
+
+    from transformers import AutoConfig
+
+    from daclip_torch.models.hf_text import HFTextTower
+
+    with tempfile.TemporaryDirectory() as d:
+        cfg = dict(HF_CONFIG)
+        AutoConfig.for_model(cfg.pop("model_type"), **cfg).save_pretrained(d)
+        cpu = HFTextTower.from_config(d, 512, seed=130).eval()
+    rng = np.random.RandomState(131)
+    ids = torch.from_numpy(rng.randint(3, 50000, (TOWER_CHECK_B, 77))).long()
+    ids[0, 40:] = 1  # padding
+    with torch.no_grad():
+        want = cpu(ids)
+    card = cpu.to("cuda")
+    reset_counts()
+    with torch.no_grad():
+        got = card(ids.cuda())
+        err = of_max(got, want)
+        bf16 = card.to(torch.bfloat16)
+        cos = float(torch.nn.functional.cosine_similarity(
+            bf16(ids.cuda()).float(), got.float(), dim=-1).min())
+        big = torch.from_numpy(rng.randint(3, 50000, (256, 77))).long().cuda()
+        ms = time_ms(lambda: bf16(big), iters=10)
+    counts = read_counts()
+    emit(phase="hf_text", config=HF_CONFIG, pooler=cpu.pooler_type, proj="mlp",
+         f32_card_vs_cpu_of_max=err, min_cos_bf16_vs_f32=cos, batch=256, bf16_ms=ms,
+         prompts_per_s=256 / (ms / 1e3), launches=counts)
+    check(err <= TOWER_LIMIT, f"HF text f32 card vs CPU {err}")
+    check(cos >= TOWER_COS_MIN, f"HF text bf16 cosine {cos}")
+    check(not any(counts.values()), f"the HF text tower launched hand kernels: {counts}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4264,6 +4660,12 @@ def main():
     run_train_daclip_wds()
     run_eval(inspect_dir)
     stage_totals = run_stage_profile()
+    t0 = time.perf_counter()
+    run_towers()
+    run_towers_train()
+    run_coca()
+    run_hf_text()
+    tower_phases_s = time.perf_counter() - t0
 
     # launches on each main path, each counted from 0 just before its run:
     # serve (the four requests), serve_alt (two requests per other wiring),
@@ -4338,7 +4740,7 @@ def main():
                             library_ms=r["library_ms"],
                             library_device_ms=r.get("library_device_ms")))
     emit(phase="total", seconds=time.perf_counter() - started,
-         multi_card_phases_seconds=multi_card_s)
+         multi_card_phases_seconds=multi_card_s, tower_phases_seconds=tower_phases_s)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -226,7 +226,7 @@ def main(argv=None):
         args.model, pretrained=args.pretrained or None, precision=args.precision,
         use_predictor=args.da and not args.uir_variant, image_mean=args.image_mean,
         image_std=args.image_std, seed=args.seed, force_quick_gelu=args.force_quick_gelu,
-        force_patch_dropout=args.force_patch_dropout,
+        force_custom_text=args.force_custom_text, force_patch_dropout=args.force_patch_dropout,
         force_image_size=args.force_image_size[0] if args.force_image_size else None,
         remat=args.grad_checkpointing, rng=random.Random(parallel.rank_seed(args.seed, dp_rank)))
     if args.pretrained:

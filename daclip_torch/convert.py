@@ -5,8 +5,12 @@ inverses of `daclip_tpu/utils/torch_convert.py`'s `convert_unet` (:745-788)
 and `convert_daclip` (:590-610, with `convert_predictor` :579): they take the
 JAX package's parameter trees as nested dicts of numpy arrays and give
 reference-named torch state dicts that this package's modules load with
-`strict=True`. `resize_pos_embed` is `torch_convert.resize_pos_embed` (:407)
-without jax.
+`strict=True`. `clip_state_dict_from_jax` takes every image tower (the
+inverse of `convert_resnet_visual` :124, `convert_convnext_visual` :157,
+`convert_eva_visual` :217, `convert_timm_vit_visual` :291,
+`convert_swin_visual` :346, `convert_clip`'s `text.` prefix :463-466) and
+`coca_state_dict_from_jax` CoCa (`convert_coca` :509).
+`resize_pos_embed` is `torch_convert.resize_pos_embed` (:407) without jax.
 
 Layouts: flax Conv kernel HWIO ↔ torch OIHW; flax Dense kernel (in, out) ↔
 torch Linear weight (out, in); ChannelLayerNorm g (C,) ↔ (1, C, 1, 1); the
@@ -193,6 +197,9 @@ def _resblocks(w: _Writer, prefix, p, zero_prefix=None):
     L = np.asarray(p["ln_1"]["scale"]).shape[0]
     for i in range(L):
         k = f"{prefix}.{i}"
+        if "ls_1" in p:  # LayerScale (ViT-M-16-alt)
+            w.put(f"{k}.ls_1.gamma", p["ls_1"][i])
+            w.put(f"{k}.ls_2.gamma", p["ls_2"][i])
         w.put(f"{k}.ln_1.weight", p["ln_1"]["scale"][i])
         w.put(f"{k}.ln_1.bias", p["ln_1"]["bias"][i])
         w.put(f"{k}.ln_2.weight", p["ln_2"]["scale"][i])
@@ -226,22 +233,30 @@ def _visual(w: _Writer, prefix, p, transformer_sub="transformer.resblocks",
                zero_prefix)
 
 
-def _clip(w: _Writer, prefix: str, clip: Mapping):
-    _visual(w, f"{prefix}visual", clip["visual"])
-    text = clip["text"]
+def _text(w: _Writer, prefix: str, text: Mapping):
     w.put(f"{prefix}token_embedding.weight", text["token_embedding"])
     w.put(f"{prefix}positional_embedding", text["positional_embedding"])
     w.norm(f"{prefix}ln_final", text["ln_final"])
     w.put(f"{prefix}text_projection", text["text_projection"])
+    if "cls_emb" in text:
+        w.put(f"{prefix}cls_emb", text["cls_emb"])
     _resblocks(w, f"{prefix}transformer.resblocks", text["transformer"]["resblocks"])
+
+
+def _clip(w: _Writer, prefix: str, clip: Mapping, custom_text: bool = False):
+    _any_visual(w, f"{prefix}visual", clip["visual"])
+    _text(w, f"{prefix}text." if custom_text else prefix, clip["text"])
     w.put(f"{prefix}logit_scale", clip["logit_scale"])
 
 
-def clip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+def clip_state_dict_from_jax(params: Mapping,
+                             custom_text: bool = False) -> Dict[str, torch.Tensor]:
     """JAX CLIP params (`visual`, `text`, `logit_scale`) → reference CLIP
-    state dict (inverse of `convert_clip`), the text tower inlined."""
+    state dict (inverse of `convert_clip`), for every image tower; the text
+    tower inlined, or under CustomTextCLIP's `text.` with `custom_text`
+    (`convert_clip` :463-466 reads either)."""
     w = _Writer()
-    _clip(w, "", params)
+    _clip(w, "", params, custom_text)
     return w.sd
 
 
@@ -264,6 +279,260 @@ def daclip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             w.put(f"{k}.0.bias", p["reg_b1"][i])
             w.put(f"{k}.2.weight", _t(p["reg_w2"][i]))
             w.put(f"{k}.2.bias", p["reg_b2"][i])
+    return w.sd
+
+
+# -- the other image towers (inverses of torch_convert's convert_*_visual) ----
+def _patch_conv(kernel, channels: int = 3):
+    """A pixel-major (p·p·C, D) patch matmul kernel → conv weight (D, C, p, p)."""
+    kernel = np.asarray(kernel)
+    patch = int(round((kernel.shape[0] // channels) ** 0.5))
+    return np.transpose(kernel.reshape(patch, patch, channels, -1), (3, 2, 0, 1))
+
+
+def _stacked(w: _Writer, key: str, p: Mapping, i: int):
+    """Layer i of a stacked dense / norm / raw leaf."""
+    if isinstance(p, Mapping) and "kernel" in p:
+        w.put(f"{key}.weight", _t(p["kernel"][i]))
+        if "bias" in p:
+            w.put(f"{key}.bias", p["bias"][i])
+    elif isinstance(p, Mapping):
+        w.put(f"{key}.weight", p["scale"][i])
+        w.put(f"{key}.bias", p["bias"][i])
+    else:
+        w.put(key, p[i])
+
+
+def _bn(w: _Writer, key: str, p: Mapping):
+    w.put(f"{key}.weight", p["scale"])
+    w.put(f"{key}.bias", p["bias"])
+    w.put(f"{key}.running_mean", p["mean"])
+    w.put(f"{key}.running_var", p["var"])
+    w.sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _resnet(w: _Writer, prefix: str, p: Mapping):
+    """Inverse of `convert_resnet_visual` (:124)."""
+    for i in (1, 2, 3):
+        w.conv(f"{prefix}.conv{i}", p[f"stem_conv{i}"])
+        _bn(w, f"{prefix}.bn{i}", p[f"stem_bn{i}"])
+    for name in sorted(k for k in p if k.startswith("layer")):
+        li, bi = name[len("layer"):].split("_")
+        b, key = p[name], f"{prefix}.layer{li}.{bi}"
+        for c in (1, 2, 3):
+            w.conv(f"{key}.conv{c}", b[f"conv{c}"])
+            _bn(w, f"{key}.bn{c}", b[f"bn{c}"])
+        if "down_conv" in b:
+            w.conv(f"{key}.downsample.0", b["down_conv"])
+            _bn(w, f"{key}.downsample.1", b["down_bn"])
+    ap = p["attnpool"]
+    w.put(f"{prefix}.attnpool.positional_embedding", ap["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        w.dense(f"{prefix}.attnpool.{name}", ap[name])
+
+
+def _adapter_head(w: _Writer, prefix: str, p: Mapping):
+    """open_clip TimmModel's head: `head.proj` or `head.mlp.fc{1,2}`."""
+    if "proj" in p:
+        w.dense(f"{prefix}.head.proj", p["proj"])
+    elif "mlp_fc1" in p:
+        w.dense(f"{prefix}.head.mlp.fc1", p["mlp_fc1"])
+        w.dense(f"{prefix}.head.mlp.fc2", p["mlp_fc2"])
+
+
+def _convnext(w: _Writer, prefix: str, p: Mapping):
+    """Inverse of `convert_convnext_visual` (:157), timm's new names."""
+    tr, t = p["trunk"], f"{prefix}.trunk"
+    w.conv(f"{t}.stem.0", tr["stem_conv"])
+    w.norm(f"{t}.stem.1", tr["stem_norm"])
+    w.norm(f"{t}.head.norm", tr["head_norm"])
+    si = 0
+    while f"stage{si}_block0" in tr:
+        if si > 0:
+            w.norm(f"{t}.stages.{si}.downsample.0", tr[f"downsample_norm{si}"])
+            w.conv(f"{t}.stages.{si}.downsample.1", tr[f"downsample_conv{si}"])
+        bj = 0
+        while f"stage{si}_block{bj}" in tr:
+            b, key = tr[f"stage{si}_block{bj}"], f"{t}.stages.{si}.blocks.{bj}"
+            w.conv(f"{key}.conv_dw", b["dwconv"])
+            w.norm(f"{key}.norm", b["norm"])
+            w.dense(f"{key}.mlp.fc1", b["pwconv1"])
+            w.dense(f"{key}.mlp.fc2", b["pwconv2"])
+            w.put(f"{key}.gamma", b["gamma"])
+            bj += 1
+        si += 1
+    _adapter_head(w, prefix, p)
+
+
+def _patch_embed(w: _Writer, t: str, p: Mapping):
+    w.put(f"{t}.patch_embed.proj.weight", _patch_conv(p["patch_embed"]))
+    w.put(f"{t}.patch_embed.proj.bias", p["patch_bias"])
+    if "cls_token" in p:
+        w.put(f"{t}.cls_token", np.asarray(p["cls_token"]).reshape(1, 1, -1))
+    if "pos_embed" in p:
+        w.put(f"{t}.pos_embed", np.asarray(p["pos_embed"])[None])
+
+
+def _eva(w: _Writer, prefix: str, p: Mapping):
+    """Inverse of `convert_eva_visual` (:217)."""
+    t = f"{prefix}.trunk"
+    _patch_embed(w, t, p)
+    blocks = p["blocks"]
+    for i in range(np.asarray(blocks["norm1"]["scale"]).shape[0]):
+        key = f"{t}.blocks.{i}"
+        for name in ("norm1", "norm2", "mlp_fc1", "mlp_fc1_g", "mlp_fc1_x", "mlp_fc2",
+                     "mlp_norm"):
+            if name in blocks:
+                _stacked(w, f"{key}.{name.replace('mlp_', 'mlp.')}", blocks[name], i)
+        for name, q in blocks["attn"].items():
+            _stacked(w, f"{key}.attn.{name}", q, i)
+    w.norm(f"{t}.norm", p["norm"])
+    w.dense(f"{t}.head", p["head"])
+
+
+def _timm_vit(w: _Writer, prefix: str, p: Mapping):
+    """Inverse of `convert_timm_vit_visual` (:291)."""
+    t = f"{prefix}.trunk"
+    _patch_embed(w, t, p)
+    names = {"norm1": "norm1", "norm2": "norm2", "qkv": "attn.qkv", "proj": "attn.proj",
+             "mlp_fc1": "mlp.fc1", "mlp_fc2": "mlp.fc2", "ls_1": "ls1.gamma",
+             "ls_2": "ls2.gamma", "relpos_fc1": "attn.rel_pos.mlp.fc1",
+             "relpos_fc2": "attn.rel_pos.mlp.fc2"}
+    blocks = p["blocks"]
+    for i in range(np.asarray(blocks["norm1"]["scale"]).shape[0]):
+        for name, q in blocks.items():
+            _stacked(w, f"{t}.blocks.{i}.{names[name]}", q, i)
+    w.norm(f"{t}.norm", p["norm"])
+    w.dense(f"{prefix}.head.proj", p["proj"])
+
+
+def _swin(w: _Writer, prefix: str, p: Mapping):
+    """Inverse of `convert_swin_visual` (:346), timm ≥ 0.9's layout."""
+    t = f"{prefix}.trunk"
+    w.conv(f"{t}.patch_embed.proj", p["patch_embed"])
+    w.norm(f"{t}.patch_embed.norm", p["patch_norm"])
+    w.norm(f"{t}.norm", p["norm"])
+    si = 0
+    while f"stage{si}_block0" in p:
+        if si > 0:
+            w.norm(f"{t}.layers.{si}.downsample.norm", p[f"merge_norm{si}"])
+            w.dense(f"{t}.layers.{si}.downsample.reduction", p[f"merge_proj{si}"])
+        bj = 0
+        while f"stage{si}_block{bj}" in p:
+            b, key = p[f"stage{si}_block{bj}"], f"{t}.layers.{si}.blocks.{bj}"
+            w.norm(f"{key}.norm1", b["norm1"])
+            w.norm(f"{key}.norm2", b["norm2"])
+            w.dense(f"{key}.attn.qkv", b["attn"]["qkv"])
+            w.dense(f"{key}.attn.proj", b["attn"]["proj"])
+            w.put(f"{key}.attn.relative_position_bias_table", b["attn"]["rel_pos_table"])
+            w.dense(f"{key}.mlp.fc1", b["mlp_fc1"])
+            w.dense(f"{key}.mlp.fc2", b["mlp_fc2"])
+            bj += 1
+        si += 1
+    _adapter_head(w, prefix, p)
+
+
+def _attn_pool(w: _Writer, key: str, p: Mapping):
+    """CoCa's AttentionalPooler: its query, norms and attention (q/k/v
+    apart when the tokens are wider than the queries, torch's layout)."""
+    w.put(f"{key}.query", p["query"])
+    w.norm(f"{key}.ln_q", p["ln_q"])
+    w.norm(f"{key}.ln_k", p["ln_k"])
+    _cross_mha(w, f"{key}.attn", p["attn"])
+
+
+def _cross_mha(w: _Writer, key: str, a: Mapping, i=None):
+    """A CrossMultiheadAttention tree (layer i of a stacked one) → torch
+    nn.MultiheadAttention's names (inverse of `torch_convert._mha_qkv`)."""
+    pick = (lambda x: np.asarray(x)) if i is None else (lambda x: np.asarray(x)[i])
+    q, k, v = (_t(pick(a[n]["kernel"])) for n in ("q_proj", "k_proj", "v_proj"))
+    if q.shape == k.shape == v.shape:
+        w.put(f"{key}.in_proj_weight", np.concatenate([q, k, v]))
+    else:
+        w.put(f"{key}.q_proj_weight", q)
+        w.put(f"{key}.k_proj_weight", k)
+        w.put(f"{key}.v_proj_weight", v)
+    w.put(f"{key}.in_proj_bias",
+          np.concatenate([pick(a[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")]))
+    w.put(f"{key}.out_proj.weight", _t(pick(a["out_proj"]["kernel"])))
+    w.put(f"{key}.out_proj.bias", pick(a["out_proj"]["bias"]))
+
+
+def _any_visual(w: _Writer, prefix: str, p: Mapping):
+    """Any image tower's JAX tree, told apart by its keys as `convert_clip`
+    tells the state dicts apart."""
+    if "conv1" in p:
+        _visual(w, prefix, p)
+        if "attn_pool" in p:
+            _attn_pool(w, f"{prefix}.attn_pool", p["attn_pool"])
+    elif "attnpool" in p:
+        _resnet(w, prefix, p)
+    elif "trunk" in p:
+        _convnext(w, prefix, p)
+    elif "stage0_block0" in p:
+        _swin(w, prefix, p)
+    elif "head" in p:
+        _eva(w, prefix, p)
+    else:
+        _timm_vit(w, prefix, p)
+
+
+def coca_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX CoCa params → reference CoCa state dict (inverse of
+    `convert_coca` :509)."""
+    w = _Writer()
+    _any_visual(w, "visual", params["visual"])
+    _text(w, "text.", params["text"])
+    dec = params["text_decoder"]
+    layers = dec["layers"]
+    _resblocks(w, "text_decoder.resblocks", layers)
+    for i in range(np.asarray(layers["ln_1"]["scale"]).shape[0]):
+        key = f"text_decoder.cross_attn.{i}"
+        _stacked(w, f"{key}.ln_1", layers["cross_ln_1"], i)
+        _stacked(w, f"{key}.ln_1_kv", layers["cross_ln_1_kv"], i)
+        _stacked(w, f"{key}.ln_2", layers["cross_ln_2"], i)
+        _stacked(w, f"{key}.mlp.c_fc", layers["cross_mlp"]["c_fc"], i)
+        _stacked(w, f"{key}.mlp.c_proj", layers["cross_mlp"]["c_proj"], i)
+        _cross_mha(w, f"{key}.attn", layers["cross_attn"], i)
+    w.norm("text_decoder.ln_final", dec["ln_final"])
+    w.put("text_decoder.text_projection", dec["text_projection"])
+    w.put("logit_scale", params["logit_scale"])
+    return w.sd
+
+
+def hf_text_state_dict_from_flax(hf_params: Mapping, proj_params: Mapping = None,
+                                 encoder_only: bool = False) -> Dict[str, torch.Tensor]:
+    """daclip_tpu's HFTextTower parameters (transformers' Flax tree under
+    `hf`, the projection's under `proj`) → the port's HFTextTower state
+    dict: transformers' own Flax ↔ PyTorch names (`kernel` → `weight`
+    transposed, `embedding` / `scale` → `weight`) under `transformer.`, and
+    `proj` / `proj.0` / `proj.2`. With `encoder_only` (an encoder-decoder
+    model) only the encoder is kept, its token embedding the shared one."""
+    w = _Writer()
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + [str(k)])
+                continue
+            if encoder_only:
+                if path[0] == "decoder":
+                    continue
+                if path[0] == "shared":
+                    path = ["embed_tokens"]
+                elif path[0] == "encoder":
+                    path = path[1:]
+            a = np.asarray(v)
+            leaf = {"kernel": "weight", "embedding": "weight", "scale": "weight"}.get(k, k)
+            w.put(".".join(["transformer"] + path + [leaf]), a.T if k == "kernel" else a)
+
+    walk(hf_params, [])
+    proj = (proj_params or {}).get("params", {})
+    if "proj" in proj:
+        w.dense("proj", proj["proj"])
+    elif "fc1" in proj:
+        w.dense("proj.0", proj["fc1"])
+        w.dense("proj.2", proj["fc2"])
     return w.sd
 
 

@@ -160,6 +160,24 @@ def distill_clip_loss(image_features, text_features, logit_scale, dist_image_fea
     return contrastive, distill
 
 
+def coca_loss(image_features, text_features, logits, labels, logit_scale,
+              caption_loss_weight: float = 2.0, clip_loss_weight: float = 1.0,
+              pad_id: int = 0, output_dict: bool = True):
+    """CoCaLoss (open_clip/loss.py:135-178; JAX `clip_loss.py:132`): the
+    weighted contrastive loss plus the caption cross-entropy, its mean over
+    the tokens that are not `pad_id`."""
+    c = 0.0
+    if clip_loss_weight:
+        c = clip_loss_weight * clip_loss(image_features, text_features, logit_scale)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    mask = (labels != pad_id).float()
+    caption = caption_loss_weight * (nll * mask).sum() / mask.sum().clamp_min(1)
+    if output_dict:
+        return {"contrastive_loss": c, "caption_loss": caption}
+    return c, caption
+
+
 def daclip_loss_fork(out: Dict, l1_loss_weight: float = 0.1, temperature: float = 0.07,
                      output_dict: bool = True):
     """The fork's DaClipLoss: clip + 0.1·L1(image, GT image features) + the

@@ -3,10 +3,13 @@ the model-config registry.
 
 Counterpart of `daclip_tpu/models/clip.py` (open_clip model.py:187-264,
 daclip_model.py:17-76; the predictor da-clip/src/open_clip/daclip_model.py:
-17-169). Plain ViT image towers and the inlined CLIP text tower, under the
+17-169). Every image tower the vendored configs name (the open_clip ViT,
+ModifiedResNet, and the timm families of models/timm_model.py) and the CLIP
+text tower, inlined or as CustomTextCLIP's `text.` module, under the
 reference's parameter names (`transformer`, `token_embedding`,
 `positional_embedding`, `ln_final`, `text_projection`), so a released
-`daclip_ViT-B-32.pt` loads with `load_state_dict(strict=True)`.
+`daclip_ViT-B-32.pt` loads with `load_state_dict(strict=True)`. CoCa is
+models/coca.py.
 """
 from __future__ import annotations
 
@@ -18,11 +21,11 @@ import pathlib
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from daclip_torch.models.layers import LayerNorm
-from daclip_torch.models.transformer import Transformer, VisionTransformer, causal_mask
+from daclip_torch.models.transformer import (TextTransformer, Transformer, VisionTransformer,
+                                             encode_tokens)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,14 +184,37 @@ def get_model_config(name: str) -> Dict:
     return assets[name]
 
 
-def _check_vit(cfg: CLIPCfg) -> None:
+def build_visual(cfg: CLIPCfg, remat: bool = False) -> nn.Module:
+    """The image tower a config names (JAX `clip.py:226-251`; model.py:
+    100-121): a timm tower by `timm_model_name`, ModifiedResNet when
+    `layers` is a list, else the open_clip ViT."""
     v = cfg.vision
-    if v.is_resnet or v.timm_model_name or v.attentional_pool:
-        raise NotImplementedError(
-            "daclip_torch builds plain ViT towers only; ResNet, timm and CoCa "
-            "towers are not ported yet")
-    if cfg.text.embed_cls:
-        raise NotImplementedError("CoCa's CLS text tower (embed_cls) is not ported yet")
+    if v.timm_model_name:
+        from daclip_torch.models.convnext import build_timm_tower
+        return build_timm_tower(v.timm_model_name, cfg.embed_dim, pool=v.timm_pool,
+                                proj=v.timm_proj, drop=v.timm_drop,
+                                drop_path=v.timm_drop_path, image_size=v.image_size,
+                                remat=remat)
+    if v.is_resnet:
+        from daclip_torch.models.resnet import ModifiedResNet
+        return ModifiedResNet(tuple(v.layers), cfg.embed_dim, v.heads, v.image_size, v.width)
+    return VisionTransformer(
+        image_size=v.image_size, patch_size=v.patch_size, width=v.width,
+        layers=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
+        output_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu,
+        global_average_pool=v.global_average_pool, patch_dropout=v.patch_dropout,
+        remat=remat, ls_init_value=v.ls_init_value)
+
+
+def refuse_hf_text(cfg: CLIPCfg) -> None:
+    """daclip_tpu's CustomTextCLIP refuses an HF text tower in a config
+    (`clip.py:312-320`); so does the port, with the same guidance."""
+    if cfg.text.hf_model_name:
+        raise ImportError(
+            f"HF text tower {cfg.text.hf_model_name!r} requires local transformers "
+            "weights; compose daclip_torch.models.hf_text.HFTextTower with "
+            "this model's visual tower instead (see models/hf_text.py "
+            "docstring).")
 
 
 def _normalize(x, normalize: bool):
@@ -201,27 +227,33 @@ def _normalize(x, normalize: bool):
 class CLIP(nn.Module):
     """Dual-tower CLIP with the reference's (model.py:187-264) parameter
     names; activations in `dtype`, parameters in float32; `remat`
-    checkpoints every residual block of both towers."""
+    checkpoints every residual block of both towers. The text tower is
+    inlined at the top level, or with `custom_text` the `text.` module of
+    open_clip's CustomTextCLIP (model.py:267-320), which every
+    `custom_text` config's checkpoint holds."""
 
     def __init__(self, cfg: CLIPCfg, dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, custom_text: bool = False):
         super().__init__()
-        _check_vit(cfg)
-        v, t = cfg.vision, cfg.text
+        t = cfg.text
         self.cfg = cfg
         self.dtype = dtype
-        self.visual = VisionTransformer(
-            image_size=v.image_size, patch_size=v.patch_size, width=v.width,
-            layers=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
-            output_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu,
-            global_average_pool=v.global_average_pool, patch_dropout=v.patch_dropout,
-            remat=remat)
-        self.transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
-                                       cfg.quick_gelu, remat)
-        self.token_embedding = nn.Embedding(t.vocab_size, t.width)
-        self.positional_embedding = nn.Parameter(0.01 * torch.randn(t.context_length, t.width))
-        self.ln_final = LayerNorm(t.width)
-        self.text_projection = nn.Parameter(t.width ** -0.5 * torch.randn(t.width, cfg.embed_dim))
+        self.custom_text = custom_text
+        self.visual = build_visual(cfg, remat)
+        if custom_text:
+            refuse_hf_text(cfg)
+            self.text = TextTransformer(t.context_length, t.vocab_size, t.width, t.heads,
+                                        t.layers, t.mlp_ratio, cfg.embed_dim, cfg.quick_gelu,
+                                        remat=remat)
+        else:
+            self.transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
+                                           cfg.quick_gelu, remat)
+            self.token_embedding = nn.Embedding(t.vocab_size, t.width)
+            self.positional_embedding = nn.Parameter(
+                0.01 * torch.randn(t.context_length, t.width))
+            self.ln_final = LayerNorm(t.width)
+            self.text_projection = nn.Parameter(
+                t.width ** -0.5 * torch.randn(t.width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, image, normalize: bool = False, control=None, train: bool = False,
@@ -234,13 +266,9 @@ class CLIP(nn.Module):
     def encode_text(self, text, normalize: bool = False):
         """text (B, L) token ids → (B, embed_dim): causal stack, ln_final on
         every token, pooled at the EOT token (the highest id)."""
-        text = text.long()
-        L = text.shape[1]
-        x = F.embedding(text, self.token_embedding.weight).to(self.dtype)
-        x = x + self.positional_embedding[:L].to(self.dtype)
-        x = self.ln_final(self.transformer(x, mask=causal_mask(L, x.device)))
-        pooled = x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
-        return _normalize(pooled @ self.text_projection.to(self.dtype), normalize)
+        if self.custom_text:
+            return _normalize(self.text(text, dtype=self.dtype), normalize)
+        return _normalize(encode_tokens(self, text, self.dtype)[0], normalize)
 
     def forward(self, image=None, text=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):

@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def local_tensor(t: torch.Tensor) -> torch.Tensor:
@@ -75,6 +76,14 @@ def row_parallel(linear: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
     return y + linear.bias.to(x.dtype)
 
 
+def run_block(block, remat: bool, *args):
+    """`block(*args)`, its activations recomputed in the backward pass when
+    `remat` is on and a gradient is being taken (--grad-checkpointing)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
 class Linear(nn.Linear):
     """nn.Linear computing in the input's dtype with f32 master weights."""
 
@@ -115,35 +124,78 @@ def quick_gelu(x):
 
 
 class MultiheadAttention(nn.Module):
-    """Packed-QKV softmax attention with torch nn.MultiheadAttention's
-    parameter names, on (B, N, D) tokens: plain matmuls and an f32 softmax.
-    With `tp_group` the packed rows hold q, k and v of this rank's heads and
-    `out_proj.weight` their input columns."""
+    """torch nn.MultiheadAttention's parameters and semantics on (B, N, D)
+    tokens: plain matmuls and an f32 softmax. Q, K and V are packed in
+    `in_proj_weight` unless `kdim` / `vdim` differ from the width, where
+    torch keeps `q_proj_weight`, `k_proj_weight`, `v_proj_weight` (the CoCa
+    attentional pooler, JAX `layers.py:141`). `forward(x, mask)` is
+    self-attention; `forward(x, mask, kv=y)` attends from x to y, or to
+    `kv=project_kv(y)`. With
+    `tp_group` (self-attention, packed) the packed rows hold q, k and v of
+    this rank's heads and `out_proj.weight` their input columns."""
 
     tp_group = None
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, kdim: int = None, vdim: int = None):
         super().__init__()
         self.heads = heads
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
+        kdim, vdim = kdim or width, vdim or width
+        self.packed = kdim == width and vdim == width
+        if self.packed:
+            self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
+            nn.init.xavier_uniform_(self.in_proj_weight)
+        else:
+            self.q_proj_weight = nn.Parameter(torch.empty(width, width))
+            self.k_proj_weight = nn.Parameter(torch.empty(width, kdim))
+            self.v_proj_weight = nn.Parameter(torch.empty(width, vdim))
+            for w in (self.q_proj_weight, self.k_proj_weight, self.v_proj_weight):
+                nn.init.xavier_uniform_(w)
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = Linear(width, width)
-        nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x, mask=None):
+    def _attend(self, q, k, v, mask):
+        """Softmax attention of (B, Nq, H, hd) q over (B, Nk, H, hd) k, v."""
+        hd = q.shape[-1]
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (hd ** -0.5)
+        if mask is not None:
+            logits = logits + mask.float()
+        attn = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", attn, v).flatten(2)
+
+    def forward(self, x, mask=None, kv=None):
         B, N, D = x.shape
         hd = D // self.heads
+        if kv is not None:
+            return self._cross(x, kv, mask, hd)
         w = local_tensor(self.in_proj_weight)
         H = w.shape[0] // (3 * hd)  # this rank's heads
         qkv = F.linear(copy_to_model(x, self.tp_group), w.to(x.dtype),
                        local_tensor(self.in_proj_bias).to(x.dtype))
         q, k, v = (t.reshape(B, N, H, hd) for t in qkv.chunk(3, dim=-1))
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (hd ** -0.5)
-        if mask is not None:
-            logits = logits + mask.float()
-        attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, N, H * hd)
-        return row_parallel(self.out_proj, out, self.tp_group)
+        return row_parallel(self.out_proj, self._attend(q, k, v, mask), self.tp_group)
+
+    def _weights(self):
+        if self.packed:
+            return self.in_proj_weight.chunk(3)
+        return self.q_proj_weight, self.k_proj_weight, self.v_proj_weight
+
+    def project_kv(self, kv):
+        """The (B, Nk, H, hd) keys and values of `kv`, which `forward` also
+        takes in their place (a decoder's image tokens, projected once)."""
+        _, wk, wv = self._weights()
+        _, bk, bv = self.in_proj_bias.to(kv.dtype).chunk(3)
+        hd = wk.shape[0] // self.heads
+        return tuple(F.linear(kv, w.to(kv.dtype), b).reshape(kv.shape[0], kv.shape[1], -1, hd)
+                     for w, b in ((wk, bk), (wv, bv)))
+
+    def _cross(self, x, kv, mask, hd):
+        if self.tp_group is not None:
+            raise NotImplementedError("cross-attention is not split over a model axis")
+        B, N, D = x.shape
+        wq = self._weights()[0]
+        q = F.linear(x, wq.to(x.dtype), self.in_proj_bias.to(x.dtype).chunk(3)[0])
+        k, v = kv if isinstance(kv, tuple) else self.project_kv(kv)
+        return self.out_proj(self._attend(q.reshape(B, N, -1, hd), k, v, mask).reshape(B, N, D))
 
 
 class MLP(nn.Module):

@@ -84,7 +84,8 @@ def initialize_distributed(dist_url: str = "env://", backend: Optional[str] = No
     False (--no-set-device-rank: cuda:0, or the device given). Under SLURM
     the job's ids are copied into RANK / WORLD_SIZE / LOCAL_RANK, as the
     reference does (distributed.py:63-114). A group that fails to form
-    raises: nothing falls back to one process."""
+    raises: nothing falls back to one process. The ranks meet at a barrier
+    once the group has formed."""
     from daclip_torch.pipeline import resolve_device
 
     dev = resolve_device(device)
@@ -106,6 +107,10 @@ def initialize_distributed(dist_url: str = "env://", backend: Optional[str] = No
             kw["device_id"] = dev
         dist.init_process_group(backend=backend, init_method=dist_url or "env://",
                                 world_size=world, rank=rank, **kw)
+        # every rank has finished connecting before any returns: a rank that
+        # then leaves at once (a refused flag) would otherwise close its
+        # sockets under a peer still inside gloo's connectFullMesh
+        dist.barrier(**({"device_ids": [dev.index]} if backend == "nccl" else {}))
     return dist.get_rank(), dist.get_world_size(), local_rank, dev
 
 
@@ -407,7 +412,7 @@ def apply_tensor_parallel(model: nn.Module, mesh: Mesh) -> nn.Module:
 
     m, tp_mesh = mesh.shape[2], mesh.device_mesh["model"]
     for mod in model.modules():
-        if isinstance(mod, MultiheadAttention) and mod.heads % m == 0:
+        if isinstance(mod, MultiheadAttention) and mod.packed and mod.heads % m == 0:
             split = {"in_proj_weight": "heads", "in_proj_bias": "heads",
                      "out_proj.weight": "cols"}
         elif isinstance(mod, MLP) and mod.c_fc.weight.shape[0] % m == 0:

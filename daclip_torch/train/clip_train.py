@@ -62,9 +62,11 @@ from daclip_torch.train.restoration import _check_device, _on_device, clip_by_gl
 
 _BATCH_KEYS = ("images", "texts", "gt_images", "deg_type", "gt_val")
 LOGIT_SCALE_MAX = math.log(100.0)
-# modules daclip_tpu stacks along a leading axis (nn.scan blocks, the
-# predictor's regressors): their parameters have one more dimension there
-_STACKED = re.compile(r"(^|\.)(resblocks|zero_modules|regressors)\.\d+\.")
+# modules daclip_tpu stacks along a leading axis (nn.scan blocks: the open_clip
+# transformers, CoCa's decoder, the EVA and timm ViT trunks; the predictor's
+# regressors): their parameters have one more dimension there
+_STACKED = re.compile(r"(^|\.)(resblocks|zero_modules|regressors|cross_attn|trunk\.blocks)"
+                      r"\.\d+\.")
 
 
 @dataclasses.dataclass
@@ -127,9 +129,10 @@ def make_schedule(cfg: ClipTrainConfig) -> Callable[[int], float]:
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
-    """Weight decay on ndim ≥ 2, the stacking axis of daclip_tpu's stacked
-    modules counted."""
-    return p.ndim + (1 if _STACKED.search(name) else 0) >= 2
+    """Weight decay on ndim ≥ 2 of daclip_tpu's parameter: the stacking axis
+    of its stacked modules counted."""
+    ndim = 1 if name.endswith("cls_token") else p.ndim  # timm's (1, 1, D) is (D,) there
+    return ndim + (1 if _STACKED.search(name) else 0) >= 2
 
 
 def make_optimizer(named: Sequence[Tuple[str, torch.nn.Parameter]], cfg: ClipTrainConfig,

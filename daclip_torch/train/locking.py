@@ -13,9 +13,10 @@ parameters by mask value).
 
 Names are the port's: a ViT tower's `conv1.weight`, `class_embedding`,
 `positional_embedding`, `ln_pre.*`, `transformer.resblocks.{i}.*`,
-`ln_post.*`, `proj`; the text tower's `transformer.resblocks.{i}.*`,
-`token_embedding.weight`, `positional_embedding`, `ln_final.*`,
-`text_projection`, inlined at the top of `CLIP` as in the reference.
+`ln_post.*`, `proj`; a timm tower's `trunk.*` and `head.*`; the text
+tower's `transformer.resblocks.{i}.*`, `token_embedding.weight`,
+`positional_embedding`, `ln_final.*`, `text_projection`, inlined at the top
+of `CLIP` as in the reference or under CustomTextCLIP's `text.`.
 """
 from __future__ import annotations
 
@@ -43,13 +44,33 @@ def _is_norm(name: str) -> bool:
     return any(p.startswith(("ln_", "norm")) for p in name.split("."))
 
 
+# open_clip TimmModel's adapter head (timm_model.py:85-105): a timm tower's
+# parameters outside `trunk`, which its lock leaves trainable
+ADAPTER_HEAD = "head."
+
+
 def vision_lock_mask(names: Iterable[str], unlocked_groups: int = 0) -> Dict[str, float]:
-    """Mask over a ViT tower's parameter names. The reference's groups
-    (transformer.py:448-462), unlocked from the END: [stem: conv1,
-    class_embedding, positional_embedding, ln_pre], resblocks[0] … [L-2]
-    one group each, [resblocks[L-1], ln_post], proj; `unlocked_groups=g`
-    unlocks the last g."""
+    """Mask over an image tower's parameter names. For the open_clip ViT,
+    the reference's groups (transformer.py:448-462), unlocked from the END:
+    [stem: conv1, class_embedding, positional_embedding, ln_pre],
+    resblocks[0] … [L-2] one group each, [resblocks[L-1], ln_post], proj
+    (and CoCa's attn_pool); `unlocked_groups=g` unlocks the last g.
+
+    The other towers as daclip_tpu's mask (`locking.py:40-80`) and the
+    reference lock them: ModifiedResNet locks everything
+    (modified_resnet.py:154-159), a timm tower its `trunk` only, its
+    adapter head (`head.proj`, `head.mlp.*`) training (timm_model.py:
+    107-117; EVA's projection is in the trunk, so it locks whole); both
+    refuse `unlocked_groups` > 0."""
     names = list(names)
+    if not any(_layer(n) is not None for n in names):
+        if unlocked_groups:
+            raise ValueError(
+                "lock_image_unlocked_groups > 0 is only supported for the "
+                "open_clip ViT tower (reference parity: ModifiedResNet "
+                "asserts 0, modified_resnet.py:155; TimmModel requires "
+                "timm-master group_matcher, timm_model.py:118-125)")
+        return {n: float(n.startswith(ADAPTER_HEAD)) for n in names}
     n_layers = _n_layers(names)
     n_groups = 1 + (n_layers - 1) + 1 + 1
     first_unlocked = n_groups - min(int(unlocked_groups), n_groups)
@@ -65,7 +86,7 @@ def vision_lock_mask(names: Iterable[str], unlocked_groups: int = 0) -> Dict[str
             return stem_open
         if top == "ln_post":
             return last_open
-        if top == "proj":
+        if top in ("proj", "attn_pool"):
             return proj_open
         layer = _layer(name)
         if layer is not None:
@@ -104,8 +125,8 @@ def build_update_mask(names: Iterable[str], lock_image: bool = False,
                       lock_text_unlocked_layers: int = 0,
                       lock_text_freeze_layer_norm: bool = True) -> Optional[Dict[str, float]]:
     """The mask over every trainable parameter name (`visual.*` is the image
-    tower, `TEXT_PARAMS` the text tower, anything else trains); None when
-    nothing is locked (main.py:261-269)."""
+    tower, `TEXT_PARAMS` or `text.*` the text tower, anything else trains);
+    None when nothing is locked (main.py:261-269)."""
     if not lock_image and not lock_text:
         return None
     names = list(names)
@@ -118,6 +139,11 @@ def build_update_mask(names: Iterable[str], lock_image: bool = False,
     if lock_text and text:
         mask.update(text_lock_mask(text, lock_text_unlocked_layers,
                                    lock_text_freeze_layer_norm))
+    custom = [n[len("text."):] for n in names if n.startswith("text.")]
+    if lock_text and custom:
+        for n, v in text_lock_mask(custom, lock_text_unlocked_layers,
+                                   lock_text_freeze_layer_norm).items():
+            mask[f"text.{n}"] = v
     return mask
 
 

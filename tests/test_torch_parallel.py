@@ -178,7 +178,7 @@ def clip_ranks(clip_setup, tmp_path_factory):
     fwd = _batch(50, n=4)
     runs = [_clip_run(sd, "4", static_graph=True), _clip_run(sd, "2,2"),
             _clip_run(sd, "2,1,2", tp=True, forward=fwd, splits=SPLITS)]
-    return w.spawn(w.clip_runs, 4, tmp_path_factory.mktemp("clip"), runs, deadline=240)
+    return w.spawn(w.clip_runs, 4, tmp_path_factory.mktemp("clip"), runs)
 
 
 @pytest.mark.parametrize("case", ["ddp", "hsdp", "one_process"])
@@ -255,8 +255,9 @@ def _draws(n, seed=4):
 @pytest.fixture(scope="module")
 def resto(tmp_path_factory):
     """The JAX UNet's seeded parameters, the same as the port's state dict,
-    and the 4-rank runs: DDP and FSDP one step each, then 6 FSDP steps
-    saved at 3."""
+    and the 4-rank runs, each spawned in a group of its own: DDP and FSDP
+    one step each, then 6 FSDP steps saved at 3. `ranks[r][i]` is rank r's
+    result of run i."""
     jnet = JaxUNet(dtype=jnp.float32, **KW)
     b = _resto_batch()
     jparams = _seeded_params(jnet, (b["LQ"], b["LQ"], np.ones(B, np.float32),
@@ -266,7 +267,8 @@ def resto(tmp_path_factory):
     base = dict(unet=KW, sd=sd, cfg=RESTO_CFG, batch=b, min_size=1024)
     runs = [dict(base, mesh="4", draws=_draws(1)), dict(base, mesh="2,2", draws=_draws(1)),
             dict(base, mesh="2,2", draws=_draws(6, seed=5), save=str(tmp / "ck"), save_at=3)]
-    return jnet, jparams, sd, tmp, w.spawn(w.resto_runs, 4, tmp, runs, deadline=240)
+    each = [w.spawn(w.resto_steps, 4, tmp / f"run{i}", run) for i, run in enumerate(runs)]
+    return jnet, jparams, sd, tmp, [[got[r] for got in each] for r in range(4)]
 
 
 @pytest.fixture(scope="module")

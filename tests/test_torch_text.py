@@ -269,12 +269,27 @@ def test_build_banks_equal_jax(exact_bins):
 
 
 def test_coca_text_tower_is_refused():
-    with pytest.raises(NotImplementedError, match="embed_cls"):
-        TorchCLIP(TorchCfg.from_dict({
-            "embed_dim": 32, "vision_cfg": {"image_size": 32, "layers": 1, "width": 64,
-                                            "patch_size": 16, "head_width": 32},
-            "text_cfg": {"context_length": 15, "width": 32, "heads": 2, "layers": 1,
-                         "embed_cls": True}}))
+    """CoCa's CLS text tower is ported (`TextTransformer(embed_cls=True)`,
+    CoCa's `text`, tests/test_torch_coca.py). A plain CLIP whose config
+    sets embed_cls ignores it, as daclip_tpu's CLIP does: both encode the
+    same text from the same weights."""
+    from daclip_torch.convert import clip_state_dict_from_jax
+
+    cfg = {"embed_dim": 32, "vision_cfg": {"image_size": 32, "layers": 1, "width": 64,
+                                           "patch_size": 16, "head_width": 32},
+           "text_cfg": {"context_length": 15, "width": 32, "heads": 2, "layers": 1,
+                        "embed_cls": True}}
+    toks = np.random.RandomState(0).randint(1, 400, (2, 15)).astype(np.int32)
+    jmodel = JaxCLIP(JaxCfg.from_dict(cfg), dtype=jnp.float32)
+    params = jmodel.init(jax.random.PRNGKey(1), np.zeros((1, 32, 32, 3), np.float32),
+                         toks)["params"]
+    tmodel = TorchCLIP(TorchCfg.from_dict(cfg))
+    tmodel.load_state_dict(clip_state_dict_from_jax(jax.tree.map(np.asarray, params)),
+                           strict=True)
+    want = jmodel.apply({"params": params}, toks, method=jmodel.encode_text)
+    with torch.no_grad():
+        got = tmodel.encode_text(torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 # -- the restorer's text features and classification -----------------------------------

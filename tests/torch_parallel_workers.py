@@ -16,7 +16,13 @@ import traceback
 import numpy as np
 import torch
 
-GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+# Under a full test run (six pytest workers on one host) a rank gets a
+# fraction of a core: the restoration runs that take ~20 s alone took 139 s
+# on 8 cores with 56 busy processes beside them, and outlived a 240 s
+# deadline in a full run. The deadlines leave room for that; a rank that
+# really hangs still fails its test.
+GROUP_TIMEOUT = datetime.timedelta(seconds=300)
+SPAWN_DEADLINE = 900.0
 
 
 # -- spawning -------------------------------------------------------------------------
@@ -27,7 +33,8 @@ def store_path(tmp) -> str:
     return str(tmp / f"store-{len(list(tmp.iterdir()))}")
 
 
-def spawn(fn, world: int, tmp, payload=None, deadline: float = 120.0, init: bool = True):
+def spawn(fn, world: int, tmp, payload=None, deadline: float = SPAWN_DEADLINE,
+          init: bool = True):
     """Run `fn(rank, world, payload)` in `world` spawned processes with
     torchrun's RANK / WORLD_SIZE / LOCAL_RANK, which form one gloo group
     (through a file; with `init` False `fn` forms it), and return their
@@ -216,11 +223,6 @@ class _GivenDraws:
         t, noise = rows(t, self.r, self.n), rows(noise, self.r, self.n)
         mean = self.sde.mu_bar(mu, x0, t)
         return t, (noise * self.sde._at("sigma_bars", t) + mean).float()
-
-
-def resto_runs(rank, world, runs):
-    """`resto_steps` of each run in turn, in one group."""
-    return [resto_steps(rank, world, p) for p in runs]
 
 
 def resto_steps(rank, world, p):
