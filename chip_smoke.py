@@ -79,6 +79,21 @@ Phases, each printing JSON lines:
              exact launches of #1 (600) and #2 (300), the degradation name
              equal to classify_degradation's, a uint8 RGB image of the
              input's shape
+ 4f shard_tiles  DACLIPRestorer.shard_tiles on the serve phase's restorer
+             (tile_size 512, overlap 64, tile_batch 8): a seeded 1024² image is
+             3 × 3 tiles of 384²; restored unsharded (batches of 8 + 1), then
+             twice sharded over every card, or cuda:0 listed twice on one
+             card (8 + 8, 7 of them padding; each UNet call split in equal
+             chunks, one a listed card): the first tile batch's first UNet
+             call split against whole within 3× the whole call's distance
+             from an f32 UNet, its tiles after the T steps within that
+             call's distance from f32 relative to their max (on seeded
+             weights the samples grow to ~10³), the two sharded images
+             equal bit for bit, the exact launches of
+             #1 and #2 on each
+             restore (unsharded 1200 / 600, over two 2400 / 1200), each
+             restore's seconds and peak memory beside the card's name and
+             power limit; cuDNN deterministic during the phase
   5 profile  one sampler step (a UNet forward at 256²): wall time, device
              kernel time by name, by the port's kernel namespaces and that of
              the 3×3 convs (torch.profiler)
@@ -161,7 +176,7 @@ Phases, each printing JSON lines:
              and peak memory beside train_daclip's; then the f32 step at B = 8
              on the card against the CPU with one patch noise (the same
              limits); no hand kernel launched
-13 train_daclip_cli  `cli.train_daclip.main` in process on a seeded CSV of 24
+13 train_daclip_cli  `cli.train_daclip.main` in process on a seeded CSV of 16
              LQ/GT PNG pairs (224-288 px sides, half Up and half Paeth rows)
              and a val CSV of 8: --da, daclip_ViT-B-32, --precision amp,
              batch 8, 4 workers, 1 epoch, then --resume latest to 2; the
@@ -305,6 +320,11 @@ FLASH_SHAPES = [  # (B, N, H, D, dtype): down3 and mid/up3 at 256², the fixture
     (1, 256, 2, 32, torch.float32)]
 # the training step's forward at down3 and mid/up3 (B=16), keeping the lse
 FLASH_TRAIN_SHAPES = [(16, 1024, 8, 32, torch.bfloat16), (16, 1024, 16, 32, torch.bfloat16)]
+# shard_tiles' 384² tiles: mid/up3 at the full tile batch (the unsharded
+# restore) and down3 at a chunk of half of it (split over two); the wrap at
+# level 0 (n = 384²) on such a chunk
+SHARD_FLASH_SHAPES = [(8, 2304, 16, 32, torch.bfloat16), (4, 2304, 8, 32, torch.bfloat16)]
+SHARD_WRAP_SHAPES = [(4, 147456, 64, torch.bfloat16)]
 LIMITS = {("wrap", torch.bfloat16): 0.1, ("wrap", torch.float32): 1e-3,
           # relative to the output's max: the core's output is the attention
           # alone; the 1×1 rounds once to bf16 (half a step is 2^-8 of a value);
@@ -683,6 +703,10 @@ def run_kernels():
     for (B, N, H, D, dtype), train in ([(s, False) for s in FLASH_SHAPES]
                                        + [(s, True) for s in FLASH_TRAIN_SHAPES]):
         rows["flash"].append(flash_check(B, N, H, D, dtype, train, gen))
+    for (B, n, C, dtype), balanced in [(s, b) for s in SHARD_WRAP_SHAPES for b in (False, True)]:
+        rows["wrap"].append(wrap_check(B, n, C, dtype, gen, balanced, path="shard_tiles"))
+    for B, N, H, D, dtype in SHARD_FLASH_SHAPES:
+        rows["flash"].append(flash_check(B, N, H, D, dtype, False, gen, path="shard_tiles"))
     return rows
 
 
@@ -1457,6 +1481,123 @@ def run_gradio(restorer):
     check(out.shape == img.shape and out.dtype == np.uint8, f"gradio output {out.shape} "
           f"{out.dtype}")
     return {"wrap": counts["wrap"], "flash": counts["flash"]}
+
+
+def run_shard_tiles(restorer, sds, smi):
+    """A 1024² restore through the serve phase's full-width restorer
+    (ViT-B-32 DaCLIP, nf 64 UNet, bf16, v5, T = 100; tile_size 512, overlap
+    64, tile_batch 8: 3 × 3 tiles of 384²) unsharded, then twice through a
+    shallow copy of it sharded over every card, or cuda:0 listed twice on
+    one card. The first tile batch has the same tiles, noise and contexts in
+    both: its first UNet call (the sampler's step T, split in chunks or
+    whole) is held to ALT_FORWARD_FACTOR × the whole call's distance from
+    an f32 UNet on the same inputs, as serve_alt holds a wiring; its tiles
+    after the T steps, relative to their max, to that call's distance from
+    f32 relative to its max (on seeded weights the samples grow to ~10³,
+    and a rounding difference grows with them). The second batch's noise
+    differs by its shape (8 against 1), as in daclip_tpu. The two sharded
+    images must be equal bit for bit. Returns the first sharded restore's
+    launches."""
+    import copy
+
+    from daclip_torch.models.unet import ConditionalUNet
+
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n_cards)] if n_cards > 1 else ["cuda:0"] * 2
+    sharded = copy.copy(restorer).shard_tiles(devices)
+    cfg, steps = restorer.cfg, restorer.sde.sample_T
+    side, seed = 1024, 7
+    img = np.random.RandomState(seed).rand(side, side, 3).astype(np.float32)
+    firsts = {}
+
+    def recorded(r, key):
+        """`r`'s sampler; its first run keeps, under `key`, its first UNet
+        call's inputs and output and the run's tile outputs."""
+        sample = r._sample
+
+        def run(lq, generator, tctx, ictx, noise_fn=None):
+            net, calls = noise_fn or r.unet, []
+
+            def first_call(*a, **kw):
+                out = net(*a, **kw)
+                if not calls:
+                    calls.append((a, kw, out))
+                return out
+            out = sample(lq, generator, tctx, ictx, noise_fn=first_call)
+            firsts.setdefault(key, calls[:1] + [out])
+            return out
+        return run
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():  # cuDNN's choices at the three batch shapes, once
+            for b in (cfg.tile_batch, 1, cfg.tile_batch // len(devices)):
+                x = torch.rand(b, 3, 384, 384, device="cuda")
+                c = torch.rand(b, cfg.context_dim, device="cuda")
+                restorer.unet(x, x, torch.full((b,), 50.0, device="cuda"), c, c)
+        runs, launches = {}, {}
+        for key, r, chunks in (("unsharded", restorer, 1), ("sharded", sharded, len(devices)),
+                               ("sharded_again", sharded, len(devices))):
+            r._sample = recorded(r, key)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                runs[key] = out = r.restore(img, seed=seed, return_uint8=False)
+            finally:
+                del r._sample
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[key] = {k: v for k, v in read_counts().items() if v}
+            # two sampler runs (8 + 1 tiles, or 8 + 8), each UNet call in `chunks`
+            want = {"wrap": 2 * steps * 6 * chunks, "flash": 2 * steps * 3 * chunks}
+            emit(phase="shard_tiles", restore=key, devices=devices if chunks > 1 else
+                 [str(restorer.device)], image=[side, side], tiles=9,
+                 tile_batches=[8, 8] if chunks > 1 else [8, 1], steps=steps, seconds=seconds,
+                 max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 launches=launches[key], finite=bool(np.isfinite(out).all()), card=smi)
+            check(out.shape == (side, side, 3) and np.isfinite(out).all(),
+                  f"shard_tiles {key}: output {out.shape} not finite or not {side}²")
+            check(launches[key] == want, f"shard_tiles {key}: launches {launches[key]}, "
+                  f"expected {want}")
+        (args, kw, whole), first_plain = firsts["unsharded"]
+        (_, _, split), first_sharded = firsts["sharded"]
+        unet32 = ConditionalUNet(nf=cfg.nf, ch_mult=cfg.ch_mult, context_dim=cfg.context_dim,
+                                 use_degra_context=True, use_image_context=True)
+        unet32.load_state_dict(sds[0], strict=True)
+        with torch.no_grad():
+            floor = float((whole.float() - unet32.cuda().eval()(*args, **kw)).abs().max())
+        del unet32
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    step_err = float((split.float() - whole.float()).abs().max())
+    limit = ALT_FORWARD_FACTOR * floor
+    whole_max = float(whole.float().abs().max())
+    batch_err = float(np.abs(first_sharded - first_plain).max())
+    batch_max = float(np.abs(first_plain).max())
+    repeats = bool(np.array_equal(runs["sharded"], runs["sharded_again"]))
+    emit(phase="shard_tiles", what="the first tile batch (8 tiles of 384²): its first UNet "
+         "call split against whole, and its tiles after the T steps; the sharded image "
+         "against a second sharded run", first_call_shape=list(whole.shape),
+         first_call_max_abs_err=step_err, first_call_whole_vs_f32=floor,
+         first_call_limit=limit, first_call_output_max=whole_max,
+         first_batch_max_abs_err=batch_err, first_batch_output_max=batch_max,
+         first_batch_err_of_max=batch_err / batch_max,
+         first_batch_limit_of_max=floor / whole_max,
+         image_max_abs_diff=float(np.abs(runs["sharded"] - runs["unsharded"]).max()),
+         repeats_bitwise=repeats, card=smi)
+    check(first_plain.shape == first_sharded.shape == (cfg.tile_batch, 384, 384, 3),
+          f"shard_tiles: first batches {first_plain.shape}, {first_sharded.shape}")
+    check(np.isfinite(first_sharded).all(), "shard_tiles: the first tile batch not finite")
+    check(batch_err / batch_max <= floor / whole_max, f"shard_tiles: the first tile batch "
+          f"differs by {batch_err / batch_max} of its max after the steps (limit "
+          f"{floor / whole_max}: one call's distance from f32 of its max)")
+    check(step_err <= limit, f"shard_tiles: the split first UNet call is {step_err} from the "
+          f"whole one (limit {limit}: {ALT_FORWARD_FACTOR} × its {floor} from f32)")
+    check(repeats, "shard_tiles: two sharded restores with one seed differ")
+    return launches["sharded"]
 
 
 def run_profile(restorer, forwards=5, wiring="v5"):
@@ -2869,7 +3010,9 @@ def daclip_f32_step(cfg, sd, banks, shape, patch_dropout=None):
                 update_err_of_max=u_err[worst] / u_max, update_worst=worst)
 
 # -- phase 13 ------------------------------------------------------------------
-CLIP_TREE = (24, 8)            # train and val LQ/GT pairs
+# train and val LQ/GT pairs (24 train pairs before, cut for the script's
+# time when the shard_tiles phase came; the same half Up, half Paeth rows)
+CLIP_TREE = (16, 8)
 CLIP_SIDES = (224, 288)        # image sides, drawn per image
 CLIP_CLI_B, CLIP_CLI_WORKERS = 8, 4
 # 1 epoch and a resume to 2 (2 and 3 before, cut for the script's time)
@@ -2932,7 +3075,7 @@ def step_to_step_ms(records):
 
 def run_train_daclip_cli(train_daclip_ms):
     """`daclip_torch.cli.train_daclip.main` in process: --da, daclip_ViT-B-32,
-    --precision amp, seeded weights, a seeded CSV of 24 LQ/GT PNG pairs and a
+    --precision amp, seeded weights, a seeded CSV of 16 LQ/GT PNG pairs and a
     val CSV of 8, batch 8, 4 workers, 1 epoch, then --resume latest to 2;
     the step timed by a hook on the trainer's `make_train_step`; the
     loader's samples/s alone before; the last checkpoint through
@@ -4626,6 +4769,7 @@ def main():
     forward_conv = run_forward_conv(restorer.unet, fwd)
     run_text(restorer, sds[1])
     gradio_totals = run_gradio(restorer)
+    shard_totals = run_shard_tiles(restorer, sds, smi)
     del restorer, sds, fwd
     work = tempfile.TemporaryDirectory()
     lpips_weights = write_lpips_npz(pathlib.Path(work.name) / "alex.npz")
@@ -4676,10 +4820,12 @@ def main():
     # two runs, 4 steps and 4 validations), wild_ir_test (test_wild's two
     # restores at T=100), wild_ir_predict (predict --wild-ir, one restore),
     # stage_profile (its 11 rows, 31 calls each), gradio (one request at
-    # T=100); for the attention core and
+    # T=100), shard_tiles (the first sharded 1024² restore: two sampler runs
+    # of 8 tiles, each UNet call split in two); for the attention core and
     # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
     # and kernels_conv phases, and the conv's in the hooked forward_conv
     paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, gradio=gradio_totals,
+                 shard_tiles=shard_totals,
                  train=train_totals, ddp_train=ddp_totals, fsdp_train=fsdp_totals,
                  train_alt=train_alt_totals, train_cli=train_cli_totals,
                  test_lpips=test_lpips_totals, **wild_totals, stage_profile=stage_totals,

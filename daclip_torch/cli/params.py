@@ -8,8 +8,8 @@ port's, `--device`. `--dist-url`, `--dist-backend`, `--no-set-device-rank`
 and `--mesh` form the process group and mesh (`daclip_torch.parallel`);
 flags whose mechanism the port does not need (horovod, torchscript, the
 gather knobs, whose loss is global either way) are accepted and do
-nothing; the ones `cli/train_daclip.py` does not carry yet exit there,
-before any work, naming the ROADMAP item that holds them.
+nothing; the ones `cli/train_daclip.py` does not carry exit there, before
+any work, saying why.
 """
 from __future__ import annotations
 
@@ -193,8 +193,10 @@ def parse_args(args=None):
     parser.add_argument("--uir-variant", action="store_true", default=False,
                         help="original DA-CLIP loss instead of the fork's")
     parser.add_argument("--fast-clip-view", action="store_true", default=False,
-                        help="the cv2 train transform: not ported, exits "
-                             "(ROADMAP queue 1 item 4, waiting)")
+                        help="the cv2 train transform: the CSV train set decoded by "
+                             "cv2 and cropped and resized by cv2/numpy (same geometry "
+                             "as the PIL path, another resample kernel: not for parity "
+                             "runs)")
     # ---- the port's ------------------------------------------------------------------
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default cuda; without a GPU pass cpu)")

@@ -69,8 +69,9 @@ from daclip_torch.cli.params import parse_args
 def refuse_unported(args) -> None:
     """Exit before any work on a flag this CLI does not carry."""
     if "wandb" in args.report_to.split(","):
-        raise SystemExit("--report-to wandb: wandb reporting is not ported to daclip_torch "
-                         "yet (ROADMAP queue 1 item 4, waiting)")
+        raise SystemExit("--report-to wandb: wandb is not a dependency of daclip_torch "
+                         "and is not installed with it, so daclip_torch does not report "
+                         "to it (not queued); use --report-to tensorboard")
     if args.imagenet_v2:
         raise SystemExit("--imagenet-v2: daclip_tpu parses it and no module of it evaluates "
                          "ImageNet-V2 either, so daclip_torch does not (not queued)")

@@ -2,21 +2,25 @@
 `cv2.imread` / `cv2.imwrite`, for machines without cv2 or PIL.
 
 `decode` returns what `cv2.imread(path, cv2.IMREAD_UNCHANGED)` returns for
-an 8-bit, non-interlaced PNG: uint8, a 2-D array for gray, BGR for colour,
-BGRA where the file has alpha (gray+alpha gives four channels, the gray
-value in each of B, G and R), palette images expanded to BGR, or to BGRA
-when a tRNS chunk gives the palette alpha; a tRNS colour key on a truecolour
-image becomes an alpha channel too, as libpng's `tRNS_to_alpha` makes it.
-Interlaced (Adam7) and 1/2/4/16-bit files raise `ValueError`.
-`decode_with_mode` also gives the mode PIL opens the file in ("L", "RGB",
-"P", "LA" or "RGBA", from the colour type; a tRNS chunk changes no mode),
-which decides how PIL resizes it.
+every valid (colour type, bit depth) pair, interlaced (Adam7) or not: uint8,
+or uint16 for a 16-bit file; a 2-D array for gray (1, 2 and 4-bit gray
+scaled to 0-255, as libpng expands it), BGR for colour, BGRA where the file
+has alpha (gray+alpha gives four channels, the gray value in each of B, G
+and R), palette images at any depth expanded to BGR, or to BGRA when a tRNS
+chunk gives the palette alpha; a tRNS colour key on a truecolour image
+becomes an alpha channel too (0 or the depth's maximum), as libpng's
+`tRNS_to_alpha` makes it, and a gray one is dropped.
+`decode_with_mode` also gives the mode PIL opens the file in ("1" for 1-bit
+gray, "L", "I;16" for 16-bit gray, "RGB", "P", "LA", and "RGBA" for RGBA
+and for 16-bit gray+alpha; a tRNS chunk changes no mode), which decides how
+PIL resizes it.
 
-Row filters: None and Up are one operation a row, Sub a per-channel
+Row filters work on bytes, the left neighbour `max(1, channels·depth/8)`
+bytes back. None and Up are one operation a row, Sub a per-byte-of-pixel
 `np.cumsum(..., dtype=np.uint8)` (a sum modulo 256). Average and Paeth take
 the pixel to their left, already unfiltered, so they loop over the row's
-pixels, each step vectorised across the channels; they are far slower than
-the others (PERF.md records the cost per filter).
+pixels, each step vectorised across the pixel's bytes; they are far slower
+than the others (PERF.md records the cost per filter).
 
 `encode` writes 8-bit gray, BGR or BGRA (colour types 0, 2 and 6) with one
 filter for every row: "none", "sub", "up", "average" or "paeth" (no
@@ -32,7 +36,11 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 FILTERS = {"none": 0, "sub": 1, "up": 2, "average": 3, "paeth": 4}
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 PIL_MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def is_png(data: bytes) -> bool:
@@ -57,9 +65,10 @@ def _chunks(data: bytes, name: str):
 
 
 def _paeth_row(d: np.ndarray, up: np.ndarray) -> np.ndarray:
-    """Undo Paeth on one (W, C) row: out[x] = d[x] + paeth(out[x-1], up[x],
-    up[x-1]). pa = |b - c| needs no left pixel, so it is taken for the row
-    at once; pb = |a - c| and pc = |a - c + b - c| per pixel."""
+    """Undo Paeth on one row of (pixels, bytes a pixel): out[x] = d[x] +
+    paeth(out[x-1], up[x], up[x-1]). pa = |b - c| needs no left pixel, so it
+    is taken for the row at once; pb = |a - c| and pc = |a - c + b - c| per
+    pixel."""
     W = d.shape[0]
     b = up.astype(np.int16)
     c = np.zeros_like(b)
@@ -80,7 +89,8 @@ def _paeth_row(d: np.ndarray, up: np.ndarray) -> np.ndarray:
 
 
 def _average_row(d: np.ndarray, up: np.ndarray) -> np.ndarray:
-    """Undo Average on one (W, C) row: out[x] = d[x] + (out[x-1] + up[x]) // 2."""
+    """Undo Average on one row of (pixels, bytes a pixel):
+    out[x] = d[x] + (out[x-1] + up[x]) // 2."""
     W = d.shape[0]
     b = up.astype(np.int16)
     d = d.astype(np.int16)
@@ -91,13 +101,15 @@ def _average_row(d: np.ndarray, up: np.ndarray) -> np.ndarray:
     return out.astype(np.uint8)
 
 
-def _unfilter(rows: np.ndarray, W: int, C: int, name: str) -> np.ndarray:
+def _unfilter(rows: np.ndarray, bpp: int, name: str) -> np.ndarray:
+    """(H, 1 + rowbytes) filtered rows → (H, rowbytes) bytes; a pixel is
+    `bpp` bytes, the unit the filters' left neighbour steps by."""
     H = rows.shape[0]
-    out = np.empty((H, W, C), np.uint8)
-    prev = np.zeros((W, C), np.uint8)
+    out = np.empty((H, rows.shape[1] - 1), np.uint8)
+    prev = np.zeros((out.shape[1] // bpp, bpp), np.uint8)
     for y in range(H):
         kind = int(rows[y, 0])
-        d = rows[y, 1:].reshape(W, C)
+        d = rows[y, 1:].reshape(-1, bpp)
         if kind == 0:
             cur = d
         elif kind == 1:
@@ -110,13 +122,56 @@ def _unfilter(rows: np.ndarray, W: int, C: int, name: str) -> np.ndarray:
             cur = _paeth_row(d, prev)
         else:
             raise ValueError(f"{name}: row {y} has unknown PNG filter type {kind}")
-        out[y] = cur
-        prev = out[y]
+        out[y] = cur.reshape(-1)
+        prev = out[y].reshape(-1, bpp)
     return out
 
 
+def _rowbytes(W: int, C: int, depth: int) -> int:
+    return (W * C * depth + 7) // 8
+
+
+def _samples(rows: np.ndarray, W: int, C: int, depth: int) -> np.ndarray:
+    """(h, rowbytes) unfiltered bytes → (h, W, C) samples: uint16 for 16-bit,
+    else uint8 (sub-byte samples unpacked, most significant bits first, not
+    scaled)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, W, C)
+    if depth == 8:
+        return rows.reshape(h, W, C)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :W * C].reshape(h, W, C)
+
+
+def _image_data(raw: np.ndarray, W: int, H: int, C: int, depth: int, interlace: int,
+                name: str) -> np.ndarray:
+    """The decompressed IDAT stream → (H, W, C) samples; an Adam7 file's
+    passes are unfiltered one by one, each at its own width, and scattered."""
+    bpp = max(1, C * depth // 8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    dtype = np.uint16 if depth == 16 else np.uint8
+    img = np.zeros((H, W, C), dtype) if interlace else None
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        n = ph * (_rowbytes(pw, C, depth) + 1)
+        if raw.size < pos + n:
+            raise ValueError(f"{name}: PNG image data is truncated")
+        rows = _unfilter(raw[pos:pos + n].reshape(ph, -1), bpp, name)
+        pos += n
+        sub = _samples(rows, pw, C, depth)
+        if not interlace:
+            return sub
+        img[y0::dy, x0::dx] = sub
+    return img
+
+
 def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """PNG bytes → uint8 array as `cv2.imread(..., IMREAD_UNCHANGED)` gives it."""
+    """PNG bytes → array as `cv2.imread(..., IMREAD_UNCHANGED)` gives it."""
     return decode_with_mode(data, name)[0]
 
 
@@ -142,25 +197,27 @@ def decode_with_mode(data: bytes, name: str = "<bytes>"):
     W, H, depth, ctype, _, _, interlace = header
     if ctype not in _CHANNELS:
         raise ValueError(f"{name}: PNG colour type {ctype} is not valid")
-    if interlace:
-        raise ValueError(f"{name}: interlaced (Adam7) PNG is not supported")
-    if depth != 8:
-        raise ValueError(f"{name}: {depth}-bit PNG is not supported (8-bit only)")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{name}: PNG colour type {ctype} at bit depth {depth} is not valid")
+    if interlace not in (0, 1):
+        raise ValueError(f"{name}: PNG interlace method {interlace} is not valid")
     C = _CHANNELS[ctype]
     mode = PIL_MODES[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < H * (W * C + 1):
-        raise ValueError(f"{name}: PNG image data is truncated")
-    img = _unfilter(raw[:H * (W * C + 1)].reshape(H, W * C + 1), W, C, name)
+    img = _image_data(np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8),
+                      W, H, C, depth, interlace, name)
+    top = (1 << depth) - 1              # the depth's maximum sample
 
     if ctype == 0:                     # gray; a tRNS key is dropped, as cv2 does
+        if depth < 8:                   # libpng's expansion: ×255, ×85 or ×17
+            img = img * np.uint8(255 // top)
+        mode = {1: "1", 16: "I;16"}.get(depth, mode)
         return img[:, :, 0], mode
     if ctype == 2:
         bgr = img[:, :, ::-1]
         if trns is None:
             return np.ascontiguousarray(bgr), mode
         key = np.asarray(struct.unpack(">HHH", trns[:6]), np.int64)
-        alpha = np.where((img == key).all(axis=2), 0, 255).astype(np.uint8)
+        alpha = np.where((img == key).all(axis=2), 0, top).astype(img.dtype)
         return np.concatenate([bgr, alpha[:, :, None]], axis=2), mode
     if ctype == 3:
         if palette is None:
@@ -175,7 +232,7 @@ def decode_with_mode(data: bytes, name: str = "<bytes>"):
         lut[:len(trns)] = np.frombuffer(trns, np.uint8)
         return np.concatenate([bgr, lut[idx][:, :, None]], axis=2), mode
     if ctype == 4:                     # gray + alpha → B = G = R = gray, A
-        return np.ascontiguousarray(img[:, :, [0, 0, 0, 1]]), mode
+        return np.ascontiguousarray(img[:, :, [0, 0, 0, 1]]), "RGBA" if depth == 16 else mode
     return np.ascontiguousarray(img[:, :, [2, 1, 0, 3]]), mode   # RGBA → BGRA
 
 

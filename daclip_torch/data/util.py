@@ -106,8 +106,8 @@ def _cv2(what: str, hint: str = ""):
 
 
 def imread(path: str) -> np.ndarray:
-    """uint8 image as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` gives it:
-    PNG by `data/png.py`, anything else by cv2."""
+    """The image as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` gives it (uint8,
+    uint16 for a 16-bit file): PNG by `data/png.py`, anything else by cv2."""
     with open(path, "rb") as f:
         data = f.read()
     if png.is_png(data):
@@ -121,8 +121,10 @@ def imread(path: str) -> np.ndarray:
 
 def imread_color(path: str) -> np.ndarray:
     """uint8 BGR (H, W, 3), as `cv2.imread(path)` gives it: gray is
-    replicated and alpha dropped."""
+    replicated, alpha dropped and a 16-bit sample cut to its high byte."""
     img = imread(path)
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
     if img.ndim == 2:
         img = img[:, :, None]
     if img.shape[2] == 1:
@@ -140,12 +142,16 @@ def imread_decoded(path: str) -> DecodedImage:
     `convert("RGB")` gives it (alpha dropped without compositing, gray
     replicated, a palette expanded), its alpha for "RGBA" and "LA", and its
     mode.
-    PNG by `data/png.py` (8-bit files only: a 16-bit one raises
-    `ValueError`); any other format by PIL, imported here."""
+    PNG by `data/png.py`, 16-bit samples as PIL reads them: 16-bit gray
+    ("I;16") clipped to 255, any other 16-bit layout cut to its high byte;
+    any other format by PIL, imported here."""
     with open(path, "rb") as f:
         data = f.read()
     if png.is_png(data):
         img, mode = png.decode_with_mode(data, path)
+        if img.dtype == np.uint16:
+            img = (np.minimum(img, 255) if mode == "I;16" else img >> 8).astype(np.uint8)
+        mode = mode if mode in _DECODED_MODES else "RGB"
         if img.ndim == 2:
             return DecodedImage(np.repeat(img[:, :, None], 3, axis=2), None, mode)
         alpha = img[:, :, 3] if mode in ("RGBA", "LA") else None
@@ -159,8 +165,10 @@ def imread_decoded(path: str) -> DecodedImage:
 
 
 def read_img(env, path: str, size=None) -> np.ndarray:
-    """File (or LMDB record when `env` is given) → float32 HWC BGR in
-    [0, 1]; gray gets a channel axis, alpha is dropped (util.py:68-85)."""
+    """File (or LMDB record when `env` is given) → float32 HWC BGR, the
+    samples over 255 (so [0, 1] for 8-bit files and up to 257 for 16-bit
+    ones, as daclip_tpu's cv2 read gives them); gray gets a channel axis,
+    alpha is dropped (util.py:68-85)."""
     img = imread(path) if env is None else _read_img_lmdb(env, path, size)
     img = img.astype(np.float32) / 255.0
     if img.ndim == 2:

@@ -13,8 +13,10 @@ the degradation feature against the text features of the class names.
 
 Images are reflect-padded up to a 64-multiple bucket and cropped back; inputs
 larger than `tile_size` are restored in overlapping tiles with a feathered
-blend. The device defaults to CUDA and never falls back to the CPU silently:
-pass `device="cpu"` to run there.
+blend. `shard_tiles(devices)` splits each tile batch's UNet calls over
+several devices (one card may be listed more than once), the counterpart of
+daclip_tpu's `shard_tiles(mesh)`. The device defaults to CUDA and never falls
+back to the CPU silently: pass `device="cpu"` to run there.
 
 Noise comes from `torch.Generator`s seeded from `seed`, so a restore differs
 from the JAX package's `restore(seed)` by design; parity is checked through
@@ -22,11 +24,13 @@ explicit noise banks (`IRSDE.reverse_posterior(noises=...)`).
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import math
 import os
 from collections import defaultdict
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +118,13 @@ class RestorerConfig:
     tile_size_buckets: Optional[Tuple[int, ...]] = None
 
 
+def _pinned(device: torch.device) -> torch.device:
+    """`device` with the current card's index where a CUDA device has none."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def resolve_device(device=None) -> torch.device:
     """`None` means CUDA; without a GPU that raises instead of falling back."""
     if device is None:
@@ -165,6 +176,8 @@ class DACLIPRestorer:
                          schedule=cfg.schedule, eps=cfg.eps)
         self.buckets = default_buckets(step=cfg.buckets_step)
         self._text_feature_cache: Dict[tuple, np.ndarray] = {}
+        self._tile_devices: Optional[List[torch.device]] = None
+        self._tile_unets: Dict[torch.device, ConditionalUNet] = {}
 
     @classmethod
     def load(cls, unet: str, daclip: Optional[str] = None,
@@ -229,19 +242,74 @@ class DACLIPRestorer:
         return img_f.float(), degra_f.float()
 
     @torch.no_grad()
-    def _sample(self, lq_nhwc: np.ndarray, generator: torch.Generator, tctx, ictx):
-        """One sampler run over a batch of same-size images (NHWC in and out)."""
+    def _sample(self, lq_nhwc: np.ndarray, generator: torch.Generator, tctx, ictx,
+                noise_fn=None):
+        """One sampler run over a batch of same-size images (NHWC in and out);
+        `noise_fn` (default the UNet) predicts the noise at each step."""
+        noise_fn = self.unet if noise_fn is None else noise_fn
         lq = self._to_device(lq_nhwc)
         x_T = self.sde.noise_state(lq, generator)
         mode = self.cfg.sampling_mode
         ctx = dict(text_context=tctx, image_context=ictx)
         if mode == "sde":
-            out = self.sde.reverse_sde(self.unet, x_T, lq, generator, **ctx)
+            out = self.sde.reverse_sde(noise_fn, x_T, lq, generator, **ctx)
         elif mode == "ode":
-            out = self.sde.reverse_ode(self.unet, x_T, lq, **ctx)
+            out = self.sde.reverse_ode(noise_fn, x_T, lq, **ctx)
         else:
-            out = self.sde.reverse_posterior(self.unet, x_T, lq, generator, **ctx)
+            out = self.sde.reverse_posterior(noise_fn, x_T, lq, generator, **ctx)
         return out.permute(0, 2, 3, 1).float().cpu().numpy()
+
+    # -- tile batches over several devices -----------------------------------------
+    def shard_tiles(self, devices) -> "DACLIPRestorer":
+        """Split every tiled restore's tile batches over `devices` (torch
+        devices, or names; one device may be listed more than once): each
+        UNet call's batch is cut into `len(devices)` equal chunks, each run on
+        its device's copy of the UNet, the outputs gathered in order on the
+        restorer's device, where the sampler loop and its noise stay. Every
+        tile batch then has the full `tile_batch`, the remainder padded with
+        copies of the last tile, as daclip_tpu's `shard_tiles(mesh)` lays
+        them out; so `tile_batch` must be a multiple of `len(devices)`, and
+        every device of the restorer's type (CUDA or CPU). Returns self."""
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("shard_tiles needs at least one device")
+        if max(1, self.cfg.tile_batch) % len(devices):
+            raise ValueError(f"tile_batch {self.cfg.tile_batch} is not a multiple of the "
+                             f"{len(devices)} devices it is split over")
+        for d in devices:
+            if d.type != self.device.type:
+                raise ValueError(f"device {d} is not a {self.device.type} device, as the "
+                                 f"restorer's {self.device} is: shard_tiles moves nothing "
+                                 f"across device types")
+        devices = [_pinned(d) for d in devices]
+        home = _pinned(self.device)
+        self._tile_unets = {d: self.unet if d == home else copy.deepcopy(self.unet).to(d)
+                            for d in dict.fromkeys(devices)}
+        self._tile_devices = devices
+        return self
+
+    def _sharded_unet(self, x, mu, t, text_context=None, image_context=None):
+        """The UNet call of a sharded tile batch: `x`, `mu`, `t` and any
+        context with their batch axis split into one chunk a device, each run
+        on its device's copy (launches on different cards overlap), the
+        outputs concatenated in order on the restorer's device. A (1, D)
+        context goes whole to every chunk, as it broadcasts."""
+        k = len(self._tile_devices)
+
+        def chunks(a):
+            if a is None or (a.shape[0] == 1 and x.shape[0] > 1):
+                return [a] * k
+            return a.chunk(k)
+
+        outs = []
+        for d, *parts in zip(self._tile_devices, x.chunk(k), mu.chunk(k), t.chunk(k),
+                             chunks(text_context), chunks(image_context)):
+            xi, mi, ti, tc, ic = (None if a is None else a.to(d, non_blocking=True)
+                                  for a in parts)
+            with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
+                outs.append(self._tile_unets[d](xi, mi, ti, text_context=tc,
+                                                image_context=ic))
+        return torch.cat([o.to(self.device) for o in outs])
 
     # -- public API --------------------------------------------------------------
     def contexts(self, images_rgb):
@@ -339,8 +407,10 @@ class DACLIPRestorer:
     def _restore_tiled(self, image_rgb, seed: int, tctx, ictx):
         """Overlap-tiled sampling with a feathered blend for inputs larger than
         `tile_size`; tiles run in batches of up to `tile_batch`, the last batch
-        in the largest power-of-two size that fits. Each tile takes the whole
-        image's contexts."""
+        in the largest power-of-two size that fits, or, after `shard_tiles`,
+        every batch at the full `tile_batch` with the remainder padded by
+        copies of the last tile (their outputs discarded). Each tile takes
+        the whole image's contexts."""
         H, W = image_rgb.shape[:2]
         ts, ov = self.cfg.tile_size, self.cfg.tile_overlap
         acc = np.zeros((H, W, 3), np.float64)
@@ -366,15 +436,19 @@ class DACLIPRestorer:
                 tiles.append(np.pad(tile, ((0, tsh - th), (0, tsw - tw), (0, 0)),
                                     mode="reflect") if (th < tsh or tw < tsw) else tile)
                 coords.append((yi, xi, th, tw))
+        sharded = {} if self._tile_devices is None else {"noise_fn": self._sharded_unet}
         s = 0
         while s < len(tiles):
+            n_left = len(tiles) - s
             n = max(1, self.cfg.tile_batch)
-            while n > len(tiles) - s:
+            while not sharded and n > n_left:
                 n //= 2
+            batch = tiles[s: s + n]
+            batch += [batch[-1]] * (n - len(batch))   # a sharded remainder's padding
             # the (1, D) contexts broadcast over the tile batch
-            out = self._sample(np.stack(tiles[s: s + n]), self._generator(seed, 1, s),
-                               tctx, ictx)
-            for j in range(n):
+            out = self._sample(np.stack(batch), self._generator(seed, 1, s), tctx, ictx,
+                               **sharded)
+            for j in range(min(n, n_left)):
                 yi, xi, th, tw = coords[s + j]
                 w = win2d[:th, :tw]
                 acc[yi: yi + th, xi: xi + tw] += out[j, :th, :tw] * w

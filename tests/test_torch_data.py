@@ -135,19 +135,210 @@ def _patch_ihdr(data, **fields):
 
 
 def test_png_interlaced_16_bit_and_corrupt_files_raise(tmp_path):
+    """Corrupt files raise, interlaced and 16-bit ones among them (well-formed
+    ones decode: test_png_every_layout_equals_cv2_and_pil): a bad CRC, a bad
+    signature, image data cut short, a colour type at a depth the spec does
+    not allow; and the encoder refuses an unknown filter."""
     path = str(tmp_path / "x16.png")
     cv2.imwrite(path, (np.arange(60, dtype=np.uint16).reshape(6, 10) * 1000))
-    with pytest.raises(ValueError, match="16-bit"):
-        png.read(path)
+    data16 = open(path, "rb").read()
+    assert png.decode(data16).dtype == np.uint16
+    with pytest.raises(ValueError, match="CRC"):
+        png.decode(data16[:20] + bytes([data16[20] ^ 1]) + data16[21:])
     data = png.encode(_image(np.random.RandomState(0), 8, 8, 3))
-    with pytest.raises(ValueError, match="interlaced"):
-        png.decode(_patch_ihdr(data, interlace=1), "x.png")
+    # Adam7 rows of an 8 × 8 image take more bytes than the file's plain rows
+    with pytest.raises(ValueError, match="truncated"):
+        png.decode(_patch_ihdr(png.encode(np.zeros((8, 8, 3), np.uint8), "none"),
+                               interlace=1), "x.png")
+    adam7 = _encode_png(np.zeros((7, 5)), 16, 0, interlace=1)
+    raw = zlib.decompress(dict(png._chunks(adam7, "x"))[b"IDAT"])
+    with pytest.raises(ValueError, match="truncated"):   # the last pass's row cut short
+        png.decode(adam7[:33] + png._chunk(b"IDAT", zlib.compress(raw[:-3])) + _END)
+    with pytest.raises(ValueError, match="truncated"):
+        png.decode(_patch_ihdr(data16, height=7))
+    for depth, ctype in ((16, 3), (4, 2), (2, 4), (1, 6), (12, 0)):
+        with pytest.raises(ValueError, match="not valid"):
+            png.decode(_patch_ihdr(data, depth=depth, ctype=ctype))
+    with pytest.raises(ValueError, match="not valid"):
+        png.decode(_patch_ihdr(data, interlace=2))
     with pytest.raises(ValueError, match="CRC"):
         png.decode(data[:20] + bytes([data[20] ^ 1]) + data[21:])
     with pytest.raises(ValueError, match="signature"):
         png.decode(b"GIF89a" + data[6:])
     with pytest.raises(ValueError, match="filter"):
         png.encode(np.zeros((2, 2, 3), np.uint8), "adaptive")
+
+
+# -- every PNG layout against cv2 and PIL -------------------------------------------
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+_END = png._chunk(b"IEND", b"")
+
+
+def _pack(samples, depth):
+    """(h, w, C) samples → (h, rowbytes) uint8: big-endian for 16-bit,
+    sub-byte samples packed from the most significant bits, rows padded."""
+    h, w, C = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    per = 8 // depth
+    flat = np.zeros((h, -(-w * C // per) * per), np.uint8)
+    flat[:, :w * C] = samples.reshape(h, -1)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return np.bitwise_or.reduce(flat.reshape(h, -1, per) << shifts, axis=2).astype(np.uint8)
+
+
+def _filter(rows, bpp, first):
+    """Filter each row of bytes, row y with filter (first + y) % 5."""
+    x = rows.astype(np.int16)
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    upleft = np.zeros_like(x)
+    upleft[1:, bpp:] = x[:-1, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = [np.zeros_like(x), left, up, (left + up) >> 1, paeth]
+    kinds = (first + np.arange(len(x))) % 5
+    out = np.stack([(x[y] - preds[k][y]) & 0xFF for y, k in enumerate(kinds)])
+    return np.concatenate([kinds[:, None], out], axis=1).astype(np.uint8)
+
+
+def _encode_png(samples, depth, ctype, plte=None, trns=None, interlace=0, first=0):
+    """The test's own PNG encoder: any valid (colour type, depth), Adam7 or
+    not, with PLTE and tRNS chunks as given."""
+    samples = samples.reshape(samples.shape[:2] + (-1,))
+    H, W, C = samples.shape
+    bpp = max(1, C * depth // 8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw = b"".join(_filter(_pack(samples[y0::dy, x0::dx], depth), bpp, first).tobytes()
+                   for x0, y0, dx, dy in passes if H > y0 and W > x0)
+    out = png.SIGNATURE + png._chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype,
+                                                          0, 0, interlace))
+    if plte is not None:
+        out += png._chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
+    if trns is not None:
+        out += png._chunk(b"tRNS", trns)
+    return out + png._chunk(b"IDAT", zlib.compress(raw)) + _END
+
+
+_SIZES = ((13, 11), (9, 17), (1, 3), (6, 1), (16, 16))
+
+
+def _own_case(i, ctype, depth, trns, interlace):
+    rng = np.random.RandomState(i)
+    h, w = _SIZES[i % len(_SIZES)]
+    C = png._CHANNELS[ctype]
+    top = 2 ** depth
+    s = rng.randint(0, top, (h, w, C))
+    plte = key = None
+    if ctype == 3:
+        plte = rng.randint(0, 256, (top, 3))
+        key = bytes(rng.randint(0, 256, max(1, top // 2)).astype(np.uint8))
+    elif trns:
+        key = struct.pack(">" + "H" * C, *s[0, 0])   # the first pixel's value, keyed out
+    return _encode_png(s, depth, ctype, plte, key if trns else None, interlace, first=i)
+
+
+def _pil_case(i, mode, kw):
+    rng = np.random.RandomState(100 + i)
+    h, w = _SIZES[i % len(_SIZES)]
+    if mode == "1":
+        im = Image.fromarray(rng.randint(0, 2, (h, w)).astype(bool))
+    elif mode == "I;16":
+        im = Image.fromarray(rng.randint(0, 65536, (h, w)).astype(np.uint16), "I;16")
+    elif mode == "P":
+        im = Image.fromarray(rng.randint(0, 2 ** kw.get("bits", 8), (h, w)).astype(np.uint8),
+                             "P")
+        im.putpalette(list(rng.randint(0, 256, 768)))
+    else:
+        a = rng.randint(0, 256, (h, w, len(mode))).astype(np.uint8)
+        im = Image.fromarray(a[:, :, 0] if mode == "L" else a, mode)
+    buf = __import__("io").BytesIO()
+    im.save(buf, "PNG", **kw)
+    return buf.getvalue()
+
+
+def _cv2_case(i, dtype, c, flags):
+    rng = np.random.RandomState(200 + i)
+    h, w = _SIZES[i % len(_SIZES)]
+    img = rng.randint(0, np.iinfo(dtype).max + 1, (h, w, c)).astype(dtype)
+    img = img[:, :, 0] if c == 1 else img
+    if flags:
+        img = (img > 127).astype(np.uint8) * 255
+    ok, buf = cv2.imencode(".png", img, flags)
+    assert ok
+    return buf.tobytes()
+
+
+_VALID = [(0, d) for d in (1, 2, 4, 8, 16)] + [(2, 8), (2, 16)] + \
+    [(3, d) for d in (1, 2, 4, 8)] + [(4, 8), (4, 16), (6, 8), (6, 16)]
+PNG_CASES = (
+    [(f"own-c{c}-{d}bit{'-trns' if t else ''}{'-adam7' if il else ''}",
+      ("own", c, d, t, il))
+     for c, d in _VALID for t in ((False, True) if c in (0, 2, 3) else (False,))
+     for il in (0, 1)]
+    + [(f"pil-{m}{'-' + '-'.join(f'{k}{v}' for k, v in kw.items()) if kw else ''}",
+        ("pil", m, kw))
+       for m, kw in [("1", {}), ("L", {}), ("I;16", {}), ("P", {"bits": 1}),
+                     ("P", {"bits": 2}), ("P", {"bits": 4}), ("P", {}),
+                     ("P", {"bits": 4, "transparency": b"\x00\x80\xff"}),
+                     ("L", {"transparency": 3}), ("LA", {}), ("RGB", {}),
+                     ("RGB", {"transparency": (1, 2, 3)}), ("RGBA", {})]]
+    + [(f"cv2-{np.dtype(t).name}-c{c}{'-bilevel' if f else ''}", ("cv2", t, c, f))
+       for t, c, f in [(np.uint8, 1, []), (np.uint16, 1, []), (np.uint8, 3, []),
+                       (np.uint16, 3, []), (np.uint8, 4, []), (np.uint16, 4, []),
+                       (np.uint8, 1, [cv2.IMWRITE_PNG_BILEVEL, 1])]])
+
+
+def _png_case(i, spec):
+    return {"own": _own_case, "pil": _pil_case, "cv2": _cv2_case}[spec[0]](i, *spec[1:])
+
+
+@pytest.mark.parametrize("i", range(len(PNG_CASES)), ids=[c[0] for c in PNG_CASES])
+def test_png_every_layout_equals_cv2_and_pil(tmp_path, monkeypatch, i):
+    """Every (colour type, bit depth) pair of the PNG spec, with and without
+    tRNS, Adam7 or not, written by the test's encoder (each row's filter
+    cycling through all five), PIL or cv2: `png.decode` gives cv2's
+    IMREAD_UNCHANGED array, `decode_with_mode` PIL's mode, `imread_decoded`
+    PIL's RGB, alpha and mode, `imread_color` cv2.imread's BGR, and
+    `read_img` daclip_tpu's (its cv2 path; its optional native decoder is
+    not the oracle)."""
+    data = _png_case(i, PNG_CASES[i][1])
+    path = str(tmp_path / "x.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    got, mode = png.decode_with_mode(data, path)
+    _assert_same(got, want)
+    _assert_same(tutil.imread(path), want)
+    _assert_same(tutil.imread_color(path), cv2.imread(path))
+    with Image.open(path) as im:
+        assert mode == im.mode
+        pil_mode = im.mode if im.mode in tutil._DECODED_MODES else "RGB"
+        alpha = np.asarray(im.getchannel("A")) if pil_mode in ("RGBA", "LA") else None
+        rgb = np.asarray(im.convert("RGB"))
+    dec = tutil.imread_decoded(path)
+    assert dec.mode == pil_mode
+    _assert_same(dec.rgb, rgb)
+    assert (dec.alpha is None) == (alpha is None)
+    if alpha is not None:
+        _assert_same(dec.alpha, alpha)
+    monkeypatch.setenv("DACLIP_TPU_NATIVE_IO", "0")
+    _assert_same(tutil.read_img(None, path), jutil.read_img(None, path))
+
+
+def test_png_cases_cover_the_spec():
+    """The layouts above cover every valid pair, 16-bit, sub-byte, Adam7 and
+    tRNS files, and PIL's modes for them."""
+    own = {(c, d) for _, (kind, c, d, *_) in PNG_CASES if kind == "own"}
+    assert own == set(_VALID) and len(_VALID) == 15
+    modes = set()
+    for i, (_, spec) in enumerate(PNG_CASES):
+        modes.add(png.decode_with_mode(_png_case(i, spec))[1])
+    assert modes == {"1", "L", "I;16", "P", "RGB", "LA", "RGBA"}
 
 
 # -- image IO and augmentation -----------------------------------------------------

@@ -188,7 +188,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'daclip_torch.models.convnext', 'daclip_torch.models.timm_model',\n"
         "        'daclip_torch.models.timm_vit', 'daclip_torch.models.swin',\n"
         "        'daclip_torch.models.eva', 'daclip_torch.models.coca',\n"
-        "        'daclip_torch.models.hf_text']\n"
+        "        'daclip_torch.models.hf_text', 'daclip_torch.tools.push_to_hf_hub']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "# imported only inside calls: the card's machine is not known to have them\n"
         "absent = [m for m in sys.modules if m.split('.')[0] in ('regex', 'cv2', 'PIL', 'ftfy',\n"
@@ -201,7 +201,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 83
+    assert int(res.stdout.strip()) >= 84
 
 
 # -- a restore without DA-CLIP, as daclip_tpu's `load` serves it ------------------

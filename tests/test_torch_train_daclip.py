@@ -9,6 +9,8 @@ cv2 view of `--fast-clip-view` and its batches."""
 import json
 import os
 import random
+import struct
+import zlib
 from functools import partial
 
 import jax
@@ -248,10 +250,42 @@ def test_resize_in_mode_equals_pil(mode):
 
 
 def test_a_16_bit_png_is_refused(tmp_path):
+    """A 16-bit PNG is refused only where the spec forbids it (a palette);
+    a 16-bit gray one reads as PIL reads it ("I;16", taken to RGB, clipped)."""
     path = str(tmp_path / "x.png")
     Image.fromarray(np.arange(64 * 64, dtype=np.uint16).reshape(64, 64)).save(path)
-    with pytest.raises(ValueError, match="16-bit"):
+    dec = tutil.imread_decoded(path)
+    with Image.open(path) as im:
+        assert im.mode == "I;16"
+        np.testing.assert_array_equal(dec.rgb, np.asarray(im.convert("RGB")))
+    assert dec.mode == "RGB" and dec.alpha is None and dec.rgb.max() == 255
+    data = bytearray(open(path, "rb").read())
+    data[24:26] = bytes([16, 3])                      # IHDR: 16-bit palette
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+    open(path, "wb").write(bytes(data))
+    with pytest.raises(ValueError, match="colour type 3 at bit depth 16 is not valid"):
         tutil.imread_decoded(path)
+
+
+@pytest.mark.parametrize("depth,ctype", [(1, 0), (2, 0), (4, 0), (16, 2), (16, 4), (16, 6),
+                                         (2, 3), (8, 0)])
+def test_csv_val_view_of_other_depths_equals_jax(tmp_path, depth, ctype):
+    """The val transform's view of sub-byte and 16-bit PNGs (Adam7 ones
+    among them), which PIL opens in 8-bit modes, equals daclip_tpu's."""
+    from tests.test_torch_data import _encode_png
+
+    rng = np.random.RandomState(depth * 7 + ctype)
+    C = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    s = rng.randint(0, 2 ** depth, (45, 38, C))
+    plte = rng.randint(0, 256, (2 ** depth, 3)) if ctype == 3 else None
+    path = str(tmp_path / "x.png")
+    with open(path, "wb") as f:
+        f.write(_encode_png(s, depth, ctype, plte, interlace=(depth + ctype) % 2))
+    for res in (32, 64):
+        with Image.open(path) as im:
+            want = jtf.image_transform(res)(im)
+        np.testing.assert_array_equal(ttf.image_transform(res)(tutil.imread_decoded(path)),
+                                      want)
 
 
 # -- the factory ------------------------------------------------------------------------------
@@ -485,7 +519,7 @@ def test_cli_fast_clip_view_first_batches_equal_jax_loader(tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (["--mesh", "2"], "spans 2 processes, and this run has 1"),
-    (["--report-to", "tensorboard,wandb"], "ROADMAP queue 1 item 4"),
+    (["--report-to", "tensorboard,wandb"], "wandb is not a dependency of daclip_torch"),
     (["--imagenet-v2", "/data/v2"], "daclip_tpu parses it and no module of it evaluates")])
 def test_cli_refuses_flags_it_does_not_carry(tmp_path, monkeypatch, extra, match):
     def no_work(*a, **k):
@@ -496,6 +530,25 @@ def test_cli_refuses_flags_it_does_not_carry(tmp_path, monkeypatch, extra, match
     with pytest.raises(SystemExit, match=match):
         tcli.main(argv)
     assert not os.listdir(tmp_path)
+
+
+def test_help_and_refusal_text_name_no_queue(capsys):
+    """--fast-clip-view's help says what the flag does (the cv2 train
+    transform, carried by the CLI), and the --report-to wandb refusal says
+    why it refuses; neither names a ROADMAP queue."""
+    with pytest.raises(SystemExit) as exit_:
+        tparams.parse_args(["--help"])
+    assert exit_.value.code == 0
+    text = " ".join(capsys.readouterr().out.split())
+    start = text.index("--fast-clip-view", text.index("options:"))
+    flag = text[start:text.index("--device", start)]
+    assert "the cv2 train transform: the CSV train set decoded by cv2" in flag
+    assert "not ported" not in flag and "ROADMAP" not in text
+    with pytest.raises(SystemExit) as refusal:
+        tcli.refuse_unported(tparams.parse_args(["--report-to", "wandb"]))
+    msg = str(refusal.value)
+    assert msg.startswith("--report-to wandb: wandb is not a dependency of daclip_torch")
+    assert "does not report to it (not queued)" in msg and "ROADMAP" not in msg
 
 
 def test_cli_needs_a_device_without_a_gpu(tmp_path, monkeypatch):
