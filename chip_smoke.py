@@ -7,6 +7,19 @@ Phases, each printing JSON lines:
              and whether matplotlib, sklearn and scipy import (their versions)
   1 build    nvcc builds daclip_torch/csrc/*.cu (one process per source); no
              instantiation of the linear-attention kernels may spill
+ 1b native_io  the host's image decoder (daclip_torch/native/dio.cc, built
+             here with g++ on zlib): PNG (every row filter, 1/2/4/8-bit gray,
+             palette, RGB, Adam7) and baseline JPEG (cv2 and PIL files at
+             qualities 30-100, 4:4:4, 4:2:2, 4:2:0, 4:4:0, gray, restarts,
+             optimised tables) at 1 × 1 to 512², whole and in six windows,
+             against cv2.imdecode(IMREAD_UNCHANGED) then crop, bit for bit;
+             decode_batch at 1 and 8 threads against them; files outside its
+             set raise and read_img reads them as cv2 does. Times: a 288 ×
+             320 Paeth and Average PNG (native, png.decode, png.py's plain
+             rows, cv2), a 512² JPEG whole and as a 256² window against cv2,
+             decode_batch images/s at 1 and 8 threads, and the Paeth PNG's
+             256² window on 8 threads, decode_batch against png.decode on a
+             Python thread pool
   2 kernels  each kernel against its plain PyTorch version at every shape the
              restore path gives it (the wrap also on inputs where the
              attention is as large as the bias, at each shape), the flash
@@ -129,9 +142,12 @@ Phases, each printing JSON lines:
              256 × 272) with a seeded ViT-B-32 DA-CLIP .pt: 1 step with
              validation (2 images, 10 sampler steps) and a checkpoint, a
              resume to 2, the exact launches of kernels #1-#4 (steps and
-             validation), the step function timed by a hook; before it, PNG
-             decode ms per row filter and the DataLoader's samples/s alone at
-             0 and 8 workers; after it, `cli.test_restoration
+             validation), the images the native decoder read (at least
+             one), the step function timed by a hook; then a fresh run of
+             CLI_PACE_STEPS steps with no validation or checkpoint inside
+             it, timed step start to step start; before them, PNG decode ms
+             per row filter and the DataLoader's samples/s alone at 0 and 8
+             workers; after them, `cli.test_restoration
              --lpips-weights` on the saved EMA UNet over 2 LQGT pairs (256²)
              in an LMDB packed by `tools.create_lmdb`, at T=100, with the
              lpips phase's weights: a finite LPIPS a pair, and the exact
@@ -288,6 +304,7 @@ line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero;
 without a CUDA device it exits non-zero before printing any result.
 """
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -578,6 +595,268 @@ def ptxas_summary(log):
 def psnr(a, b):
     mse = float(np.mean((np.clip(a, 0, 1) - np.clip(b, 0, 1)) ** 2))
     return 10.0 * np.log10(1.0 / max(mse, 1e-12))
+
+
+# -- phase 1b ------------------------------------------------------------------
+# the native decoder's files: each size at each quality (JPEG) or layout (PNG)
+NATIVE_SIZES = [(1, 1), (7, 9), (67, 45), (250, 17), (512, 512)]
+NATIVE_QUALITIES = (30, 75, 95, 100)
+NATIVE_PACE_SHAPE = (288, 320)   # train_cli's MD images
+NATIVE_JPEG_SIDE, NATIVE_CROP = 512, 256
+NATIVE_BATCH = 64
+
+
+def native_picture(rng, h, w, c=3):
+    """uint8 smooth waves under noise, as a photograph gives an encoder."""
+    yy, xx = np.mgrid[:h, :w]
+    waves = (np.sin(xx[..., None] / 7.0 + np.arange(c)) * np.cos(yy[..., None] / 5.0) + 1) / 2
+    return ((0.6 * waves + 0.4 * rng.rand(h, w, c)) * 255).astype(np.uint8)
+
+
+def native_windows(W, H):
+    """Whole, interior, lower-right quarter, 1 × 1, last column, last row."""
+    return [(0, 0, W, H), (W // 3, H // 4, max(1, W // 2), max(1, H // 2)),
+            (W // 2, H // 2, W - W // 2, H - H // 2), (W - 1, H - 1, 1, 1),
+            (W - 1, 0, 1, H), (0, H - 1, W, 1)]
+
+
+def png_bytes(samples, depth, ctype, plte=None, interlace=0, trns=None):
+    """A PNG of (H, W, C) samples at any gray or palette depth or 8-bit RGB,
+    Adam7 or not, its rows filtered with the types 0-4 in turn, with the
+    PLTE and tRNS chunks given."""
+    import struct
+    import zlib
+
+    from daclip_torch.data import png
+
+    samples = samples.reshape(samples.shape[:2] + (-1,))
+    H, W, C = samples.shape
+    bpp = max(1, C * depth // 8)
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+              (1, 0, 2, 2), (0, 1, 1, 2)) if interlace else ((0, 0, 1, 1),)
+    raw = []
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        h = sub.shape[0]
+        bits = (sub[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+        rows = (sub.astype(np.uint8).reshape(h, -1) if depth == 8
+                else np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1))
+        x = rows.astype(np.int16)
+        left, up, upleft = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+        left[:, bpp:] = x[:, :-bpp]
+        up[1:] = x[:-1]
+        upleft[1:, bpp:] = x[:-1, :-bpp]
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        preds = [np.zeros_like(x), left, up, (left + up) >> 1,
+                 np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))]
+        kinds = np.arange(h) % 5
+        out = np.empty((h, x.shape[1] + 1), np.uint8)
+        out[:, 0] = kinds
+        for k, pred in enumerate(preds):
+            out[kinds == k, 1:] = ((x - pred) & 0xFF)[kinds == k]
+        raw.append(out.tobytes())
+    data = png.SIGNATURE + png._chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0,
+                                                           0, interlace))
+    if plte is not None:
+        data += png._chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
+    if trns is not None:
+        data += png._chunk(b"tRNS", trns)
+    return (data + png._chunk(b"IDAT", zlib.compress(b"".join(raw)))
+            + png._chunk(b"IEND", b""))
+
+
+def native_cases(cv2, Image, rng):
+    """{name: bytes}: the PNG and baseline-JPEG files the decoder takes."""
+    import io
+
+    from daclip_torch.data import png
+
+    out = {}
+    samplings = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+                 "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                 "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                 "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440}
+    for h, w in NATIVE_SIZES:
+        tag = f"{h}x{w}"
+        for c in (1, 3):
+            img = native_picture(rng, h, w, c)
+            for filt in png.FILTERS:
+                out[f"png_{filt}_{c}_{tag}"] = png.encode(img, filt)
+        for interlace in (0, 1):
+            for depth in (1, 2, 4, 8):
+                s = rng.randint(0, 2 ** depth, (h, w, 1))
+                out[f"png_gray{depth}_i{interlace}_{tag}"] = png_bytes(s, depth, 0,
+                                                                       interlace=interlace)
+                out[f"png_palette{depth}_i{interlace}_{tag}"] = png_bytes(
+                    s, depth, 3, rng.randint(0, 256, (2 ** depth, 3)), interlace)
+            out[f"png_rgb_i{interlace}_{tag}"] = png_bytes(rng.randint(0, 256, (h, w, 3)), 8, 2,
+                                                           interlace=interlace)
+        for q in NATIVE_QUALITIES:
+            img = native_picture(rng, h, w)
+            enc = lambda a, *flags: cv2.imencode(".jpg", a, [cv2.IMWRITE_JPEG_QUALITY, q,
+                                                             *flags])[1].tobytes()
+            for name, sf in samplings.items():
+                out[f"jpeg_cv2_{name}_q{q}_{tag}"] = enc(img, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sf)
+            for sub in (0, 1, 2):
+                buf = io.BytesIO()
+                Image.fromarray(img[:, :, ::-1]).save(buf, "JPEG", quality=q, subsampling=sub)
+                out[f"jpeg_pil_sub{sub}_q{q}_{tag}"] = buf.getvalue()
+            out[f"jpeg_gray_q{q}_{tag}"] = enc(img[:, :, 0])
+            out[f"jpeg_rst_q{q}_{tag}"] = enc(img, cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
+            out[f"jpeg_gray_rst_q{q}_{tag}"] = enc(img[:, :, 1], cv2.IMWRITE_JPEG_RST_INTERVAL, 3)
+            out[f"jpeg_optimize_q{q}_{tag}"] = enc(img, cv2.IMWRITE_JPEG_OPTIMIZE, 1,
+                                                   cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                   samplings["420"])
+    return out
+
+
+def native_outside(cv2, Image, rng):
+    """{name: bytes}: files outside the decoder's set."""
+    import io
+
+    img = native_picture(rng, 24, 20)
+    enc = lambda ext, a, *flags: cv2.imencode(ext, a, list(flags))[1].tobytes()
+    base = enc(".jpg", img)
+    sof = base.index(b"\xff\xc0")
+    buf = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
+    return {"progressive.jpg": enc(".jpg", img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1),
+            "411.jpg": enc(".jpg", img, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                           cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+            "arithmetic.jpg": base[:sof + 1] + b"\xc9" + base[sof + 2:],   # SOF9
+            "cmyk.jpg": buf.getvalue(),
+            "16_bit.png": enc(".png", img.astype(np.uint16) * 257),
+            "rgba.png": enc(".png", np.dstack([img, img[:, :, :1]])),
+            "palette_trns.png": png_bytes(rng.randint(0, 4, (24, 20, 1)), 2, 3,
+                                          rng.randint(0, 256, (4, 3)), trns=b"\x00\x80")}
+
+
+def host_ms(fn, iters=20):
+    """Median host ms of `iters` calls after one."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def run_native_io():
+    """Phase 1b: the native decoder built, held against cv2 and timed."""
+    import cv2
+    from PIL import Image
+
+    from daclip_torch.data import native_io, png
+    from daclip_torch.data import util as dutil
+
+    t0 = time.perf_counter()
+    native_io.load()
+    build_s = time.perf_counter() - t0
+    gxx = subprocess.run([native_io._CXX, "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(90)
+    cases = native_cases(cv2, Image, rng)
+    checked, windows = 0, []
+    for name, data in cases.items():
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+        check(want is not None, f"native_io: cv2 cannot decode {name}")
+        want = want[:, :, None] if want.ndim == 2 else want
+        H, W = want.shape[:2]
+        check(native_io.probe(data) == (W, H, want.shape[2]), f"native_io: probe of {name}")
+        for x0, y0, cw, ch in native_windows(W, H):
+            got = native_io.decode(data, crop=(x0, y0, cw, ch))
+            check(np.array_equal(got, want[y0:y0 + ch, x0:x0 + cw]),
+                  f"native_io: {name} window {(x0, y0, cw, ch)} differs from cv2")
+            checked += 1
+        windows.append((data, native_windows(W, H)[1], want))
+    for threads in (1, 8):
+        outs = native_io.decode_batch([d for d, _, _ in windows], [c for _, c, _ in windows],
+                                      threads=threads)
+        for (data, (x0, y0, cw, ch), want), got in zip(windows, outs):
+            check(np.array_equal(got, want[y0:y0 + ch, x0:x0 + cw]),
+                  f"native_io: decode_batch at {threads} threads differs from cv2")
+    outside = native_outside(cv2, Image, rng)
+    with tempfile.TemporaryDirectory() as d:
+        for name, data in outside.items():
+            try:
+                native_io.decode(data)
+                check(False, f"native_io: {name} decoded; it is outside the set")
+            except ValueError:
+                pass
+            path = os.path.join(d, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+            want = (want[:, :, None] if want.ndim == 2 else want[:, :, :3]).astype(np.float32)
+            check(np.array_equal(dutil.read_img(None, path), want / 255.0),
+                  f"native_io: read_img of {name} differs from cv2")
+    check_s = time.perf_counter() - t0
+
+    img = native_picture(np.random.RandomState(91), *NATIVE_PACE_SHAPE)
+    real_unfilter = png._unfilter
+    pngs = {}
+    for filt in ("paeth", "average"):
+        data = png.encode(img, filt)
+        row = dict(native_ms=host_ms(lambda: native_io.decode(data)),
+                   png_decode_ms=host_ms(lambda: png.decode(data)),
+                   cv2_ms=host_ms(lambda: cv2.imdecode(np.frombuffer(data, np.uint8),
+                                                       cv2.IMREAD_UNCHANGED)))
+        png._unfilter = png._unfilter_rows   # png.py's plain rows, one call
+        try:
+            t1 = time.perf_counter()
+            plain = png.decode(data)
+            row["plain_rows_ms"] = (time.perf_counter() - t1) * 1e3
+        finally:
+            png._unfilter = real_unfilter
+        check(np.array_equal(plain, img) and np.array_equal(native_io.decode(data), img),
+              f"native_io: the {filt} PNG does not decode to its image")
+        pngs[filt] = row
+    side, crop = NATIVE_JPEG_SIDE, NATIVE_CROP
+    jimg = native_picture(np.random.RandomState(92), side, side)
+    jpeg = cv2.imencode(".jpg", jimg, [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes()
+    x0 = (side - crop) // 2
+    window = (x0, x0, crop, crop)
+    buf = np.frombuffer(jpeg, np.uint8)
+    jpeg_row = dict(bytes=len(jpeg), sampling="4:2:0", quality=90,
+                    native_ms=host_ms(lambda: native_io.decode(jpeg)),
+                    native_crop_ms=host_ms(lambda: native_io.decode(jpeg, crop=window)),
+                    cv2_ms=host_ms(lambda: cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)))
+    check(np.array_equal(native_io.decode(jpeg, crop=window),
+                         cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)[x0:x0 + crop, x0:x0 + crop]),
+          "native_io: the 512² JPEG's window differs from cv2")
+    batch = {}
+    for threads in (1, 8):
+        for key, crops in (("whole", None), ("crop", [window] * NATIVE_BATCH)):
+            ms = host_ms(lambda: native_io.decode_batch([jpeg] * NATIVE_BATCH, crops,
+                                                        threads=threads), iters=5)
+            batch[f"{key}_threads_{threads}"] = NATIVE_BATCH * 1e3 / ms
+    # train_cli's read of a Paeth PNG's 256² window on 8 threads: the C PNG
+    # decoder in decode_batch's pool against png.py (zlib and the C unfilter,
+    # the rest numpy) on a Python thread pool, the crop taken after
+    paeth = png.encode(img, "paeth")
+    pw = (0, NATIVE_PACE_SHAPE[0] - crop, crop, crop)
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        png_ms = host_ms(lambda: list(pool.map(
+            lambda d: png.decode(d)[pw[1]:pw[1] + crop, pw[0]:pw[0] + crop],
+            [paeth] * NATIVE_BATCH)), iters=5)
+    native_png_ms = host_ms(lambda: native_io.decode_batch([paeth] * NATIVE_BATCH,
+                                                           [pw] * NATIVE_BATCH, threads=8),
+                            iters=5)
+    png_batch = dict(native_decode_batch=NATIVE_BATCH * 1e3 / native_png_ms,
+                     png_py_thread_pool=NATIVE_BATCH * 1e3 / png_ms)
+    emit(phase="native_io", library=native_io._library_path(), compiler=gxx,
+         build_s=build_s, files=len(cases), windows_checked=checked,
+         outside_the_set=sorted(outside), check_s=check_s, host_cpus=os.cpu_count(),
+         png_288x320=pngs, jpeg_512=jpeg_row, jpeg_crop=list(window),
+         decode_batch_images_per_s=batch, batch=NATIVE_BATCH,
+         paeth_window_images_per_s_8_threads=png_batch,
+         seconds=time.perf_counter() - t0 + build_s)
+    return dict(pngs=pngs, jpeg=jpeg_row, batch=batch, png_batch=png_batch)
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -2055,6 +2334,9 @@ CLI_TEST_SHAPE = (256, 256)
 # every step) once a slower host took the script to 1103 s, to keep the script well
 # inside its time limit: the steps wait on the host's PNG decode (~37 s a step)
 CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_FREQ, CLI_VAL_T = 1, 2, 1, 10
+# a separate fresh run for the loop's pace: steps start to start, no validation or
+# checkpoint inside it (the runs above take one step each)
+CLI_PACE_STEPS = 8
 
 
 def write_md_tree(root, types, pairs, shape, seed, filters=("up", "paeth")):
@@ -2159,7 +2441,7 @@ def run_train_cli(train_step_ms, lpips_weights):
     from daclip_torch import config as cfg_mod
     from daclip_torch.cli import test_restoration as cli_test
     from daclip_torch.cli import train_restoration as cli_train
-    from daclip_torch.data import png
+    from daclip_torch.data import native_io
     from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
     from daclip_torch.tools.create_lmdb import create_lmdb
 
@@ -2209,6 +2491,7 @@ def run_train_cli(train_step_ms, lpips_weights):
         logging.getLogger("train").setLevel(logging.INFO)
         cli_train.make_step = timed_make_step
         reset_counts()
+        native_io.calls.update(decode=0, unfilter=0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
@@ -2223,9 +2506,25 @@ def run_train_cli(train_step_ms, lpips_weights):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         calls = {k: v for k, v in read_counts().items() if v}
+        native_calls = dict(native_io.calls)
         peak = torch.cuda.max_memory_allocated()
         ckpt_dir = root / "out" / "experiments" / opt["name"] / "training_state"
         ckpts = sorted(os.listdir(ckpt_dir))
+
+        pace_records = []
+        pace_opt = dict(opt, path=dict(opt["path"], root=str(root / "pace")),
+                        train=dict(opt["train"], niter=CLI_PACE_STEPS, val_freq=0),
+                        logger=dict(opt["logger"], save_checkpoint_freq=0))
+        pace_yml = root / "pace.yml"
+        pace_yml.write_text(yaml.safe_dump(pace_opt))
+        cli_train.make_step = step_timer(real_make_step, pace_records)
+        t0 = time.perf_counter()
+        try:
+            cli_train.main(["-opt", str(pace_yml), "--val-sample-T", str(CLI_VAL_T),
+                            "--device", "cuda"])
+        finally:
+            cli_train.make_step = real_make_step
+        pace_s = time.perf_counter() - t0
 
         reset_counts()
         t0 = time.perf_counter()
@@ -2249,6 +2548,10 @@ def run_train_cli(train_step_ms, lpips_weights):
     gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(records, records[1:])
             if b["step"] == a["step"] + 1 and b["step"] != CLI_STEPS]
     gap_ms = float(np.median(gaps)) if gaps else None   # none at one step a run
+    # the pace run's step starts; the first gap holds the first step's warm-up
+    pace_gaps = [(b["start"] - a["start"]) * 1e3 for a, b in zip(pace_records, pace_records[1:])]
+    pace_ms = float(np.median(pace_gaps[1:]))
+    pace_range = [float(min(pace_gaps[1:])), float(max(pace_gaps[1:]))]
     B = opt["datasets"]["train"]["batch_size"]
     row = dict(phase="train_cli", what=f"cli.train_restoration -opt train.yml ({CLI_STEPS} steps, "
                f"resume to {CLI_RESUME_STEPS}), then cli.test_restoration over an LMDB at "
@@ -2266,6 +2569,13 @@ def run_train_cli(train_step_ms, lpips_weights):
                samples_per_s=B * 1e3 / float(np.median(step_ms)),
                median_ms_step_to_step=gap_ms,
                samples_per_s_step_to_step=gap_ms and B * 1e3 / gap_ms,
+               pace=dict(steps=CLI_PACE_STEPS, seconds=pace_s,
+                         ms_per_step=[r["ms"] for r in pace_records],
+                         ms_step_to_step=pace_gaps,
+                         median_ms_step_to_step_after_the_first=pace_ms,
+                         range_ms_step_to_step_after_the_first=pace_range,
+                         samples_per_s_step_to_step=B * 1e3 / pace_ms),
+               native_io_calls=native_calls,
                train_phase_median_ms_per_step=train_step_ms,
                over_train_phase=float(np.median(step_ms)) / train_step_ms,
                loader_samples_per_s=loader, png_decode_ms_320x288=decode_ms,
@@ -2287,6 +2597,10 @@ def run_train_cli(train_step_ms, lpips_weights):
     want_ckpts = {f"{s}.pt" for s in (CLI_VAL_FREQ, CLI_STEPS, CLI_RESUME_STEPS)}
     check(want_ckpts <= set(ckpts), f"train_cli checkpoints: {ckpts}")
     check(calls == want, f"train_cli: kernel calls {calls}, expected {want}")
+    check(native_calls["decode"] > 0, f"train_cli: the native decoder read no image "
+          f"({native_calls})")
+    check(len(pace_records) == CLI_PACE_STEPS and pace_records[0]["step"] == 0,
+          f"train_cli's pace run ran steps {[r['step'] for r in pace_records]}")
     check(len(summary["psnr"]) == 2 and all(np.isfinite(v).all() for v in summary.values()),
           "test_restoration: metrics not finite")
     check(len(summary["lpips"]) == 2, f"test_restoration: LPIPS {summary['lpips']}")
@@ -4756,6 +5070,7 @@ def main():
                                            and re.search(r"(?<!\d)0 bytes spill loads", ln))]
     check(linattn, "the build log names no linear-attention kernel")
     check(not spills, f"linear-attention kernels spill: {spills}")
+    run_native_io()
 
     rows = run_kernels()
     alt_rows, core_path = run_kernels_alt()

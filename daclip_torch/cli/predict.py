@@ -58,9 +58,11 @@ def main(argv=None):
         p.error(f"--checkpoint {args.checkpoint!r} holds no <step>.pt files of "
                 "daclip_torch's trainer (orbax train dirs are not ported)")
 
+    from daclip_torch.data import native_io
     from daclip_torch.data.util import imread_color, is_image_file, save_img
     from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
 
+    native_io.load()  # the image decoder is built at start-up, not for the first image
     cfg = RestorerConfig(model_name=args.model_name, sampling_mode=args.sampling_mode,
                          T=args.T, sample_T=args.sample_T, max_sigma=args.max_sigma,
                          tile_size=args.tile_size)

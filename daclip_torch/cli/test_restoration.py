@@ -67,7 +67,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from daclip_torch import config as cfg_mod
-    from daclip_torch.data import create_dataset
+    from daclip_torch.data import create_dataset, native_io
     from daclip_torch.data.util import save_img
     from daclip_torch.pipeline import DACLIPRestorer, resolve_device
     from daclip_torch.utils import metrics
@@ -75,6 +75,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     opt = cfg_mod.parse(args.opt, is_train=False)
+    native_io.load()  # the image decoder is built at start-up, not for the first image
     unet_path = args.checkpoint or args.unet or opt["path"]["pretrain_model_G"]
     daclip_path = args.daclip or opt["path"]["daclip"]
     restorer = DACLIPRestorer.load(unet_path, daclip_path, restorer_config(opt),

@@ -173,6 +173,7 @@ def main(argv=None):
     refuse_unported(args)
 
     from daclip_torch import parallel
+    from daclip_torch.data import native_io
     from daclip_torch.data.loader import to_device
     from daclip_torch.eval.retrieval import evaluate as eval_retrieval
     from daclip_torch.factory import create_model, create_model_and_transforms
@@ -188,6 +189,7 @@ def main(argv=None):
 
     rank, world, _, device = parallel.initialize_distributed(
         args.dist_url, args.dist_backend, args.device, not args.no_set_device_rank)
+    native_io.load()  # the image decoder is built at start-up, not in the first step
     try:
         mesh = parallel.mesh_from_spec(args.mesh, world, device.type)
     except ValueError as e:

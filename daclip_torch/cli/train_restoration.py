@@ -220,6 +220,7 @@ def main(argv=None):
 
     from daclip_torch import config as cfg_mod
     from daclip_torch import parallel
+    from daclip_torch.data import native_io
     from daclip_torch.models.unet import ConditionalUNet
     from daclip_torch.train.restoration import init_state, make_sampler
     from daclip_torch.utils import metrics
@@ -228,6 +229,7 @@ def main(argv=None):
     rank, world, _, device = parallel.initialize_distributed(
         args.dist_url, args.dist_backend, args.device, not args.no_set_device_rank)
     opt = cfg_mod.parse(args.opt, is_train=True)
+    native_io.load()  # the image decoder is built at start-up, not in the first step
     try:
         if parallel.parse_mesh(args.mesh, world)[2] > 1:
             raise ValueError(f"--mesh {args.mesh}: the model axis is not carried by the "

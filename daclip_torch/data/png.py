@@ -16,11 +16,13 @@ and for 16-bit gray+alpha; a tRNS chunk changes no mode), which decides how
 PIL resizes it.
 
 Row filters work on bytes, the left neighbour `max(1, channels·depth/8)`
-bytes back. None and Up are one operation a row, Sub a per-byte-of-pixel
-`np.cumsum(..., dtype=np.uint8)` (a sum modulo 256). Average and Paeth take
-the pixel to their left, already unfiltered, so they loop over the row's
-pixels, each step vectorised across the pixel's bytes; they are far slower
-than the others (PERF.md records the cost per filter).
+bytes back. They are undone in C without the GIL (`native_io.unfilter`,
+`native/dio.cc`, built at first use). `_unfilter_rows` is their plain numpy
+version, which the tests hold the C one against: None and Up are one
+operation a row, Sub a per-byte-of-pixel `np.cumsum(..., dtype=np.uint8)` (a
+sum modulo 256), and Average and Paeth, which take the pixel to their left
+already unfiltered, loop over the row's pixels (far slower: PERF.md records
+the cost per filter).
 
 `encode` writes 8-bit gray, BGR or BGRA (colour types 0, 2 and 6) with one
 filter for every row: "none", "sub", "up", "average" or "paeth" (no
@@ -32,6 +34,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from daclip_torch.data import native_io
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 FILTERS = {"none": 0, "sub": 1, "up": 2, "average": 3, "paeth": 4}
@@ -103,7 +107,15 @@ def _average_row(d: np.ndarray, up: np.ndarray) -> np.ndarray:
 
 def _unfilter(rows: np.ndarray, bpp: int, name: str) -> np.ndarray:
     """(H, 1 + rowbytes) filtered rows → (H, rowbytes) bytes; a pixel is
-    `bpp` bytes, the unit the filters' left neighbour steps by."""
+    `bpp` bytes, the unit the filters' left neighbour steps by. In C."""
+    try:
+        return native_io.unfilter(rows, bpp)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+
+
+def _unfilter_rows(rows: np.ndarray, bpp: int, name: str) -> np.ndarray:
+    """`_unfilter`'s plain numpy version, row by row."""
     H = rows.shape[0]
     out = np.empty((H, rows.shape[1] - 1), np.uint8)
     prev = np.zeros((out.shape[1] // bpp, bpp), np.uint8)

@@ -4,23 +4,28 @@ layer, in numpy.
 Counterpart of `daclip_tpu/data/util.py` (reference
 universal-image-restoration/data/util.py):
   read_img          — util.py:89-115: float32 HWC BGR in [0, 1], gray with a
-                      channel axis, alpha dropped
+                      channel axis, alpha dropped; JPEG and PNG files
+                      through `data/native_io.py`
   imread_decoded    — the CSV dataset's decode: uint8 RGB as PIL's
                       convert("RGB") gives it, with the alpha and the mode
                       PIL opens the file in
   read_imgs_cropped — util.py:118-156: one random crop shared by same-sized
-                      images, decoded in full and then cropped
+                      images, decoded by `native_io` window only
   augment           — util.py:98-116: random hflip + rot90 family
   channel_convert   — util.py:166-178
   rgb2ycbcr / bgr2ycbcr — ITU-R BT.601, MATLAB-compatible
   imresize_np       — util.py:231-299: MATLAB bicubic with antialiasing
 
-PNG is decoded and encoded by `data/png.py`, which needs neither cv2 nor
-PIL. Any other format goes through cv2 (through PIL for `imread_decoded`),
-imported only when such a file is read; without cv2 that raises an ImportError that says how to get the data
-in (PNG, or an LMDB packed where cv2 exists: `tools/create_lmdb.py`). The
-JAX package's native decoder (`DACLIP_TPU_NATIVE_IO`, `data/native_io.py`)
-is not carried over.
+Folder reads of `.jpg`, `.jpeg` and `.png` files go through the native
+decoder (`data/native_io.py`, C on zlib, without the GIL), as the JAX
+package's do: its arrays are cv2's, and a file outside its set (16-bit,
+alpha or tRNS PNG, progressive or arithmetic JPEG, ...) raises ValueError
+and is read the other way. There is no switch to turn it off, and a library
+that does not build raises. The other way: PNG by `data/png.py`, which
+needs neither cv2 nor PIL; any other format by cv2 (by PIL for
+`imread_decoded`), imported only when such a file is read; without cv2
+that raises an ImportError that says how to get the data in (PNG, or an
+LMDB packed where cv2 exists: `tools/create_lmdb.py`).
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from daclip_torch.data import png
+from daclip_torch.data import native_io, png
 from daclip_torch.transforms import DecodedImage
 
 IMG_EXTENSIONS = (".jpg", ".JPG", ".jpeg", ".JPEG", ".png", ".PNG", ".ppm",
@@ -134,23 +139,33 @@ def imread_color(path: str) -> np.ndarray:
 
 # PIL modes whose resize `transforms.clip_transform` reproduces; a file PIL
 # opens in another mode (CMYK, I, F, ...) is converted to RGB first
-_DECODED_MODES = ("1", "L", "P", "RGB", "LA", "RGBA")
+_DECODED_MODES = ("1", "L", "P", "RGB", "LA", "RGBA", "I;16")
+
+
+def _gray16(samples: np.ndarray) -> DecodedImage:
+    """An "I;16" image: its RGB as `convert("RGB")` gives it (a sample over
+    255 is 255) and its 16-bit samples, which `clip_transform` resizes."""
+    g = np.minimum(samples, 255).astype(np.uint8)
+    return DecodedImage(np.repeat(g[:, :, None], 3, axis=2), None, "I;16",
+                        samples.astype(np.uint16))
 
 
 def imread_decoded(path: str) -> DecodedImage:
     """The image as PIL opens it (`transforms.DecodedImage`): its RGB as
     `convert("RGB")` gives it (alpha dropped without compositing, gray
-    replicated, a palette expanded), its alpha for "RGBA" and "LA", and its
-    mode.
+    replicated, a palette expanded), its alpha for "RGBA" and "LA", its
+    16-bit samples for "I;16", and its mode.
     PNG by `data/png.py`, 16-bit samples as PIL reads them: 16-bit gray
-    ("I;16") clipped to 255, any other 16-bit layout cut to its high byte;
-    any other format by PIL, imported here."""
+    ("I;16") kept (its RGB clipped to 255), any other 16-bit layout cut to
+    its high byte; any other format by PIL, imported here."""
     with open(path, "rb") as f:
         data = f.read()
     if png.is_png(data):
         img, mode = png.decode_with_mode(data, path)
+        if mode == "I;16":
+            return _gray16(img)
         if img.dtype == np.uint16:
-            img = (np.minimum(img, 255) if mode == "I;16" else img >> 8).astype(np.uint8)
+            img = (img >> 8).astype(np.uint8)
         mode = mode if mode in _DECODED_MODES else "RGB"
         if img.ndim == 2:
             return DecodedImage(np.repeat(img[:, :, None], 3, axis=2), None, mode)
@@ -159,17 +174,21 @@ def imread_decoded(path: str) -> DecodedImage:
     from PIL import Image
 
     with Image.open(io.BytesIO(data)) as im:
+        if im.mode == "I;16":
+            return _gray16(np.asarray(im))
         mode = im.mode if im.mode in _DECODED_MODES else "RGB"
         alpha = np.asarray(im.getchannel("A")) if mode in ("RGBA", "LA") else None
         return DecodedImage(np.asarray(im.convert("RGB")), alpha, mode)
 
 
-def read_img(env, path: str, size=None) -> np.ndarray:
-    """File (or LMDB record when `env` is given) → float32 HWC BGR, the
-    samples over 255 (so [0, 1] for 8-bit files and up to 257 for 16-bit
-    ones, as daclip_tpu's cv2 read gives them); gray gets a channel axis,
-    alpha is dropped (util.py:68-85)."""
-    img = imread(path) if env is None else _read_img_lmdb(env, path, size)
+_NATIVE_EXTENSIONS = (".jpg", ".jpeg", ".png")
+
+
+def _native(path: str) -> bool:
+    return path.lower().endswith(_NATIVE_EXTENSIONS)
+
+
+def _as_float(img: np.ndarray) -> np.ndarray:
     img = img.astype(np.float32) / 255.0
     if img.ndim == 2:
         img = np.expand_dims(img, axis=2)
@@ -178,16 +197,52 @@ def read_img(env, path: str, size=None) -> np.ndarray:
     return img
 
 
+def read_img(env, path: str, size=None) -> np.ndarray:
+    """File (or LMDB record when `env` is given) → float32 HWC BGR, the
+    samples over 255 (so [0, 1] for 8-bit files and up to 257 for 16-bit
+    ones, as daclip_tpu's cv2 read gives them); gray gets a channel axis,
+    alpha is dropped (util.py:68-85). A JPEG or PNG file is decoded by
+    `native_io`, and by `imread` when it is outside that decoder's set."""
+    if env is not None:
+        return _as_float(_read_img_lmdb(env, path, size))
+    img = None
+    if _native(path):
+        try:
+            img = native_io.decode_file(path)
+        except ValueError:
+            img = None
+    return _as_float(imread(path) if img is None else img)
+
+
 def read_imgs_cropped(paths, size: int, rng) -> list:
     """Read same-sized images and crop all of them to one random
-    (size, size) window. Draws exactly one `randint` pair per call, from the
-    first image's (H, W), as the JAX package does on each of its decode
-    paths, so the RNG stream and the windows equal its own. Returns
-    (imgs, (rnd_h, rnd_w))."""
-    imgs = [read_img(None, p) for p in paths]
-    H, W = imgs[0].shape[:2]
+    (size, size) window. JPEG and PNG files are probed and only the window
+    is decoded (`native_io`); a file outside that decoder's set sends every
+    image through `read_img`, cropped with the window already drawn. Draws
+    exactly one `randint` pair per call, from the first image's (H, W), as
+    the JAX package does on each of its decode paths, so the RNG stream and
+    the windows equal its own. Returns (imgs, (rnd_h, rnd_w))."""
+    datas = None
+    if all(_native(p) for p in paths):
+        datas = []
+        for p in paths:
+            with open(p, "rb") as f:
+                datas.append(f.read())
+        try:
+            W, H, _ = native_io.probe(datas[0])
+        except ValueError:
+            datas = None
+    if datas is None:
+        imgs = [read_img(None, p) for p in paths]
+        H, W = imgs[0].shape[:2]
     rnd_h = rng.randint(0, max(0, H - size))
     rnd_w = rng.randint(0, max(0, W - size))
+    if datas is not None:
+        crop = (rnd_w, rnd_h, min(size, W - rnd_w), min(size, H - rnd_h))
+        try:
+            return [_as_float(native_io.decode(d, crop=crop)) for d in datas], (rnd_h, rnd_w)
+        except ValueError:
+            imgs = [read_img(None, p) for p in paths]
     return ([im[rnd_h:rnd_h + size, rnd_w:rnd_w + size, :] for im in imgs],
             (rnd_h, rnd_w))
 

@@ -2,8 +2,9 @@
 
 The same setup()/predict() surface as `daclip_tpu/serve/predictor.py`; the
 work is done by `daclip_torch.pipeline.DACLIPRestorer`. Images are read and
-written by `data/util.py`: PNG by the port's own codec, other formats
-through cv2 where it is installed.
+written by `data/util.py`: PNG and baseline JPEG by the port's native
+decoder (`data/native_io.py`, built in `setup`), other formats through cv2
+where it is installed.
 """
 from __future__ import annotations
 
@@ -22,8 +23,12 @@ class Predictor:
               sample_T: int = -1,
               device=None):
         """predict.py:34-56: build model + DA-CLIP + IR-SDE once, on `device`
-        (None means CUDA)."""
+        (None means CUDA). The image decoder is built here, not in the
+        first request."""
+        from daclip_torch.data import native_io
         from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
+
+        native_io.load()
 
         self.restorer = DACLIPRestorer.load(
             unet_path, daclip_path,

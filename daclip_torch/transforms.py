@@ -26,7 +26,9 @@ to RGB first, as daclip_tpu's does; `clip_transform` resizes it in that mode
 and drops to RGB after, as PIL's `Image.resize` and `convert("RGB")` do: a
 palette ("P") or bilevel ("1") image by nearest neighbour
 (`_resample_nearest`), an "RGBA" or "LA" one bicubic on its premultiplied
-colours ("RGBa", "La", `_resize_premultiplied`), the rest bicubic.
+colours ("RGBa", "La", `_resize_premultiplied`), a 16-bit gray ("I;16") one
+bicubic on its 16-bit samples (`_resample_bicubic16`) and clipped to 255
+after, the rest bicubic.
 """
 from __future__ import annotations
 
@@ -49,26 +51,36 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _coeffs(in_size: int, out_size: int, in0: float = 0.0, in1: Optional[float] = None):
-    """PIL's fixed-point filter weights of each output pixel (precompute_coeffs
-    over the input span [in0, in1) + normalize_coeffs_8bpc), as a dense
-    (out_size, in_size) int64 matrix."""
+def _coeffs_float(in_size: int, out_size: int, in0: float = 0.0,
+                  in1: Optional[float] = None):
+    """PIL's filter weights of each output pixel over the input span
+    [in0, in1) (precompute_coeffs: the taps' weights summed in order and
+    divided by the sum): (first input, the weights) per output pixel."""
     in1 = in_size if in1 is None else in1
     scale = (in1 - in0) / out_size
     filterscale = max(scale, 1.0)
     support = 2.0 * filterscale
-    mat = np.zeros((out_size, in_size), np.int64)
+    rows = []
     for xx in range(out_size):
         center = in0 + (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
         w = _bicubic((np.arange(xmax) + xmin - center + 0.5) * (1.0 / filterscale))
-        total = w.sum()
-        if total != 0.0:
-            w = w / total
+        total = 0.0
+        for v in w.tolist():
+            total += v
+        rows.append((xmin, w / total if total != 0.0 else w))
+    return rows
+
+
+def _coeffs(in_size: int, out_size: int, in0: float = 0.0, in1: Optional[float] = None):
+    """PIL's fixed-point filter weights (`_coeffs_float` through
+    normalize_coeffs_8bpc), as a dense (out_size, in_size) int64 matrix."""
+    mat = np.zeros((out_size, in_size), np.int64)
+    for xx, (xmin, w) in enumerate(_coeffs_float(in_size, out_size, in0, in1)):
         # C's (int) cast truncates toward zero
         fixed = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS))
-        mat[xx, xmin:xmin + xmax] = fixed.astype(np.int64)
+        mat[xx, xmin:xmin + len(w)] = fixed.astype(np.int64)
     return mat
 
 
@@ -106,17 +118,48 @@ def _resample_bicubic(img: np.ndarray, out_w: int, out_h: int,
     return img
 
 
+def _apply16(rows, img: np.ndarray, axis: int) -> np.ndarray:
+    """One 16-bit pass along `axis` of a (H, W) int64 image, as Pillow's
+    `ImagingResample{Horizontal,Vertical}_16bpc`: a float64 sum over the
+    taps in order, rounded half away from zero, stored as its two bytes each
+    clipped to 0-255 (so a negative sum is 0 and one past 65535 keeps its
+    low byte under a high byte of 255)."""
+    src = np.moveaxis(img, axis, 0).astype(np.float64)
+    out = np.empty((len(rows),) + src.shape[1:], np.int64)
+    for o, (xmin, w) in enumerate(rows):
+        acc = np.zeros(src.shape[1:])
+        for k, v in enumerate(w.tolist()):
+            acc = acc + src[xmin + k] * v
+        r = np.where(acc >= 0, np.trunc(acc + 0.5), np.trunc(acc - 0.5)).astype(np.int64)
+        out[o] = np.where(r < 0, 0, np.where(r > 0xFFFF, 0xFF00 | (r & 0xFF), r))
+    return np.moveaxis(out, 0, axis)
+
+
+def _resample_bicubic16(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """PIL `Image.resize((out_w, out_h), Image.BICUBIC)` of an "I;16" image
+    (H, W) → uint16, the horizontal pass first, each where PIL runs it."""
+    h, w = img.shape
+    img = img.astype(np.int64)
+    if out_w != w:
+        img = _apply16(_coeffs_float(w, out_w), img, 1)
+    if out_h != h:
+        img = _apply16(_coeffs_float(h, out_h), img, 0)
+    return img.astype(np.uint16)
+
+
 class DecodedImage(NamedTuple):
     """An 8-bit image with the mode PIL opens its file in: `rgb` uint8
     (H, W, 3) as `convert("RGB")` gives it, `alpha` (H, W) uint8 for "RGBA"
-    and "LA" (None otherwise), `mode`."""
+    and "LA" (None otherwise), `mode`, and for "I;16" its samples `gray16`
+    (H, W) uint16 (None otherwise)."""
     rgb: np.ndarray
     alpha: Optional[np.ndarray]
     mode: str
+    gray16: Optional[np.ndarray] = None
 
     def crop(self, top: int, left: int, h: int, w: int) -> "DecodedImage":
-        alpha = None if self.alpha is None else self.alpha[top:top + h, left:left + w]
-        return DecodedImage(self.rgb[top:top + h, left:left + w], alpha, self.mode)
+        cut = lambda a: None if a is None else a[top:top + h, left:left + w]
+        return DecodedImage(cut(self.rgb), cut(self.alpha), self.mode, cut(self.gray16))
 
 
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
@@ -168,6 +211,9 @@ def _resize_decoded(img: DecodedImage, out_w: int, out_h: int) -> np.ndarray:
         return _resample_nearest(img.rgb, out_w, out_h)
     if img.mode in ("RGBA", "LA"):
         return _resize_premultiplied(img, out_w, out_h)
+    if img.mode == "I;16":  # PIL's "I;16" → "RGB": a sample over 255 is 255
+        g = np.minimum(_resample_bicubic16(img.gray16, out_w, out_h), 255).astype(np.uint8)
+        return np.repeat(g[:, :, None], 3, axis=2)
     return _resample_bicubic(img.rgb, out_w, out_h)
 
 

@@ -361,10 +361,18 @@ def test_read_img_equals_jax(img_dir):
         str(img_dir))
 
 
-def test_read_img_without_cv2_reads_png_and_names_cv2_for_jpeg(img_dir, monkeypatch):
+def test_read_img_without_cv2_reads_png_and_names_cv2_for_jpeg(img_dir, monkeypatch,
+                                                                tmp_path):
+    """Without cv2 a PNG and a baseline JPEG read (the native decoder), and a
+    progressive JPEG, outside its set, raises an ImportError that names the
+    way in."""
     import builtins
 
     real_import = builtins.__import__
+    progressive = str(tmp_path / "p.jpg")
+    cv2.imwrite(progressive, _image(np.random.RandomState(6), 24, 20, 3),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    baseline = cv2.imread(str(img_dir / "4.jpg"), cv2.IMREAD_UNCHANGED)
 
     def no_cv2(name, *a, **kw):
         if name == "cv2":
@@ -374,8 +382,10 @@ def test_read_img_without_cv2_reads_png_and_names_cv2_for_jpeg(img_dir, monkeypa
     monkeypatch.delitem(__import__("sys").modules, "cv2")
     monkeypatch.setattr(builtins, "__import__", no_cv2)
     assert tutil.read_img(None, str(img_dir / "0.png")).shape == (40, 36, 3)
+    np.testing.assert_array_equal(tutil.read_img(None, str(img_dir / "4.jpg")),
+                                  baseline.astype(np.float32) / 255.0)
     with pytest.raises(ImportError, match="create_lmdb"):
-        tutil.read_img(None, str(img_dir / "4.jpg"))
+        tutil.read_img(None, progressive)
     with pytest.raises(ImportError, match="cv2"):
         tutil.save_img(np.zeros((4, 4, 3), np.uint8), str(img_dir / "y.jpg"))
 
@@ -645,3 +655,41 @@ def test_context_cache_equals_jax(trees):
     assert "LQ_clip" not in s and s.keys() == j.keys()
     _assert_same(s["GT"], j["GT"])
     assert s["image_context"].shape == (32,)
+
+
+@pytest.mark.parametrize("samples", ["low", "high", "mixed"])
+def test_csv_val_view_of_16_bit_gray_equals_jax(tmp_path, samples):
+    """A 16-bit gray PNG (PIL's "I;16") in the CSV val view: `imread_decoded`
+    keeps its samples and `clip_transform` resizes them as PIL resizes
+    "I;16" (bicubic on 16 bits, its rounding and clipping) before the drop
+    to RGB, so samples all ≤ 255, all > 255 and mixed, scaled up (to 32 from
+    20-31 px) and down (from 40-70 px), equal daclip_tpu's `CsvDataset` with
+    its val transform exactly."""
+    from daclip_torch import transforms as ttf
+    from daclip_torch.data import csv_dataset as tcsv
+    from daclip_tpu import transforms as jtf
+    from daclip_tpu.data import csv_dataset as jcsv
+
+    rng = np.random.RandomState({"low": 0, "high": 1, "mixed": 2}[samples])
+    for sub in ("LQ", "GT"):
+        os.makedirs(tmp_path / sub)
+    rows = []
+    for i, (h, w) in enumerate([(20, 27), (31, 24), (45, 38), (70, 41), (40, 40)]):
+        for sub in ("LQ", "GT"):
+            low = rng.randint(0, 256, (h, w))
+            high = rng.randint(256, 65536, (h, w))
+            s = {"low": low, "high": high,
+                 "mixed": np.where(rng.rand(h, w) < 0.5, low, high)}[samples]
+            Image.fromarray(s.astype(np.uint16)).save(str(tmp_path / sub / f"{i}.png"))
+        rows.append(f"{tmp_path}/LQ/{i}.png\tphoto {i}| noisy with parameter 15")
+    csv = str(tmp_path / "val.csv")
+    with open(csv, "w") as f:
+        f.write("filepath\ttitle\n" + "\n".join(rows) + "\n")
+    with Image.open(str(tmp_path / "LQ" / "0.png")) as im:
+        assert im.mode == "I;16"
+    ours = tcsv.CsvDataset(csv, ttf.image_transform(32), da=False)
+    ref = jcsv.CsvDataset(csv, jtf.image_transform(32), da=False)
+    for i in range(len(rows)):
+        got, want = ours[i], ref[i]
+        for k in ("images", "gt_images"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{k} of {i}")

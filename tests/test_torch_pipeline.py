@@ -188,8 +188,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'daclip_torch.models.convnext', 'daclip_torch.models.timm_model',\n"
         "        'daclip_torch.models.timm_vit', 'daclip_torch.models.swin',\n"
         "        'daclip_torch.models.eva', 'daclip_torch.models.coca',\n"
-        "        'daclip_torch.models.hf_text', 'daclip_torch.tools.push_to_hf_hub']\n"
+        "        'daclip_torch.models.hf_text', 'daclip_torch.tools.push_to_hf_hub',\n"
+        "        'daclip_torch.data.native_io', 'daclip_torch.data.png']\n"
         "assert all(m in sys.modules for m in need), need\n"
+        "# the native decoder is built at first use, never at import\n"
+        "assert sys.modules['daclip_torch.data.native_io']._lib is None\n"
         "# imported only inside calls: the card's machine is not known to have them\n"
         "absent = [m for m in sys.modules if m.split('.')[0] in ('regex', 'cv2', 'PIL', 'ftfy',\n"
         "                                                        'matplotlib', 'sklearn',\n"

@@ -251,14 +251,17 @@ def test_resize_in_mode_equals_pil(mode):
 
 def test_a_16_bit_png_is_refused(tmp_path):
     """A 16-bit PNG is refused only where the spec forbids it (a palette);
-    a 16-bit gray one reads as PIL reads it ("I;16", taken to RGB, clipped)."""
+    a 16-bit gray one reads as PIL reads it: mode "I;16", its samples kept
+    for the resize, its RGB as `convert("RGB")` gives it (clipped)."""
     path = str(tmp_path / "x.png")
-    Image.fromarray(np.arange(64 * 64, dtype=np.uint16).reshape(64, 64)).save(path)
+    samples = np.arange(64 * 64, dtype=np.uint16).reshape(64, 64)
+    Image.fromarray(samples).save(path)
     dec = tutil.imread_decoded(path)
     with Image.open(path) as im:
         assert im.mode == "I;16"
         np.testing.assert_array_equal(dec.rgb, np.asarray(im.convert("RGB")))
-    assert dec.mode == "RGB" and dec.alpha is None and dec.rgb.max() == 255
+    assert dec.mode == "I;16" and dec.alpha is None and dec.rgb.max() == 255
+    np.testing.assert_array_equal(dec.gray16, samples)
     data = bytearray(open(path, "rb").read())
     data[24:26] = bytes([16, 3])                      # IHDR: 16-bit palette
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
