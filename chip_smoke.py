@@ -6,7 +6,8 @@ Phases, each printing JSON lines:
   0 device   the card (nvidia-smi name and power limit), torch and CUDA versions,
              and whether matplotlib, sklearn and scipy import (their versions)
   1 build    nvcc builds daclip_torch/csrc/*.cu (one process per source); no
-             instantiation of the linear-attention kernels may spill
+             instantiation of the linear-attention kernels may spill, nor a
+             bf16 flash kernel at dim_head 32
  1b native_io  the host's image decoder (daclip_torch/native/dio.cc, built
              here with g++ on zlib): PNG (every row filter, 1/2/4/8-bit gray,
              palette, RGB, Adam7) and baseline JPEG (cv2 and PIL files at
@@ -23,16 +24,19 @@ Phases, each printing JSON lines:
   2 kernels  each kernel against its plain PyTorch version at every shape the
              restore path gives it (the wrap also on inputs where the
              attention is as large as the bias, at each shape), the flash
-             forward also at the training step's shapes keeping its lse (held
-             against torch.logsumexp); the wrap and flash called twice (the
+             forward also at the training step's shapes and at its tile edges
+             (N under one box, odd B, H and N, dim_head 64) keeping its lse
+             (held against torch.logsumexp); the wrap and flash called twice (the
              bytes must repeat);
              times (median of CUDA-event timed calls after warm-up, and the
              device time: CUDA events around ten calls queued behind a
              torch.cuda._sleep that outlasts their enqueue, so the span holds
              no host gap; torch.profiler only names the kernels), the bound,
              and for flash the one-call PyTorch yardstick
-             (scaled_dot_product_attention, timed here only, event and device);
-             a device time at or under its bound fails the run
+             (scaled_dot_product_attention, timed here only, event and device),
+             the device time over the yardstick's, the exponentials' floor
+             (B·H·N² at 3.9e12 a second) and each bf16 kernel's registers and
+             shared memory; a device time at or under its bound fails the run
   2b kernels_alt  the kernels of the UNet's other wirings, each against its
              plain version: linear_attention_fused (v4), attn_wrap_fused (v3,
              with and without prenorm/residual) at the six sites on
@@ -341,6 +345,12 @@ FLASH_TRAIN_SHAPES = [(16, 1024, 8, 32, torch.bfloat16), (16, 1024, 16, 32, torc
 # restore) and down3 at a chunk of half of it (split over two); the wrap at
 # level 0 (n = 384²) on such a chunk
 SHARD_FLASH_SHAPES = [(8, 2304, 16, 32, torch.bfloat16), (4, 2304, 8, 32, torch.bfloat16)]
+# the bf16 forward's tile edges, keeping the lse: N under one 64-row TMA box,
+# one box, one query or key past a box, and odd B, H and N
+FLASH_EDGE_SHAPES = [(1, 50, 2, 32, torch.bfloat16), (1, 64, 1, 32, torch.bfloat16),
+                     (1, 130, 2, 32, torch.bfloat16), (3, 257, 3, 32, torch.bfloat16),
+                     (2, 65, 4, 32, torch.bfloat16), (2, 65, 4, 64, torch.bfloat16),
+                     (2, 1000, 4, 64, torch.bfloat16)]
 SHARD_WRAP_SHAPES = [(4, 147456, 64, torch.bfloat16)]
 LIMITS = {("wrap", torch.bfloat16): 0.1, ("wrap", torch.float32): 1e-3,
           # relative to the output's max: the core's output is the attention
@@ -401,7 +411,7 @@ ALT_FORWARD_FACTOR = 3.0
 # wrap sites at 256² and B=16 (down0/up0 share a shape), the ragged case, an
 # f32 case, and C=512 (the context-free UNet's level 3, the kernel's 32-row
 # tiles); flash at down3 and mid/up3, an f32 case, dim_head 64 with a
-# ragged N, and N of 65 and 129 at both dim_heads
+# ragged N, N of 65 and 129 at both dim_heads, and the forward's edges
 WRAP_BWD_SHAPES = [
     (16, 65536, 64, torch.bfloat16), (16, 16384, 64, torch.bfloat16),
     (16, 16384, 128, torch.bfloat16), (16, 4096, 128, torch.bfloat16),
@@ -411,7 +421,10 @@ FLASH_BWD_SHAPES = [(16, 1024, 8, 32, torch.bfloat16), (16, 1024, 16, 32, torch.
                     (2, 1024, 4, 32, torch.float32), (2, 1000, 4, 64, torch.bfloat16),
                     # the bf16 kernels' tile edges: one key/query past a 64-row tile
                     (2, 65, 4, 32, torch.bfloat16), (2, 129, 4, 32, torch.bfloat16),
-                    (2, 65, 4, 64, torch.bfloat16), (2, 129, 4, 64, torch.bfloat16)]
+                    (2, 65, 4, 64, torch.bfloat16), (2, 129, 4, 64, torch.bfloat16),
+                    # N under one box, one box, odd B, H and N
+                    (1, 50, 2, 32, torch.bfloat16), (1, 64, 1, 32, torch.bfloat16),
+                    (3, 257, 3, 32, torch.bfloat16)]
 # each gradient's max |kernel − plain| over its own max |plain|, the plain
 # backward in f32 on the same inputs; set at about 3× (bf16) and 5× (f32) the
 # worst reading of the first H100 runs (0.0063 wrap, 0.0044 flash in bf16,
@@ -422,6 +435,14 @@ BWD_LIMITS = {("wrap", torch.bfloat16): 2e-2, ("wrap", torch.float32): 1e-5,
 # rows, in another order) against an f32 matmul, relative to its max
 WGRAD_LIMIT = 1e-4
 TRAIN_CHECK_LIMIT = 1e-4  # worst per-tensor relative gradient error, f32 (read: 2e-6)
+# the H100 SXM's exponentials a second on its special-function units
+# (FlashAttention-3, Shah et al. 2024, §3): a flash row's `exp_floor_ms` is
+# its exponentials at that rate (B·H·N² a pass; the backward takes two)
+EXP_PER_S = 3.9e12
+# the bf16 flash kernels by their ptxas_summary names
+FLASH_KERNELS = tuple(f"{ns}::tc::{k}_wgmma_kernel<{d}>" for d in (32, 64)
+                      for ns, k in (("flash", "fwd"), ("flash_bwd", "dq"), ("flash_bwd", "dkv")))
+_FLASH_PTXAS = {}  # the build's ptxas lines of those kernels, for the flash rows
 # the forward's log-sum-exp against torch.logsumexp of the f32 logits (read:
 # 1.4e-6 in bf16, from f32 sums of exponentials on the SFU)
 LSE_LIMIT = 1e-4
@@ -523,8 +544,12 @@ def device_ms(fn, match, iters=10):
     host gap. Unlike `time_ms`, which times each call between two events,
     it leaves out the wrapper's host time, which a small kernel can take
     less than. torch.profiler only names the kernels: the calls must launch
-    one whose name holds `match`. Fails if the device reached the calls
-    before the host had queued them all."""
+    one whose name holds `match`. A window whose calls the device reached
+    before the host had queued them all is not kept: it is taken again
+    behind a sleep 4× as long (the sleep stays outside the span), twice at
+    most (the host, sharing its cores, can stall past one estimate), and a
+    `device_ms_retaken` line names the kernels, the tries and the last
+    sleep; after three tries the run fails."""
     fn()
     torch.cuda.synchronize()
     names = kernel_names(fn, iters)
@@ -532,18 +557,52 @@ def device_ms(fn, match, iters=10):
     t0 = time.perf_counter()
     fn()
     enqueue_ms = (time.perf_counter() - t0) * 1e3 * iters
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(int((2.0 + 4.0 * enqueue_ms) * sleep_cycles_per_ms()))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    queued_first = not start.query()
-    end.synchronize()
-    check(queued_first, f"device_ms: the device reached the calls before the host had "
-          f"queued them ({names[:3]}, enqueue {enqueue_ms:.3f} ms)")
-    return start.elapsed_time(end) / iters
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sleep_ms = (2.0 + 4.0 * enqueue_ms) * 4 ** attempt
+        torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_first = not start.query()
+        end.synchronize()
+        if queued_first:
+            if attempt:  # the host stalled: say so beside the row that follows
+                emit(phase="device_ms_retaken", kernels=names[:3], attempts=attempt + 1,
+                     sleep_ms=sleep_ms, enqueue_ms=enqueue_ms)
+            return start.elapsed_time(end) / iters
+    check(False, f"device_ms: the device reached the calls before the host had queued "
+          f"them, three times ({names[:3]}, enqueue {enqueue_ms:.3f} ms, last sleep "
+          f"{sleep_ms:.1f} ms)")
+
+
+def check_flash_build(ptxas):
+    """Keep the build's lines of the bf16 flash kernels for their rows; fail
+    if one is missing or one at dim_head 32 (the UNet's) spills."""
+    _FLASH_PTXAS.update({ln.split(": ")[0]: ln for ln in ptxas
+                         if ln.split(": ")[0] in FLASH_KERNELS})
+    check(set(_FLASH_PTXAS) == set(FLASH_KERNELS),
+          f"the build log names {sorted(_FLASH_PTXAS)} of the flash kernels {FLASH_KERNELS}")
+    spills = [ln for k, ln in _FLASH_PTXAS.items()
+              if k.endswith("<32>") and not (re.search(r"(?<!\d)0 bytes spill stores", ln)
+                                      and re.search(r"(?<!\d)0 bytes spill loads", ln))]
+    check(not spills, f"bf16 flash kernels at dim_head 32 spill: {spills}")
+
+
+def flash_resources(kind, D):
+    """ptxas's lines (registers, spills) of the bf16 flash kernels of `kind`
+    ("fwd" or "bwd") at dim_head D and their dynamic shared memory bytes."""
+    from daclip_torch.ops import _build
+
+    lib = _build.library()
+    if kind == "fwd":
+        return {"ptxas": [_FLASH_PTXAS.get(f"flash::tc::fwd_wgmma_kernel<{D}>")],
+                "smem_bytes": [lib.daclip_flash_fwd_smem(D)]}
+    return {"ptxas": [_FLASH_PTXAS.get(f"flash_bwd::tc::{k}_wgmma_kernel<{D}>")
+                      for k in ("dq", "dkv")],
+            "smem_bytes": [lib.daclip_flash_bwd_smem(0, D), lib.daclip_flash_bwd_smem(1, D)]}
 
 
 def check_above_bounds(rows):
@@ -962,6 +1021,10 @@ def flash_check(B, N, H, D, dtype, train, gen, phase="kernels", path=None):
                plain_ms=time_ms(lambda: fa.attention_reference(q, k, v, H, D)),
                bound_ms=bms, bound_by=by, library_ms=time_ms(lib),
                library_device_ms=device_ms(lib, ""))
+    row.update(over_library=row["device_ms"] / row["library_device_ms"],
+               exp_floor_ms=B * H * N * N / EXP_PER_S * 1e3)
+    if dtype == torch.bfloat16:
+        row["resources"] = flash_resources("fwd", D)
     if lse is not None:
         qh, kh = heads(q.float()), heads(k.float())
         want_lse = torch.logsumexp(qh @ kh.transpose(-1, -2) * D ** -0.5, dim=-1)
@@ -986,6 +1049,8 @@ def run_kernels():
         rows["wrap"].append(wrap_check(B, n, C, dtype, gen, balanced, path="shard_tiles"))
     for B, N, H, D, dtype in SHARD_FLASH_SHAPES:
         rows["flash"].append(flash_check(B, N, H, D, dtype, False, gen, path="shard_tiles"))
+    for B, N, H, D, dtype in FLASH_EDGE_SHAPES:
+        rows["flash"].append(flash_check(B, N, H, D, dtype, True, gen, path="edge"))
     return rows
 
 
@@ -2077,6 +2142,10 @@ def flash_bwd_check(B, N, H, D, dtype, gen, phase="kernels_bwd", path=None):
                bound_ms=bms, bound_by=by, library_ms=time_ms(lib, iters=10),
                # its event time holds autograd's host time
                library_device_ms=device_ms(lib, ""))
+    row.update(over_library=row["device_ms"] / row["library_device_ms"],
+               exp_floor_ms=2 * B * H * N * N / EXP_PER_S * 1e3)
+    if dtype == torch.bfloat16:
+        row["resources"] = flash_resources("bwd", D)
     if path:
         row["path"] = path
     emit(**row)
@@ -5070,6 +5139,7 @@ def main():
                                            and re.search(r"(?<!\d)0 bytes spill loads", ln))]
     check(linattn, "the build log names no linear-attention kernel")
     check(not spills, f"linear-attention kernels spill: {spills}")
+    check_flash_build(ptxas)
     run_native_io()
 
     rows = run_kernels()

@@ -3,7 +3,10 @@
 // transposed), 16-byte cp.async with its commit/wait groups, the re-packing
 // of an accumulator into an A operand (FlashAttention-2's register reuse),
 // and the warpgroup's wgmma m64n64k16 with A in registers or in shared memory
-// and B in shared memory. Plain C interface, no PyTorch headers.
+// and B in shared memory; for tiles that TMA writes in the swizzle of their
+// row width (64 or 128 bytes), their descriptors and wgmma m64n32k16 /
+// m64n64k16 with B K-major or MN-major (the transpose bit). Plain C
+// interface, no PyTorch headers.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane l of the warp, g = l / 4 (the "group"), t = l % 4:
@@ -211,6 +214,107 @@ __device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+}
+
+// -- wgmma on TMA tiles ------------------------------------------------------------
+// A tile of bf16 rows of RB bytes (RB = 64: D = 32; RB = 128: D = 64) as TMA
+// writes it with the swizzle of its width (the 16-byte chunk c of row r at
+// chunk c ^ (r % 8) for 128 bytes, c ^ (r / 2 % 4) for 64: address bits 4-6
+// or 4-5 XOR bits 7-9 or 7-8), each tile 1024-byte aligned. As a K-major
+// operand (rows = M or N, the row = K) its k16 step kk starts 32·kk bytes
+// into the tile; as an MN-major one (rows = K, the row = N, one swizzle atom
+// wide) its k16 step kk starts at row 16·kk. Either way 8-row groups are
+// 8·RB bytes apart (the stride offset); the leading offset is unused with
+// one atom across (bits 0-13: address / 16, 16-29: leading offset, 32-45:
+// stride offset / 16, 62-63: layout, 1 = 128-byte swizzle, 2 = 64-byte).
+template <int RB>
+__device__ __forceinline__ uint64_t wgmma_desc_sw(uint32_t addr) {
+  static_assert(RB == 64 || RB == 128, "rows of 64 or 128 bytes");
+  constexpr uint64_t layout = RB == 64 ? 2 : 1;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)((8 * RB) >> 4) << 32) | (layout << 62);
+}
+
+// D (64 × 64, f32) = A (64 × 16, shared memory, K-major, `da`) · B (16 × 64,
+// shared memory, `db`; TB 0: K-major, 1: MN-major) + D, or without the + D
+// when `accumulate` is 0; d[j] is n8 tile j of this warp's 16 rows as an
+// mma.sync C fragment.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// D (64 × N, f32) += A (64 × 16, registers: this warp's 16 rows as an
+// mma.sync A fragment) · B (16 × N, shared memory, `db`; TB as above), N = 32
+// or 64; d as above.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  static_assert(N == 32 || N == 64, "wgmma_rs: N = 32 or 64");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %21;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
+  }
+}
+
+// fence_acc for any number of n8 tiles, and for A fragments in registers.
+template <int J>
+__device__ __forceinline__ void fence_regs(float (&d)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+}
+template <int J>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
 }
 
 }  // namespace mma

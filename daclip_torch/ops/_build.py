@@ -60,6 +60,9 @@ SIGNATURES = {
     "daclip_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, dout, lse, dsum, dq, dk, dv, B, N, H, D, scale, is_bf16, stream
     "daclip_flash_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P],
+    # the bf16 flash kernels' dynamic shared memory: D; (0 dq | 1 dkv), D
+    "daclip_flash_fwd_smem": [_I],
+    "daclip_flash_bwd_smem": [_I, _I],
 }
 
 _lock = threading.Lock()

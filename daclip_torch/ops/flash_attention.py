@@ -5,9 +5,10 @@ wrappers, their plain PyTorch versions and the autograd Function over them.
 `flash_self_attention_pallas` (daclip_tpu/ops/flash_attention.py:68),
 `flash_self_attention_bwd` of its backward `flash_self_attention_bwd_pallas`
 (:199). On a CUDA tensor each launches its hand-written kernel
-(`daclip_torch/csrc/flash_attention.cu`, FlashAttention-2 style;
-`csrc/flash_attention_bwd.cu`: dsum, dq, dk/dv; both on mma.sync tensor
-cores in bf16) or raises; on a CPU tensor
+(`daclip_torch/csrc/flash_attention.cu`, FlashAttention-3's forward;
+`csrc/flash_attention_bwd.cu`: dq with dsum, then dk/dv; in bf16 both on
+Hopper's wgmma, fed by TMA through an mbarrier ring from a producer warp)
+or raises; on a CPU tensor
 each runs its plain version: `attention_reference`, the composition of
 `_reference` (:91-101), and `attention_bwd_reference`, the FA2 backward
 arithmetic of `_bwd_kernel` (:104-154). `flash_self_attention` is
@@ -95,7 +96,7 @@ def _forward_kernel(q, k, v, heads: int, dim_head: int, keep_lse: bool):
     """The forward kernel; with keep_lse also each query's log-sum-exp
     (B, heads, N) f32 for the backward."""
     _check(q, k, v, heads, dim_head)
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies 16-byte chunks
+    if q.dtype == torch.bfloat16:  # TMA reads from 16-byte aligned addresses
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     lib = _build.library()
     B, N, _ = q.shape
@@ -126,8 +127,9 @@ def flash_self_attention_bwd(q, k, v, out, dout, heads: int, dim_head: int, lse=
             raise ValueError("flash_self_attention_bwd: out and dout must match q")
     _check_lse(lse, q, heads)
     out, dout = out.contiguous(), dout.contiguous()
-    if q.dtype == torch.bfloat16:  # the tensor-core kernels copy 16-byte chunks
-        q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, dout))
+    if q.dtype == torch.bfloat16:  # TMA reads from 16-byte aligned addresses
+        q, k, v, out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (q, k, v, out, dout))
     lib = _build.library()
     B, N, _ = q.shape
     dsum = torch.empty((B, heads, N), dtype=torch.float32, device=q.device)

@@ -1,8 +1,9 @@
 """The kernel build of daclip_torch (ops/_build.py) on the CPU: every header
 a CUDA source includes is hashed into the library's name, so an edit to a
-shared header (common.cuh, mma.cuh, linattn_tiles.cuh) rebuilds the kernels
-that include it; every exported launcher's C parameters match the ctypes
-signature `_build.SIGNATURES` binds it with."""
+shared header (common.cuh, mma.cuh, tma.cuh, flash_tiles.cuh,
+linattn_tiles.cuh) rebuilds the kernels that include it; every exported
+launcher's C parameters match the ctypes signature `_build.SIGNATURES` binds
+it with."""
 import re
 import shutil
 
@@ -26,6 +27,10 @@ def test_every_quoted_include_is_a_hashed_source():
         assert (src, "mma.cuh") in found, src
     for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
         assert (src, "flash_tiles.cuh") in found, src
+    # their Hopper tiles: TMA and mbarriers from tma.cuh, wgmma
+    # from mma.cuh
+    assert ("flash_tiles.cuh", "tma.cuh") in found
+    assert ("flash_tiles.cuh", "mma.cuh") in found
     # both linear-attention kernels take their tensor-core tiles from
     # linattn_tiles.cuh, which takes its PTX from mma.cuh
     for src in ("linear_attention.cu", "linear_attention_bwd.cu"):
@@ -36,7 +41,7 @@ def test_every_quoted_include_is_a_hashed_source():
 
 
 @pytest.mark.parametrize("name", ["mma.cuh", "common.cuh", "conv3x3.cu", "flash_tiles.cuh",
-                                  "linattn_tiles.cuh"])
+                                  "linattn_tiles.cuh", "tma.cuh"])
 def test_an_edit_to_a_source_changes_the_digest(tmp_path, monkeypatch, name):
     copy = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, copy, ignore=shutil.ignore_patterns("build"))
