@@ -518,11 +518,12 @@ def sleep_cycles_per_ms():
     return _SLEEP_CYCLES_PER_MS[0]
 
 
-def kernel_names(fn, iters=10):
+def kernel_names(fn, iters=10, split=None):
     """The names of the device kernels that `iters` calls of `fn` launch
     (torch.profiler); a window that records none is taken again, twice at
     most (a window can keep none of its kernels, and a window of one call
-    often records none)."""
+    often records none). With `split` (a dict), also each kernel's device ms
+    a call in that window, by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -533,11 +534,14 @@ def kernel_names(fn, iters=10):
             torch.cuda.synchronize()
         names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
         if names:
+            if split is not None:
+                split.update({e.key.split("(")[0][-70:]: e.device_time_total / iters / 1e3
+                              for e in prof.key_averages() if e.device_time_total > 0})
             return names
     return []
 
 
-def device_ms(fn, match, iters=10):
+def device_ms(fn, match, iters=10, split=None):
     """Device time per call of `fn`: CUDA events around `iters` calls queued
     behind a `torch.cuda._sleep` that outlasts the host's enqueue of them
     all, so that the span holds the calls' device work back to back and no
@@ -549,10 +553,11 @@ def device_ms(fn, match, iters=10):
     behind a sleep 4× as long (the sleep stays outside the span), twice at
     most (the host, sharing its cores, can stall past one estimate), and a
     `device_ms_retaken` line names the kernels, the tries and the last
-    sleep; after three tries the run fails."""
+    sleep; after three tries the run fails. With `split` (a dict), the
+    profiler's window also fills it with each kernel's device ms a call."""
     fn()
     torch.cuda.synchronize()
-    names = kernel_names(fn, iters)
+    names = kernel_names(fn, iters, split)
     check(any(match in n for n in names), f"no kernel named {match!r} among {names}")
     t0 = time.perf_counter()
     fn()
@@ -605,6 +610,34 @@ def flash_resources(kind, D):
             "smem_bytes": [lib.daclip_flash_bwd_smem(0, D), lib.daclip_flash_bwd_smem(1, D)]}
 
 
+_LINATTN_PTXAS = {}  # the build's ptxas lines of the linear-attention kernels, for their rows
+
+
+def linattn_resources(kind, C, form=0):
+    """ptxas's lines (registers, spills) of the bf16 linear-attention kernels
+    that one call launches at C ("fwd": stats, combine, apply in input form
+    `form`, 0 raw x, 1 xn, 2 qkv with C = 384; "bwd": pass 1, mid, pass 2,
+    the weight gradients dW_qkv and dW_out) and their dynamic shared memory
+    bytes."""
+    from daclip_torch.ops import _build
+
+    lib = _build.library()
+    keep = "true" if C <= 64 else "false"
+    if kind == "fwd":
+        apply_ = f"wrap::tc::apply_tma_kernel<{form},{'true' if form == 0 else 'false'},{keep}>"
+        names = [f"wrap::tc::stats_tma_kernel<{form}>", "wrap::combine_kernel<bf16>", apply_]
+        smem = [lib.daclip_wrap_smem(0, C, form), 0, lib.daclip_wrap_smem(1, C, form)]
+    else:
+        names = [f"wrap_bwd::tc::pass1_tma_kernel<{keep}>", "wrap_bwd::mid_kernel<bf16>",
+                 f"wrap_bwd::tc::pass2_tma_kernel<{keep}>",
+                 f"wrap_bwd::tc::wgrad_tma_kernel<{6 if C <= 64 else 2}>",
+                 "wrap_bwd::tc::wgrad_tma_kernel<2>"]
+        smem = [lib.daclip_wrap_bwd_smem(0, C), 0, lib.daclip_wrap_bwd_smem(1, C),
+                lib.daclip_wrap_bwd_smem(2, C), lib.daclip_wrap_bwd_smem(3, C)]
+    return {"ptxas": [_LINATTN_PTXAS.get(n, f"{n}: not in the build log") for n in names],
+            "smem_bytes": smem}
+
+
 def check_above_bounds(rows):
     """A kernel's or its library call's device time at or under the row's
     bound is a fault of the measurement: fail there."""
@@ -613,6 +646,10 @@ def check_above_bounds(rows):
             if r.get(key) is not None and r.get("bound_ms") is not None:
                 check(r[key] > r["bound_ms"], f"{r['kernel']} {r['shape']} {r['dtype']}: "
                       f"{key} {r[key]} at or under its bound {r['bound_ms']} ms")
+        fwd = r.get("forward") or {}
+        if fwd.get("device_ms") is not None:  # a backward row's timed forward
+            check(fwd["device_ms"] > fwd["bound_ms"], f"{r['kernel']} {r['shape']}: forward "
+                  f"device_ms {fwd['device_ms']} at or under its bound {fwd['bound_ms']} ms")
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -639,8 +676,9 @@ def ptxas_summary(log):
                 parts.append(sym[j:j + n])
                 i = j + n
             targs = re.match(r"I(.*?)EE", sym[i:])
-            args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a.strip("LiE"))
-                    for a in re.findall(r"13__nv_bfloat16|Li-?\d+E|f(?=L|E|f|1)",
+            args = [{"13__nv_bfloat16": "bf16", "f": "f32", "Lb0E": "false",
+                     "Lb1E": "true"}.get(a, a.strip("LiE"))
+                    for a in re.findall(r"13__nv_bfloat16|Li-?\d+E|Lb[01]E|f(?=L|E|f|1)",
                                         targs.group(1) + "E" if targs else "")]
             name = "::".join(parts[1:]) + (f"<{','.join(args)}>" if args else "")
         elif name and "stack frame" in ln:
@@ -973,10 +1011,14 @@ def wrap_check(B, n, C, dtype, gen, balanced, phase="kernels", path=None):
         esize = args[0].element_size()
         nbytes = (2 * B * n * C + C * 384 + 128 * C + 3 * C) * esize
         bms, by = bound_ms(nbytes, 2 * B * n * (512 * C + 8192), dtype)
+        split = {}  # each launch's device ms, from device_ms's profiler window
         row.update(kernel_ms=time_ms(lambda: la.attn_wrap(*args)),
-                   device_ms=device_ms(lambda: la.attn_wrap(*args), "daclip::wrap::"),
+                   device_ms=device_ms(lambda: la.attn_wrap(*args), "daclip::wrap::",
+                                       split=split),
                    plain_ms=time_ms(lambda: la.attn_wrap_reference(*args)),
-                   bound_ms=bms, bound_by=by, library_ms=None)
+                   bound_ms=bms, bound_by=by, library_ms=None, split=split)
+        if dtype == torch.bfloat16:
+            row["resources"] = linattn_resources("fwd", C, 0)
     emit(**row)
     what = f"wrap {B, n, C, dtype}" + (" balanced" if balanced else "")
     check(torch.isfinite(got).all().item(), f"{what} not finite")
@@ -1104,10 +1146,14 @@ def run_kernels_alt():
                        limit=limit, repeats_bitwise=repeats, attention_share=share)
             if not balanced:
                 bms, by = linattn_bound(B, n, C, x.element_size(), dtype)
+                split = {}
                 row.update(kernel_ms=time_ms(lambda: kernel(*args)),
-                           device_ms=device_ms(lambda: kernel(*args), "daclip::wrap::"),
+                           device_ms=device_ms(lambda: kernel(*args), "daclip::wrap::",
+                                               split=split),
                            plain_ms=time_ms(lambda: plain(*args)),
-                           bound_ms=bms, bound_by=by, library_ms=None)
+                           bound_ms=bms, bound_by=by, library_ms=None, split=split)
+                if dtype == torch.bfloat16:
+                    row["resources"] = linattn_resources("fwd", C, 0 if raw else 1)
             emit(**row)
             rows["fused_v4" if key == "fused_v4" else "wrap_fused"].append(row)
             what = f"{name} {B, n, C, dtype}" + (" raw x" if raw else "") + (
@@ -1144,14 +1190,18 @@ def run_kernels_alt():
         limit = LIMITS[("core", dtype)]
         esize = qkv.element_size()
         bms, by = bound_ms(B * n * (384 + 128) * esize, 2 * B * n * 8192, dtype)
+        split = {}
         row = dict(phase="kernels_alt", kernel="linear_attention", shape=[B, n, 384],
                    dtype=str(dtype).split(".")[-1], max_rel_err=err,
                    max_abs_err=float((got.float() - want).abs().max()), limit=limit,
                    repeats_bitwise=repeats,
                    kernel_ms=time_ms(lambda: la.linear_attention(qkv)),
-                   device_ms=device_ms(lambda: la.linear_attention(qkv), "daclip::wrap::"),
+                   device_ms=device_ms(lambda: la.linear_attention(qkv), "daclip::wrap::",
+                                       split=split),
                    plain_ms=time_ms(lambda: la.linear_attention_reference(qkv)),
-                   bound_ms=bms, bound_by=by, library_ms=None)
+                   bound_ms=bms, bound_by=by, library_ms=None, split=split)
+        if dtype == torch.bfloat16:
+            row["resources"] = linattn_resources("fwd", 384, 2)
         emit(**row)
         rows["core"].append(row)
         check(torch.isfinite(got).all().item(), f"core {B, n, dtype} not finite")
@@ -1212,10 +1262,14 @@ def run_kernels_alt():
                    limit=limit, repeats_bitwise=repeats, attention_share=share)
         if not balanced:
             bms, by = linattn_bound(B, n, C, args[0].element_size(), dtype)
+            split = {}
             row.update(kernel_ms=time_ms(lambda: la.linear_attention_fused(*args), iters=10),
+                       device_ms=device_ms(lambda: la.linear_attention_fused(*args),
+                                           "daclip::wrap::", split=split),
                        plain_ms=time_ms(lambda: la.fused_composition_reference(*args),
                                         iters=5, warmup=1),
-                       bound_ms=bms, bound_by=by, library_ms=None)
+                       bound_ms=bms, bound_by=by, library_ms=None, split=split,
+                       resources=linattn_resources("fwd", C, 1))
         emit(**row)
         rows["fused_v4"].append(row)
         what = f"linear_attention_fused {B, n, C, dtype}" + (" balanced" if balanced else "")
@@ -2077,15 +2131,25 @@ def wrap_bwd_check(B, n, C, dtype, gen, balanced, phase="kernels_bwd", path=None
     if not balanced:
         row.update(wgrad_yardstick(la, B, n, C, dtype, gen))
         esize = args[0].element_size()
+        # the forward as training calls it (keeping its statistics), timed
+        fms, fby = linattn_bound(B, n, C, esize, dtype)
+        keep = lambda: la._forward_kernel(*args, keep_stats=True)
+        fsplit = {}
+        fwd.update(ms=time_ms(keep, iters=10),
+                   device_ms=device_ms(keep, "daclip::wrap::", split=fsplit),
+                   bound_ms=fms, bound_by=fby, split=fsplit)
         nbytes = (3 * B * n * C + 2 * (C * 384 + 128 * C + 3 * C)) * esize
         bms, by = bound_ms(nbytes, 2 * B * n * (1536 * C + 20480), dtype)
+        split = {}
         row.update(kernel_ms=time_ms(lambda: la.attn_wrap_bwd(*args, dout, stats=stats),
                                      iters=10),
                    device_ms=device_ms(lambda: la.attn_wrap_bwd(*args, dout, stats=stats),
-                                       "daclip::wrap_bwd::", iters=5),
+                                       "daclip::wrap_bwd::", iters=5, split=split),
                    plain_ms=time_ms(lambda: la.attn_wrap_bwd_reference(*args, dout),
                                     iters=5, warmup=1),
-                   bound_ms=bms, bound_by=by, library_ms=None)
+                   bound_ms=bms, bound_by=by, library_ms=None, split=split)
+        if dtype == torch.bfloat16:
+            row["resources"] = linattn_resources("bwd", C)
     emit(**row)
     what = f"wrap bwd {B, n, C, dtype}" + (" balanced" if balanced else "")
     check(fwd["max_abs_err"] <= fwd["limit"], f"{what}: forward max err {fwd}")
@@ -5139,6 +5203,7 @@ def main():
                                            and re.search(r"(?<!\d)0 bytes spill loads", ln))]
     check(linattn, "the build log names no linear-attention kernel")
     check(not spills, f"linear-attention kernels spill: {spills}")
+    _LINATTN_PTXAS.update({ln.split(": ")[0]: ln for ln in linattn})
     check_flash_build(ptxas)
     run_native_io()
 

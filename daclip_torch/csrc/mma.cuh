@@ -1,39 +1,29 @@
-// Tensor-core building blocks for sm_90a, in inline PTX: the warp's bf16
-// mma.sync m16n8k16 product with f32 accumulators, ldmatrix (plain and
-// transposed), 16-byte cp.async with its commit/wait groups, the re-packing
-// of an accumulator into an A operand (FlashAttention-2's register reuse),
-// and the warpgroup's wgmma m64n64k16 with A in registers or in shared memory
-// and B in shared memory; for tiles that TMA writes in the swizzle of their
-// row width (64 or 128 bytes), their descriptors and wgmma m64n32k16 /
-// m64n64k16 with B K-major or MN-major (the transpose bit). Plain C
-// interface, no PyTorch headers.
+// Tensor-core building blocks for sm_90a, in inline PTX: ldmatrix, 16-byte
+// cp.async with its commit/wait groups (the 3×3 conv and the dual 1×1 stage
+// their tiles with them), the re-packing of an accumulator into an A operand
+// (FlashAttention-2's register reuse), and the warpgroup's wgmma m64n64k16
+// with A in registers or in shared memory and B in shared memory; for tiles
+// that TMA writes in the swizzle of their row width (64 or 128 bytes), their
+// descriptors and wgmma m64n32k16 / m64n64k16 with A and B K-major or
+// MN-major (the transpose bits). Plain C interface, no PyTorch headers.
 //
-// Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
-// mma.m16n8k16"), for lane l of the warp, g = l / 4 (the "group"), t = l % 4:
-//   A (16×16, row-major, bf16): four 32-bit registers, each two consecutive
+// Accumulator layout: wgmma m64nNk16 gives warp w of the warpgroup rows
+// 16w .. 16w + 15 of the 64, in the fragment layout of the warp's
+// mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for mma.m16n8k16"), one n8
+// tile at a time; for lane l, g = l / 4 (the "group"), t = l % 4:
+//   C/D (16×8, f32): four floats,
+//       c[0], c[1] = C[g][2t, 2t+1]       c[2], c[3] = C[g+8][2t, 2t+1]
+//   A (16×16, bf16, registers): four 32-bit registers, each two consecutive
 //     k of one row, the lower k in the lower half:
 //       a[0] = A[g][2t, 2t+1]     a[1] = A[g+8][2t, 2t+1]
 //       a[2] = A[g][2t+8, 2t+9]   a[3] = A[g+8][2t+8, 2t+9]
-//   B (16×8, "col": B[k][n] with k contiguous, i.e. Bᵀ row-major): two
-//     registers,  b[0] = B[2t, 2t+1][g]   b[1] = B[2t+8, 2t+9][g]
-//   C/D (16×8, f32): four floats,
-//       c[0], c[1] = C[g][2t, 2t+1]       c[2], c[3] = C[g+8][2t, 2t+1]
 // So the accumulators of two neighbouring n8 tiles (columns 0-7 and 8-15)
 // hold, lane for lane, the A operand of a k16 step over those 16 columns:
 // `pack_a` rounds them to bf16 and re-packs them without leaving registers.
 //
 // ldmatrix .x4: lanes 8i..8i+7 give the row addresses (16 bytes each, 16-byte
 // aligned) of 8×8 bf16 matrix i; lane l receives in r[i] the pair
-// M_i[g][2t, 2t+1], or with .trans the pair M_i[2t, 2t+1][g] (the matrix
-// transposed). Hence, for a tile stored row-major with row stride `ld`
-// (elements) in shared memory:
-//   - `ldsm_a`: A fragment of the 16×16 block at `p` (rows = M, cols = K);
-//   - `ldsm_b`: B fragments of two n8 tiles from a block stored [n][k]
-//     (k contiguous): 16 n-rows × 16 k at `p`, b01 for n 0-7, b23 for n 8-15;
-//   - `ldsm_bt`: B fragments of two n8 tiles from a block stored [k][n]
-//     (n contiguous): 16 k-rows × 16 n at `p`, through .trans.
-// Rows padded so that their stride is an odd multiple of 16 bytes modulo 128
-// make every ldmatrix free of bank conflicts.
+// M_i[g][2t, 2t+1].
 #pragma once
 
 #include <cstdint>
@@ -47,46 +37,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// D = A·B + D, bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// A fragment of the 16×16 bf16 block at p (row-major, row stride ld).
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const __nv_bfloat16* p, int ld) {
-  const int l = threadIdx.x & 31;
-  ldsm_x4(a, p + (l & 15) * ld + (l >> 4) * 8);
-}
-
-// B fragments of two n8 tiles from the block at p stored [n][k] (row stride
-// ld): r[0], r[1] for n 0-7, r[2], r[3] for n 8-15, k 0-15.
-__device__ __forceinline__ void ldsm_b(uint32_t (&r)[4], const __nv_bfloat16* p, int ld) {
-  const int l = threadIdx.x & 31;
-  ldsm_x4(r, p + ((l >> 4) * 8 + (l & 7)) * ld + ((l >> 3) & 1) * 8);
-}
-
-// B fragments of two n8 tiles from the block at p stored [k][n] (row stride
-// ld): r[0], r[1] for n 0-7, r[2], r[3] for n 8-15, k 0-15.
-__device__ __forceinline__ void ldsm_bt(uint32_t (&r)[4], const __nv_bfloat16* p, int ld) {
-  const int l = threadIdx.x & 31;
-  ldsm_x4_trans(r, p + ((l & 7) + ((l >> 3) & 1) * 8) * ld + (l >> 4) * 8);
 }
 
 // Two floats rounded to bf16 and packed, the first in the lower half.
@@ -235,11 +189,12 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw(uint32_t addr) {
          ((uint64_t)((8 * RB) >> 4) << 32) | (layout << 62);
 }
 
-// D (64 × 64, f32) = A (64 × 16, shared memory, K-major, `da`) · B (16 × 64,
-// shared memory, `db`; TB 0: K-major, 1: MN-major) + D, or without the + D
-// when `accumulate` is 0; d[j] is n8 tile j of this warp's 16 rows as an
-// mma.sync C fragment.
-template <int TB>
+// D (64 × 64, f32) = A (64 × 16, shared memory, `da`; TA 0: K-major, 1:
+// MN-major, the operand of a product that contracts over a tile's rows) ·
+// B (16 × 64, shared memory, `db`; TB 0: K-major, 1: MN-major) + D, or
+// without the + D when `accumulate` is 0; d[j] is n8 tile j of this warp's
+// 16 rows as an mma.sync C fragment.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t da, uint64_t db,
                                            int accumulate) {
   asm volatile(
@@ -249,7 +204,7 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t da, uint64
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -258,15 +213,15 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t da, uint64
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 
-// D (64 × N, f32) += A (64 × 16, registers: this warp's 16 rows as an
-// mma.sync A fragment) · B (16 × N, shared memory, `db`; TB as above), N = 32
-// or 64; d as above.
+// D (64 × N, f32) = A (64 × 16, registers: this warp's 16 rows as an
+// mma.sync A fragment) · B (16 × N, shared memory, `db`; TB as above) + D, or
+// without the + D when `accumulate` is 0; N = 32 or 64; d as above.
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint64_t db, int accumulate = 1) {
   static_assert(N == 32 || N == 64, "wgmma_rs: N = 32 or 64");
   if constexpr (N == 64) {
     asm volatile(
@@ -285,7 +240,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
           "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(accumulate));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
@@ -297,7 +252,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
           "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(accumulate));
   }
 }
 

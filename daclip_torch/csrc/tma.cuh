@@ -6,7 +6,8 @@
 // bytes) and one "empty" barrier (the consumers' releases) a stage.
 //
 // Host side: `encode_rows` builds the tensor map of one head's (N, D)
-// slices of a packed (B, N, H·D) bf16 tensor. cuTensorMapEncodeTiled is a
+// slices of a packed (B, N, H·D) bf16 tensor; `encode_boxes` that of 64 × 64
+// boxes of a (B, rows, cols) bf16 tensor (row tiles, weights, spills). cuTensorMapEncodeTiled is a
 // driver function; it is reached through cudaGetDriverEntryPoint, so the
 // library links against the runtime alone (no -lcuda). Plain C interface,
 // no PyTorch headers.
@@ -82,6 +83,12 @@ __device__ __forceinline__ void load_3d(uint32_t dst, const CUtensorMap* map, in
       : "memory");
 }
 
+// Fetch a tensor map (a __grid_constant__ kernel parameter) into the TMA
+// unit's cache ahead of its first load.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // -- registers ---------------------------------------------------------------------
 // Lower this warp's register count to R (the whole warpgroup, or a lone warp
 // in its own warpgroup, executes it).
@@ -131,6 +138,25 @@ inline cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int B, int N, 
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a (B, rows, cols) bf16 tensor (a matrix: B = 1) as (cols, rows,
+// B) with boxes of (64, 64, 1) in the 128-byte swizzle: the box at (c0, r0,
+// b) is rows [r0, r0 + 64) × columns [c0, c0 + 64) of batch element b, 128
+// bytes a row, zeros past `rows` or `cols` (the next batch element is another
+// coordinate, never read in its place). cols must be a multiple of 8.
+inline cudaError_t encode_boxes(CUtensorMap* map, const void* ptr, long B, long rows, long cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -35,8 +35,9 @@ SIGNATURES = {
     # part_m, part_s, part_ctx, w_attn, ctx|null, s|null, m|null, B, n_parts, n,
     # is_bf16, stream
     "daclip_wrap_combine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, g_pre, w_qkv, w_attn, w_out, b_out, g_out, out, B, n, C, is_bf16, stream
-    "daclip_wrap_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, g_pre, w_qkv, w_attn, w_out, b_out, g_out, out, B, n, C, tiles, is_bf16,
+    # stream
+    "daclip_wrap_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, dout, g_pre, w_qkv, w_attn, w_out, b_out, g_out, dy_spill, attn_spill,
     # part_dw, part_dgout, part_dbout, B, n, C, rows, is_bf16, stream
     "daclip_wrap_bwd1": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
@@ -48,10 +49,10 @@ SIGNATURES = {
     # a, b, part, R, K1, K2, rows_per_split, splits, is_bf16, stream
     "daclip_wrap_wgrad": [_P, _P, _P, _L, _I, _I, _L, _I, _I, _P],
     # xn, w_qkv, w_out, b_out, g_out, part_m, part_s, part_ctx, w_attn, out,
-    # B, n, C, rows, is_bf16, stream
-    "daclip_linattn_fused_v4": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
-    # qkv, part_m, part_s, part_ctx, w_attn, out, B, n, rows, is_bf16, stream
-    "daclip_linattn_core": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # B, n, C, rows, tiles, is_bf16, stream
+    "daclip_linattn_fused_v4": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _P],
+    # qkv, part_m, part_s, part_ctx, w_attn, out, B, n, rows, tiles, is_bf16, stream
+    "daclip_linattn_core": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
     # x, skip|null, w, y, R, Kx, Ks, O, is_bf16, stream
     "daclip_dual_conv1x1": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # x, w, y, B, H, W, C, O, is_bf16, stream
@@ -60,6 +61,10 @@ SIGNATURES = {
     "daclip_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, dout, lse, dsum, dq, dk, dv, B, N, H, D, scale, is_bf16, stream
     "daclip_flash_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P],
+    # the bf16 linear-attention kernels' dynamic shared memory: (0 stats | 1
+    # apply), C, form; (0 pass 1 | 1 pass 2 | 2 dW_qkv | 3 dW_out), C
+    "daclip_wrap_smem": [_I, _I, _I],
+    "daclip_wrap_bwd_smem": [_I, _I],
     # the bf16 flash kernels' dynamic shared memory: D; (0 dq | 1 dkv), D
     "daclip_flash_fwd_smem": [_I],
     "daclip_flash_bwd_smem": [_I, _I],

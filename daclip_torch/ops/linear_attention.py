@@ -11,7 +11,12 @@ launches) or raises; on a CPU tensor each runs its plain version:
 (`_attn_wrap_composition_reference`, :1070), and `attn_wrap_bwd_reference`,
 the hand-derived VJP `_wrap_v5_bwd_manual` (:616-687). `attn_wrap` is
 differentiable on both devices through `_AttnWrapFn`, whose forward on the
-card also keeps the combined (ctx, s, m) that the backward kernel needs.
+card also keeps the combined (ctx, s, m) that the backward kernel needs. The
+bf16 kernels run on Hopper's wgmma with their row tiles and weights brought
+by TMA (`csrc/linattn_tiles.cuh`); their static schedules are chosen here:
+`_rows_per_part` (stats, pass 1, pass 2: one CTA a run of rows of one batch
+element), `_tiles_per_cta` (apply: one CTA a run of the B·⌈n/64⌉ tiles) and
+`_wgrad_split` (the weight gradients: one f32 partial a run of rows).
 
 The UNet's other wirings of the same math (`ConditionalUNet(linear_attention=
 "v4" | "v3")`) and the attention core have their own entry points, each a
@@ -46,7 +51,7 @@ HEADS = 4
 DIM_HEAD = 32
 HID = HEADS * DIM_HEAD
 _TILE = 64          # rows per tile in the kernel
-_TARGET_CTAS = 264  # two waves of stats CTAs on 132 SMs
+_TARGET_CTAS = 264  # two CTAs on each of the H100's 132 SMs
 
 
 def _channel_ln(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -162,11 +167,36 @@ def attn_wrap_bwd_reference(x, g_pre, w_qkv, w_out, b_out, g_out, dout):
             dw_out.to(w_out.dtype), db_out.to(b_out.dtype), dg_out.to(g_out.dtype))
 
 
-def _rows_per_part(B: int, n: int) -> int:
-    """Rows each stats CTA walks: a multiple of the tile, sized so B·parts
-    is about two waves."""
-    parts = max(1, _TARGET_CTAS // B)
+def _rows_per_part(B: int, n: int, ctas: int = _TARGET_CTAS) -> int:
+    """Rows each stats, pass 1 and pass 2 CTA walks (grid (⌈n/rows⌉, B)): a
+    multiple of the tile, sized so that B·parts is about `ctas`."""
+    parts = max(1, ctas // B)
     return _TILE * max(1, math.ceil(math.ceil(n / parts) / _TILE))
+
+
+def _forward_ctas(C: int) -> int:
+    """CTAs of a bf16 stats or apply launch: three an SM where both kernels
+    fit three (C ≤ 64, or qkv in: C = 384), else two."""
+    return _TARGET_CTAS * 3 // 2 if C <= 64 or C == 3 * HID else _TARGET_CTAS
+
+
+def _tiles_per_cta(B: int, n: int, C: int) -> int:
+    """Consecutive tiles of the B·⌈n/64⌉ (batch element, tile) pairs each
+    bf16 apply CTA walks, so that about `_forward_ctas(C)` CTAs cover them."""
+    return max(1, math.ceil(B * math.ceil(n / _TILE) / _forward_ctas(C)))
+
+
+def _wgrad_split(R: int, K1: int, K2: int):
+    """(rows per split, splits) of a weight-gradient launch over R rows: a
+    multiple of the tile, so that splits × its output tiles is about one CTA
+    an SM for its 64 × 384 tiles (dW_qkv at C ≤ 64: one CTA fills an SM's
+    shared memory), else two for its 64 × 128 ones."""
+    wide = K1 <= 64 and K2 > 128
+    tiles = math.ceil(K1 / 64) * math.ceil(K2 / (384 if wide else 128))
+    ctas = _TARGET_CTAS // 2 if wide else _TARGET_CTAS
+    splits = max(1, min(math.ceil(R / 256), max(1, ctas // tiles)))
+    per = _TILE * math.ceil(math.ceil(R / splits) / _TILE)
+    return per, math.ceil(R / per)
 
 
 def _check(x, g_pre, w_qkv, w_out, b_out, g_out, name="attn_wrap"):
@@ -198,7 +228,7 @@ def _check(x, g_pre, w_qkv, w_out, b_out, g_out, name="attn_wrap"):
 def _scratch(x, B, n):
     """(rows per stats CTA, [part_m, part_s, part_ctx, w_attn]): the forward
     kernel's f32 scratch for B batch elements of n rows on x's device."""
-    rows = _rows_per_part(B, n)
+    rows = _rows_per_part(B, n, _forward_ctas(x.shape[-1]))
     parts = math.ceil(n / rows)
     f32 = dict(dtype=torch.float32, device=x.device)
     return rows, [torch.empty((B, parts, HID), **f32), torch.empty((B, parts, HID), **f32),
@@ -242,7 +272,7 @@ def _forward_kernel(x, g_pre, w_qkv, w_out, b_out, g_out, keep_stats: bool, wrap
         _build.check(lib.daclip_wrap_apply(
             x.data_ptr(), g_pre.data_ptr(), w_qkv.data_ptr(), w_attn.data_ptr(),
             w_out.data_ptr(), b_out.data_ptr(), g_out.data_ptr(), out.data_ptr(),
-            B, n, C, bf16, stream), "daclip_wrap_apply")
+            B, n, C, _tiles_per_cta(B, n, C), bf16, stream), "daclip_wrap_apply")
     wrapper.launches += 1
     return out, stats
 
@@ -252,10 +282,7 @@ def _wgrad(lib, a, b, stream):
     one partial per split of the rows, summed here."""
     K1, K2 = a.shape[-1], b.shape[-1]
     R = a.numel() // K1
-    tiles = math.ceil(K1 / 64) * math.ceil(K2 / 64)
-    splits = max(1, min(math.ceil(R / 256), _TARGET_CTAS // tiles))
-    per = 32 * math.ceil(math.ceil(R / splits) / 32)
-    splits = math.ceil(R / per)
+    per, splits = _wgrad_split(R, K1, K2)
     part = torch.empty((splits, K1, K2), dtype=torch.float32, device=a.device)
     _build.check(lib.daclip_wrap_wgrad(
         a.data_ptr(), b.data_ptr(), part.data_ptr(), R, K1, K2, per, splits,
@@ -397,7 +424,8 @@ def _fused_v4_kernel(xn, w_qkv, w_out, b_out, g_out, wrapper=None):
     with torch.cuda.device(xn.device):
         _build.check(lib.daclip_linattn_fused_v4(
             *_ptrs(xn, w_qkv, w_out, b_out, g_out, *scratch, out), B, n, C, rows,
-            int(xn.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream),
+            _tiles_per_cta(B, n, C), int(xn.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream),
             "daclip_linattn_fused_v4")
     wrapper.launches += 1
     return out
@@ -465,8 +493,9 @@ def linear_attention(qkv):
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         _build.check(lib.daclip_linattn_core(
-            *_ptrs(qkv, *scratch, out), B, n, rows, int(qkv.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream), "daclip_linattn_core")
+            *_ptrs(qkv, *scratch, out), B, n, rows, _tiles_per_cta(B, n, 3 * HID),
+            int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream),
+            "daclip_linattn_core")
     linear_attention.launches += 1
     return out
 

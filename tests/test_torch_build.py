@@ -31,11 +31,14 @@ def test_every_quoted_include_is_a_hashed_source():
     # from mma.cuh
     assert ("flash_tiles.cuh", "tma.cuh") in found
     assert ("flash_tiles.cuh", "mma.cuh") in found
-    # both linear-attention kernels take their tensor-core tiles from
-    # linattn_tiles.cuh, which takes its PTX from mma.cuh
+    # both linear-attention kernels take their Hopper tiles from
+    # linattn_tiles.cuh, which takes wgmma from mma.cuh and TMA and mbarriers
+    # from tma.cuh
     for src in ("linear_attention.cu", "linear_attention_bwd.cu"):
         assert (src, "linattn_tiles.cuh") in found, src
+        assert (src, "tma.cuh") in found, src
     assert ("linattn_tiles.cuh", "mma.cuh") in found
+    assert ("linattn_tiles.cuh", "tma.cuh") in found
     for src, name in found:
         assert name in hashed, f"{src} includes {name}, which _build._sources() does not hash"
 
@@ -82,8 +85,9 @@ def test_every_launcher_matches_its_ctypes_signature(src):
     # the two linear-attention files export exactly these launchers
     want = {"linear_attention.cu": {"daclip_wrap_stats", "daclip_wrap_combine",
                                     "daclip_wrap_apply", "daclip_linattn_fused_v4",
-                                    "daclip_linattn_core"},
+                                    "daclip_linattn_core", "daclip_wrap_smem"},
             "linear_attention_bwd.cu": {"daclip_wrap_bwd1", "daclip_wrap_bwd_mid",
-                                        "daclip_wrap_bwd2", "daclip_wrap_wgrad"}}
+                                        "daclip_wrap_bwd2", "daclip_wrap_wgrad",
+                                        "daclip_wrap_bwd_smem"}}
     if src in want:
         assert set(found) == want[src]
