@@ -6,8 +6,9 @@ Phases, each printing JSON lines:
   0 device   the card (nvidia-smi name and power limit), torch and CUDA versions,
              and whether matplotlib, sklearn and scipy import (their versions)
   1 build    nvcc builds daclip_torch/csrc/*.cu (one process per source); no
-             instantiation of the linear-attention kernels may spill, nor a
-             bf16 flash kernel at dim_head 32
+             instantiation of the linear-attention kernels, the bf16 dual 1×1
+             or the bf16 3×3 conv may spill, nor a bf16 flash kernel at
+             dim_head 32
  1b native_io  the host's image decoder (daclip_torch/native/dio.cc, built
              here with g++ on zlib): PNG (every row filter, 1/2/4/8-bit gray,
              palette, RGB, Adam7) and baseline JPEG (cv2 and PIL files at
@@ -368,14 +369,20 @@ LIMITS = {("wrap", torch.bfloat16): 0.1, ("wrap", torch.float32): 1e-3,
 # f32 case; then the bf16 kernel's tile edges: Kx, Ks and O not multiples of 8
 # (element copies), a row past 65 tiles with O = 200 (a ragged last panel) and
 # a ragged last K slice, 16 K slices (four turns of the ring), one row past a
-# tile with an odd O, and K past the 16 slices its 64 × 64 tiles hold resident
-# (the 256 × 128 tiles at a narrow O, a ragged last K slice)
+# tile with an odd O, and K past the 16 slices a CTA of its 64 × 64 tiles holds
+# resident (split over a cluster of eight, a ragged last K slice); then the
+# 256 × 128 tiles with streamed weights at their edges: rows past a multiple
+# of 256, K slices of x and of skip ragged, O = 264 (a last column block of
+# one 8-wide panel and one wholly past O), and K past 128 slices (more than
+# eight splits hold resident) with Kx and Ks not multiples of 8 (the rows
+# and weights element by element; the single form's K = 8200 by TMA)
 DUAL_SHAPES = [(1024, 512, 256, 512, torch.bfloat16), (4096, 256, 128, 256, torch.bfloat16),
                (16384, 128, 64, 128, torch.bfloat16), (65536, 64, 64, 64, torch.bfloat16),
                (3001, 96, 40, 72, torch.bfloat16), (4096, 64, 64, 64, torch.float32),
                (1000, 36, 20, 50, torch.bfloat16), (4161, 64, 40, 200, torch.bfloat16),
                (2048, 512, 512, 96, torch.bfloat16), (65, 24, 16, 33, torch.bfloat16),
-               (257, 640, 520, 40, torch.bfloat16)]
+               (257, 640, 520, 40, torch.bfloat16), (16461, 200, 72, 264, torch.bfloat16),
+               (300, 4100, 4100, 40, torch.bfloat16)]
 # the (v4, pointwise) training step's shapes (B=16, 256²): linear_attention_fused
 # at the five (B, n, C) of the six sites, dual_conv1x1's single form at 16× the
 # rows of the four res_conv shapes
@@ -443,6 +450,16 @@ EXP_PER_S = 3.9e12
 FLASH_KERNELS = tuple(f"{ns}::tc::{k}_wgmma_kernel<{d}>" for d in (32, 64)
                       for ns, k in (("flash", "fwd"), ("flash_bwd", "dq"), ("flash_bwd", "dkv")))
 _FLASH_PTXAS = {}  # the build's ptxas lines of those kernels, for the flash rows
+# the bf16 dual 1×1 and 3×3 conv kernels by their ptxas_summary names, by
+# (tile shape index of the plan, element path: four producer warps)
+DUAL_KERNELS = {(0, False): "pointwise::tc::dual_tma_kernel<1,1,true,1>",
+                (0, True): "pointwise::tc::dual_tma_kernel<1,1,true,4>",
+                (1, False): "pointwise::tc::dual_tma_kernel<4,2,false,1>"}
+CONV_KERNELS = {(0, False): "conv3x3::tc::conv_tma_kernel<4,1,3>",
+                (0, True): "conv3x3::tc::conv_tma_kernel<4,4,3>",
+                (1, False): "conv3x3::tc::conv_tma_kernel<2,1,9>",
+                (1, True): "conv3x3::tc::conv_tma_kernel<2,4,9>"}
+_PW_CONV_PTXAS = {}  # the build's ptxas lines of those kernels, for their rows
 # the forward's log-sum-exp against torch.logsumexp of the f32 logits (read:
 # 1.4e-6 in bf16, from f32 sums of exponentials on the SFU)
 LSE_LIMIT = 1e-4
@@ -594,6 +611,58 @@ def check_flash_build(ptxas):
               if k.endswith("<32>") and not (re.search(r"(?<!\d)0 bytes spill stores", ln)
                                       and re.search(r"(?<!\d)0 bytes spill loads", ln))]
     check(not spills, f"bf16 flash kernels at dim_head 32 spill: {spills}")
+
+
+def check_pointwise_conv_build(ptxas):
+    """Keep the build's lines of the bf16 dual 1×1 and 3×3 conv kernels for
+    their rows; fail if one is missing or spills."""
+    names = set(DUAL_KERNELS.values()) | set(CONV_KERNELS.values())
+    _PW_CONV_PTXAS.update({ln.split(": ")[0]: ln for ln in ptxas if ln.split(": ")[0] in names})
+    check(set(_PW_CONV_PTXAS) == names,
+          f"the build log names {sorted(_PW_CONV_PTXAS)} of the kernels {sorted(names)}")
+    spills = [ln for ln in _PW_CONV_PTXAS.values()
+              if not (re.search(r"(?<!\d)0 bytes spill stores", ln)
+                      and re.search(r"(?<!\d)0 bytes spill loads", ln))]
+    check(not spills, f"bf16 dual 1×1 or 3×3 conv kernels spill: {spills}")
+
+
+def dual_resources(R, Kx, Ks, O):
+    """The bf16 dual 1×1's schedule at (R, Kx, Ks, O) (ops/pointwise.py
+    `_dual_plan`), the ptxas line of the kernel it launches and its dynamic
+    shared memory bytes (the launcher's own count, held to the plan's)."""
+    from daclip_torch.ops import _build
+    from daclip_torch.ops import pointwise as pw
+
+    plan = pw._dual_plan(R, Kx, Ks, O, _build.sms("cuda"))
+    elem = plan.cfg == 0 and (Kx % 8 != 0 or Ks % 8 != 0 or O % 8 != 0)
+    slices = -(-Kx // 64) + -(-Ks // 64)
+    res = -(-slices // plan.splits) if plan.cfg == 0 else 0  # the largest split's, resident
+    smem = _build.library().daclip_dual_smem(plan.cfg, plan.stages, res)
+    check(smem == plan.smem, f"dual_conv1x1 {R, Kx, Ks, O}: the launcher's {smem} bytes of "
+          f"shared memory against the plan's {plan.smem}")
+    name = DUAL_KERNELS[(plan.cfg, elem)]
+    return {"plan": plan._asdict(), "ptxas": [_PW_CONV_PTXAS.get(name, f"{name}: not in the "
+                                                                 "build log")],
+            "smem_bytes": [smem]}
+
+
+def conv_resources(B, H, W, C, O):
+    """The bf16 3×3 conv's schedule at (B, H, W, C, O) (ops/conv3x3.py
+    `_conv_plan`), the ptxas line of the kernel it launches and its dynamic
+    shared memory bytes (the launcher's own count, held to the plan's)."""
+    import importlib
+
+    from daclip_torch.ops import _build
+
+    cv = importlib.import_module("daclip_torch.ops.conv3x3")
+    plan = cv._conv_plan(B, H, W, C, O, _build.sms("cuda"))
+    smem = _build.library().daclip_conv_smem(plan.cfg, plan.stages)
+    check(smem == plan.smem, f"conv3x3 {B, H, W, C, O}: the launcher's {smem} bytes of shared "
+          f"memory against the plan's {plan.smem}")
+    name = CONV_KERNELS[(plan.cfg, C % 8 != 0 or O % 8 != 0)]
+    return {"plan": plan._asdict(), "ptxas": [_PW_CONV_PTXAS.get(name, f"{name}: not in the "
+                                                                 "build log")],
+            "smem_bytes": [smem]}
 
 
 def flash_resources(kind, D):
@@ -1232,6 +1301,9 @@ def run_kernels_alt():
                        plain_ms=time_ms(lambda: pw.dual_conv1x1_reference(*args)),
                        bound_ms=bms, bound_by=by, library_ms=lib and time_ms(lib),
                        library_device_ms=lib and device_ms(lib, ""))
+            if dtype == torch.bfloat16:
+                row["resources"] = (dual_resources(R, cx, cs, O) if form == "dual"
+                                    else dual_resources(R, cx + cs, 0, O))
             emit(**row)
             rows["dual"].append(row)
             check(torch.isfinite(got).all().item(), f"dual_conv1x1 {form} {R, cx, cs, O} "
@@ -1304,7 +1376,8 @@ def run_kernels_alt():
                    plain_ms=time_ms(lambda: pw.dual_conv1x1_reference(x, None, w), iters=10),
                    bound_ms=bms, bound_by=by,
                    library_ms=time_ms(lambda: torch.matmul(x, w), iters=10),
-                   library_device_ms=device_ms(lambda: torch.matmul(x, w), ""))
+                   library_device_ms=device_ms(lambda: torch.matmul(x, w), ""),
+                   resources=dual_resources(R, K, 0, O))
         emit(**row)
         rows["dual"].append(row)
         check(torch.isfinite(got).all().item(), f"dual_conv1x1 single {R, K, O} not finite")
@@ -1354,6 +1427,8 @@ def run_kernels_conv():
                    plain_ms=time_ms(lambda: conv3x3_reference(x, w), iters=iters),
                    bound_ms=bms, bound_by=by, library_ms=time_ms(lib, iters=iters),
                    library_device_ms=device_ms(lib, ""), library_max_rel_err=lib_err)
+        if dtype == torch.bfloat16:
+            row["resources"] = conv_resources(B, H, W, C, O)
         emit(**row)
         rows.append(row)
         check(torch.isfinite(got).all().item(), f"conv3x3 {B, H, W, C, O} not finite")
@@ -5205,6 +5280,7 @@ def main():
     check(not spills, f"linear-attention kernels spill: {spills}")
     _LINATTN_PTXAS.update({ln.split(": ")[0]: ln for ln in linattn})
     check_flash_build(ptxas)
+    check_pointwise_conv_build(ptxas)
     run_native_io()
 
     rows = run_kernels()

@@ -7,6 +7,27 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+// Per-phase stamps of the CTA at blockIdx (0, 0, 0), only in a build with
+// -DDACLIP_STAMPS (scripts/torch_pointwise_conv_hopper.py --stamps builds such
+// a copy of the kernels): DACLIP_STAMP(cond, i) records clock64() and
+// %globaltimer (ns) as stamp i where the thread for which cond holds passes.
+// Without the flag it expands to nothing, its condition included, so the
+// kernels compile as if it were not there.
+#ifdef DACLIP_STAMPS
+static __device__ long long daclip_stamps[2][32];
+#define DACLIP_STAMP(cond, i)                                                    \
+  do {                                                                           \
+    if ((cond) && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {       \
+      long long ns_;                                                             \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns_));                    \
+      daclip_stamps[0][i] = clock64();                                           \
+      daclip_stamps[1][i] = ns_;                                                 \
+    }                                                                            \
+  } while (0)
+#else
+#define DACLIP_STAMP(cond, i)
+#endif
+
 namespace daclip {
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -8,39 +8,69 @@
 // What bounds it on an H100: at the UNet's level-0 site (1, 256², 64 → 64,
 // bf16) it computes 2·65536·9·64·64 = 4.83 GFLOP, ≈4.9 µs on the bf16 tensor
 // cores (989 TFLOP/s), and must move x, y and w once, 16.8 MB, ≈5.0 µs at
-// 3.35 TB/s: balanced. So a kernel near its bound reads each input pixel once
-// from device memory and keeps the products on the tensor cores.
+// 3.35 TB/s: balanced. At the 64² and 32² sites the grid is a few dozen
+// tiles, and each tile's chain of channel slices is the time.
 //
 // Design: an implicit GEMM. M is the output pixels, N is O, K is 9·C walked
-// as channel slices with the nine taps inside each slice. For each slice a
-// CTA stages its tile's halo strip, (rows + 2) × (cols + 2) pixels, in shared
-// memory once and reads all nine taps from it: the TPU kernel's overlapping
-// row strip, which cuts global reads about 9× against a gather per tap. The
-// image border and channels past C are zero-filled by predication (no padded
-// copy in device memory), and so are the weights past C and O.
+// as channel slices of 32 with the nine taps inside each slice. For each
+// slice a CTA's tile of TM pixels (rows of 64, 32 or 16) takes its halo
+// strip, (rows + 2) × (cols + 2) pixels, once and reads all nine taps from
+// it: the TPU kernel's overlapping row strip, which cuts global reads about
+// 9× against a gather per tap.
 //
-// bf16 (`conv_wgmma_kernel`): CTA tiles of TM output pixels (rows of 64, or
-// of 32 when W ≤ 32) × 64 outputs, one warpgroup per 64 pixels, products on
-// wgmma m64n64k16 with f32 accumulators in registers. A 16-pixel run never
-// crosses a tile row, so tap (dy, dx) of a warp's 16 pixels is 16 consecutive
-// strip pixels: the A operand is one ldmatrix straight out of the strip
-// (pixel stride padded to BK + 8 channels, so the ldmatrix is free of bank
-// conflicts); the B operand, the tap's (16 × 64) weight slice, is read by the
-// tensor cores from shared memory in the 128-byte swizzle. Slices of 32
-// channels (the strip and the nine weight slices) stream through a cp.async
-// ring, one barrier a slice. A CTA is persistent: one wave of CTAs walks the
-// pixel tiles, its (tile, slice) steps one ring, so the next tile's first
-// slices load while this tile's last ones multiply, and each tile's
-// accumulators go from registers to y, rounded once. Where a wave holds
-// fewer than half the card's CTA slots, the K slices are instead split over
-// a thread block cluster of 2, 4 or 8 CTAs a tile, whose f32 partials are
+// bf16 (`conv_tma_kernel`): a CTA is TM / 64 consumer warpgroups and PW
+// producer warps. One producer thread loads each slice's strip as one TMA
+// box of a 4-D tensor map over x, (C, W, H, B), box (32, cols + 2, rows + 2,
+// 1) at (c0, w0 − 1, h0 − 1, b): the out-of-bounds fill gives the SAME
+// padding and the channels past C as zeros, with no predication. The box
+// lands in the 64-byte swizzle, and the consumers' ldmatrix addresses XOR
+// the same bits, so the nine shifted reads stay free of bank conflicts. The
+// slice's nine (32 × 64) weight blocks come as one more box, (64, 32, 9)
+// of a map over w as (O, C, 9), in the 128-byte swizzle that wgmma reads.
+// Strip and weights fill a ring of stages with a full and an empty mbarrier
+// each. A warp's 16 pixels never cross a tile row, so tap (dy, dx) of them
+// is 16 consecutive strip pixels: the A operand is one ldmatrix; the
+// products run on wgmma m64n64k16 with A in registers, B in shared memory
+// and f32 accumulators in registers, in groups of a tap row (Large) or all
+// nine taps (Small), two groups kept in flight in the source (a slice's
+// second k16 step, where it lies wholly past C, is skipped). ptxas
+// serializes them all the same (advisory C7513: ldmatrix defines the next
+// group's A registers while a group is in flight), so each group waits for
+// the last; the CTA's other warpgroups and the ring's copies fill that
+// wait. Without a split the CTAs are persistent: one wave walks the pixel
+// tiles, each tile's slices one ring of steps, so the next tile's copies
+// run under this tile's products and stores. With a split, each tile's
+// slices are divided over a cluster of two CTAs whose f32 partials are
 // summed through distributed shared memory in rank order and rounded once.
-// Two tile shapes, picked by the launcher from the grid (chosen by sweeps
-// on the H100): Large, 256 pixels (4 warpgroups, 2 stages, 138,240 B of
-// dynamic shared memory, 120 registers a thread), and Small, 128 pixels (2
-// warpgroups, 3 stages, 176,128 B, 160 registers) for small grids; no spill
-// (ptxas -v, sm_90a). No atomics: every output is summed in one fixed order,
-// so the result repeats bit for bit.
+// The schedule (tile shape, row length, split, grid) is chosen in Python,
+// `_conv_plan` in daclip_torch/ops/conv3x3.py, from sweeps on the H100
+// (scripts/torch_pointwise_conv_hopper.py --sweep): rows of 16 at W = 65 and
+// 33 waste the fewest pixels; clusters of four or eight, and clusters past
+// one wave, ran slower (the card holds 66 clusters of two of these CTAs at
+// once, but only 30 of four and 15 of eight: 120 CTAs). A launch carries a
+// cluster dimension even unsplit (1 × 1 × 1), as the dual 1×1's must. The
+// strip multicast by TMA to the CTAs of a cluster that share a pixel tile
+// across output tiles was built and timed: 1.15-1.24× slower where its clusters
+// of two fit one wave (each stage then waits for both CTAs' consumers), and
+// 1.16-2.2× at the split 64² and 32² sites, whose clusters of four take two
+// waves; not kept. A variant that fed A by descriptor
+// from three copies of the strip shifted by a column (no ldmatrix, so no
+// C7513) ran 3-12% faster at C ≤ 64 and up to 40% slower elsewhere (it
+// moves 2-3× the strip's bytes and holds two stages): not kept. Where TMA
+// cannot take x or w (C or O not a multiple of 8, a base not 16-byte
+// aligned: the UNet's final conv, 64 → 3), the producer warps write that
+// operand element by element, a 16-byte chunk at a time, in the same
+// layout, after the producer has issued the step's TMA copies (the stage's
+// full barrier then takes two arrivals). No atomics: every output is
+// summed in one fixed order, so the result repeats bit for bit.
+//
+// Device ms on an "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md;
+// scripts/torch_pointwise_conv_hopper.py): the 44 sites of one 256²
+// serving forward 0.8177 (the cp.async-ring kernel before it 1.0504, cuDNN
+// 0.7803, bound 0.2116); against cuDNN 0.67-0.96× at the 256² sites, 0.87-0.95× at 128²,
+// 1.19-1.30× at 64² and 1.21-1.44× at 32², where a few dozen CTAs each walk
+// a chain of serialized product groups. Registers a thread: Large 96, Small
+// 120; dynamic shared memory 188,544 and 218,240 B; no spill (ptxas -v).
 //
 // f32 (`conv_kernel_f32`): CTA tiles of 64 pixels × 64 outputs, 32-channel
 // slices, scalar FMA, 4×4 outputs a thread, in full f32 like the plain
@@ -48,11 +78,13 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -62,11 +94,12 @@ namespace conv3x3 {
 constexpr size_t round_up(size_t n, size_t a) { return (n + a - 1) / a * a; }
 constexpr size_t round128(size_t n) { return round_up(n, 128); }
 
+// A launch's pixel tiles (the bf16 kernel's geometry extends it).
 struct Geom {
   int B, H, W, C, O;
   int tr, tc;              // the tile's rows and columns
   int tiles_h, tiles_w;    // tiles along H and W
-  bool vec_x, vec_w, vec_y;  // 16-byte loads/stores are legal on x, w, y
+  bool vec_x, vec_w, vec_y;  // f32: 16-byte loads/stores legal on x, w, y; bf16 y: 4-byte
 };
 
 // The CTA's tile: batch b, first output row h0 and column w0.
@@ -83,176 +116,250 @@ __device__ __forceinline__ Tile tile_at(const Geom& g, int i) {
 
 __device__ __forceinline__ Tile tile_of(const Geom& g) { return tile_at(g, blockIdx.x); }
 
-// -- bf16: tensor cores ---------------------------------------------------------
+// -- bf16: wgmma fed by TMA ---------------------------------------------------------
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int BN = 64;  // outputs of a tile: one swizzled 128-byte weight row
+constexpr int BN = 64;                  // outputs of a tile: one 128-byte weight row
+constexpr int BK = 32;                  // channels of a slice
+constexpr int RB = 2 * BK;              // bytes of a strip pixel: its swizzle is 64-byte
+constexpr int WBYTES = 9 * BK * BN * 2;  // a slice's nine (BK × 64) weight blocks: 36 KB
+constexpr int MAX_STAGES = 8;
+constexpr int BAR_BYTES = 16 * MAX_STAGES;  // the ring's full and empty barriers
 
-// A tile shape: TM pixels (TM / 64 warpgroups), slices of BK channels,
-// STAGES slices in flight.
-template <int TM_, int BK_, int STAGES_>
-struct Cfg {
-  static constexpr int TM = TM_, BK = BK_, STAGES = STAGES_;
-  static constexpr int THREADS = 2 * TM;  // a warp per 16 pixels
-  static constexpr int LDS = BK + 8;      // strip pixel stride, elements (48 or 80 B)
-  static constexpr int LDF = BN + 4;      // f32 partial tile row stride
-  // the larger halo of the two tile shapes: rows of 64, or of 32
-  static constexpr int STRIP_PIX = (TM / 64 + 2) * 66 > (TM / 32 + 2) * 34
-                                       ? (TM / 64 + 2) * 66 : (TM / 32 + 2) * 34;
-  static constexpr int SCH = BK / 8, WCH = BN / 8;  // 16-byte chunks of a pixel, a weight row
-  static constexpr int SITER = (STRIP_PIX * SCH + THREADS - 1) / THREADS;
-  static constexpr int WITER = (9 * BK * WCH + THREADS - 1) / THREADS;
-  // every region 1024-byte aligned, as the 128-byte swizzle's atoms must be
-  static constexpr size_t STRIP = round_up(STRIP_PIX * LDS * 2, 1024);
-  static constexpr size_t STAGE = STRIP + round_up(9 * BK * BN * 2, 1024);
-  static constexpr size_t SMEM = STAGES * STAGE + 1024;  // + room to align the base
-  static_assert(TM * LDF * 4 <= STAGES * STAGE, "the f32 partial tile reuses the ring");
-  static_assert(TM % 64 == 0 && BK % 16 == 0, "tile shape");
+// The pixels of a halo strip: a tile of tm pixels in rows of tc, plus one
+// pixel all round.
+constexpr int halo(int tm, int tc) { return (tm / tc + 2) * (tc + 2); }
+
+struct Geom : conv3x3::Geom {
+  int slices, splits, stages;  // 32-channel slices; CTAs of a cluster a tile; ring depth
+  bool tma_x, tma_w;           // x, w by TMA (else element by element)
+  bool vec_y8;                 // 16-byte stores of y are legal
 };
 
-// Slice `c0` (channels [c0, c0 + BK)) of tile t's halo strip into shared
-// memory: cp.async where 16-byte chunks are legal (zero-filled outside the
-// image and past C), else element by element with plain stores. `spos`
-// holds the strip position (row · 65536 + column) of each strip chunk this
-// thread copies, -1 past the strip; it depends on the tile shape only.
+// A tile shape: TM = 64·WG pixels (WG consumer warpgroups, one a 64-pixel
+// run of the tile), 64 outputs; PW producer warps (one issues the TMA loads;
+// all of them write an element-path operand); TG taps a product group (3:
+// a tap row, or 9). A stage holds a slice's halo strip, as large as the
+// largest of the tile's three layouts (rows of 64, 32 or 16 pixels), and its
+// nine weight blocks.
+template <int WG_, int PW_, int TG_>
+struct Cfg {
+  static constexpr int WG = WG_, PW = PW_, TG = TG_;
+  static_assert(TG == 3 || TG == 9, "a product group is a tap row or all nine taps");
+  static constexpr int TM = 64 * WG, CONSUMERS = 128 * WG, THREADS = CONSUMERS + 32 * PW;
+  static constexpr int STRIP_PIX = std::max(halo(TM, 64), std::max(halo(TM, 32), halo(TM, 16)));
+  static constexpr int STRIP = (STRIP_PIX * RB + 1023) / 1024 * 1024;
+  static constexpr int STAGE = STRIP + WBYTES;
+  static constexpr int LDF = BN + 4;  // f32 partial tile row stride
+  static constexpr int MIN_STAGES = std::max(2, (TM * LDF * 4 + STAGE - 1) / STAGE);
+  // the ring, the barriers, + 1 KB to align the base
+  static constexpr int smem(int stages) { return stages * STAGE + BAR_BYTES + 1024; }
+};
+
+// Element path of one step, slice c0 of tile t: the halo strip (with_x),
+// pixel p at p·RB bytes in the 64-byte swizzle (its 16-byte chunk c at
+// chunk c ^ (p / 2 % 4)), zero outside the image and past C; the weights
+// (with_w), the nine (BK × 64) blocks of outputs [o0, o0 + 64), row tap·BK
+// + k in the 128-byte swizzle (row r's chunk c at chunk c ^ (r % 8)), zero
+// past C and O, their chunks wholly past O left as they are (zeroed once,
+// at the start). Thread tid of the producer warps, a chunk of eight
+// elements at a time, four chunks unrolled; the strip's chunks wholly past
+// C take no load.
 template <class K>
-__device__ __forceinline__ void load_strip(bf16* __restrict__ strip, const bf16* __restrict__ x,
-                                           const Geom& g, const int (&spos)[K::SITER],
-                                           const Tile& t, int c0) {
+__device__ __forceinline__ void fill_stage(unsigned char* dst_x, const bf16* __restrict__ x,
+                                           bool with_x, unsigned char* dst_w,
+                                           const bf16* __restrict__ w, bool with_w,
+                                           const Geom& g, const Tile& t, int c0, int o0,
+                                           int tid) {
+  constexpr int CHUNKS = BK / 8, STEP = 32 * K::PW;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  if (with_x) {
+    const int sw = g.tc + 2, npix = (g.tr + 2) * sw;
+    const int cx = min(CHUNKS, (g.C - c0 + 7) >> 3);  // a pixel's chunks that hold data
+#pragma unroll 4
+    for (int e = tid; e < npix * cx; e += STEP) {
+      const int p = e / cx, c = e % cx, ch = c0 + 8 * c;
+      const int hh = t.h0 - 1 + p / sw, ww = t.w0 - 1 + p % sw;
+      const bool in = hh >= 0 && hh < g.H && ww >= 0 && ww < g.W;
+      const bf16* s = x + (in ? (((size_t)t.b * g.H + hh) * g.W + ww) * g.C + ch : 0);
+      uint32_t v[4];
 #pragma unroll
-  for (int i = 0; i < K::SITER; ++i) {
-    if (spos[i] < 0) continue;
-    const int e = threadIdx.x + i * K::THREADS, p = e / K::SCH, k = (e % K::SCH) * 8;
-    const int hh = t.h0 - 1 + (spos[i] >> 16), ww = t.w0 - 1 + (spos[i] & 0xFFFF), c = c0 + k;
-    const bool inside = hh >= 0 && hh < g.H && ww >= 0 && ww < g.W;
-    const bf16* src = x + (inside ? (((size_t)t.b * g.H + hh) * g.W + ww) * g.C : 0);
-    bf16* dst = strip + p * K::LDS + k;
-    if (g.vec_x) {  // C % 8 == 0: a chunk is wholly in range or wholly past C
-      const bool ok = inside && c < g.C;
-      mma::cp_async16(dst, src + (ok ? c : 0), ok);
-    } else {
+      for (int j = 0; j < 4; ++j)
+        v[j] = tma::pair(in && ch + 2 * j < g.C ? s[2 * j] : zero,
+                         in && ch + 2 * j + 1 < g.C ? s[2 * j + 1] : zero);
+      *reinterpret_cast<uint4*>(dst_x + p * RB + ((c ^ ((p >> 1) & 3)) << 4)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    for (int e = tid; e < npix * (CHUNKS - cx); e += STEP) {  // the chunks past C
+      const int p = e / (CHUNKS - cx), c = cx + e % (CHUNKS - cx);
+      *reinterpret_cast<uint4*>(dst_x + p * RB + ((c ^ ((p >> 1) & 3)) << 4)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (with_w) {
+    const int cw = min(BN, g.O - o0), chunks = (cw + 7) >> 3, n = 9 * BK * chunks;
+#pragma unroll 4
+    for (int e = tid; e < n; e += STEP) {
+      const int row = e / chunks, c = e % chunks, ch = c0 + row % BK;
+      const bf16* s = w + ((size_t)(row / BK) * g.C + min(ch, g.C - 1)) * g.O + o0 + 8 * c;
+      uint32_t v[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        dst[j] = (inside && c + j < g.C) ? src[c + j] : __float2bfloat16_rn(0.f);
+      for (int j = 0; j < 4; ++j)
+        v[j] = tma::pair(ch < g.C && 8 * c + 2 * j < cw ? s[2 * j] : zero,
+                         ch < g.C && 8 * c + 2 * j + 1 < cw ? s[2 * j + 1] : zero);
+      *reinterpret_cast<uint4*>(dst_w + row * 128 + ((c ^ (row & 7)) << 4)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
-// The nine (BK × 64) weight slices of channels [c0, c0 + BK) and outputs
-// [o0, o0 + 64), row tap·BK + k, in the 128-byte swizzle (row r's 16-byte
-// chunk j at chunk j ^ (r % 8)); zero past C and O.
+// CTA (x, y, z) computes outputs [64·y, 64·y + 64). Persistent (splits 1):
+// pixel tiles x, x + gridDim.x, ..., every channel slice of each, as one ring
+// of (tile, slice) steps. Split: pixel tile x, slices [z·S/splits, (z +
+// 1)·S/splits) of the S; the splits of a tile are one thread block cluster,
+// which sums their f32 partials through distributed shared memory in rank
+// order and rounds once.
 template <class K>
-__device__ __forceinline__ void load_weights(bf16* __restrict__ ws, const bf16* __restrict__ w,
-                                             const Geom& g, int c0, int o0) {
-#pragma unroll
-  for (int i = 0; i < K::WITER; ++i) {
-    const int e = threadIdx.x + i * K::THREADS;
-    if (e >= 9 * K::BK * K::WCH) break;
-    const int row = e / K::WCH, j = e % K::WCH;
-    const int tap = row / K::BK, c = c0 + row % K::BK, o = o0 + 8 * j;
-    const bf16* src = w + ((size_t)tap * g.C + (c < g.C ? c : 0)) * g.O;
-    bf16* dst = ws + row * BN + ((j ^ (row & 7)) * 8);
-    if (g.vec_w) {  // O % 8 == 0
-      const bool ok = c < g.C && o < g.O;
-      mma::cp_async16(dst, src + (ok ? o : 0), ok);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        dst[k] = (c < g.C && o + k < g.O) ? src[o + k] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// CTA (x, y, z) computes outputs [64·y, 64·y + 64) of pixel tiles x,
-// x + gridDim.x, ... over the channel slices of split z. Without a split
-// (gridDim.z = 1) the CTA walks its tiles as one ring of (tile, slice) steps
-// and stores each tile from its accumulators, rounded once. With a split each
-// CTA takes one tile; the gridDim.z splits of a tile form one thread block
-// cluster, which sums their f32 partials through distributed shared memory
-// in rank order, rounds once and stores.
-template <class K>
-__global__ void __launch_bounds__(K::THREADS)
-conv_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ y,
-                  Geom g) {
+__global__ void __launch_bounds__(K::THREADS, 1)
+conv_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ y,
+                Geom g) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (mma::smem_u32(smem_raw) & 1023)) & 1023);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int o0 = blockIdx.y * BN, sw = g.tc + 2, m0 = 16 * warp;
-  // element offset of this lane's A row (ldmatrix address) at tap (0, 0)
-  const int r0 = m0 / g.tc;
-  const int arow = (r0 * sw + (m0 - r0 * g.tc) + (lane & 15)) * K::LDS + (lane >> 4) * 8;
-  int spos[K::SITER];
-  const int npix = (g.tr + 2) * sw;
-#pragma unroll
-  for (int i = 0; i < K::SITER; ++i) {
-    const int p = (threadIdx.x + i * K::THREADS) / K::SCH;
-    spos[i] = p < npix ? (p / sw) << 16 | (p % sw) : -1;
-  }
-  auto strip_of = [&](int s) { return reinterpret_cast<bf16*>(smem + s * K::STAGE); };
-  auto ws_of = [&](int s) { return reinterpret_cast<bf16*>(smem + s * K::STAGE + K::STRIP); };
-
-  float acc[BN / 8][4];  // this warp's 16 pixels × 64 outputs, as n8 tiles
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  // this split's channel slices [s0, s0 + nsl); this CTA's tiles and steps
-  const int slices = (g.C + K::BK - 1) / K::BK, per = (slices + gridDim.z - 1) / gridDim.z;
-  const int s0 = min(slices, (int)blockIdx.z * per), nsl = min(slices, s0 + per) - s0;
+  unsigned char* smem = smem_raw + ((1024 - (tma::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = tma::smem_addr(smem);
+  const int ST = g.stages;
+  const bool split = g.splits > 1;
+  const int s0 = split ? (int)blockIdx.z * g.slices / g.splits : 0;
+  const int s1 = split ? ((int)blockIdx.z + 1) * g.slices / g.splits : g.slices;
   const int tiles = g.tiles_h * g.tiles_w * g.B;
-  const int mine = gridDim.z > 1 ? 1 : (tiles - (int)blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const int steps = mine * nsl;
-  auto load_step = [&](int i) {
-    if (i < steps) {
-      const int ti = i / nsl, sl = i - ti * nsl;
-      load_strip<K>(strip_of(i % K::STAGES), x, g, spos, tile_at(g, blockIdx.x + ti * gridDim.x),
-                    (s0 + sl) * K::BK);
-      load_weights<K>(ws_of(i % K::STAGES), w, g, (s0 + sl) * K::BK, o0);
-    }
-    mma::cp_async_commit();
-  };
-#pragma unroll
-  for (int s = 0; s < K::STAGES - 1; ++s) load_step(s);
+  const int mine = split ? 1 : (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int o0 = blockIdx.y * BN;
+  const tma::Ring ring{base + (uint32_t)(ST * K::STAGE), ST};
+  const bool elem = !g.tma_x || !g.tma_w;
+  if (!g.tma_w) {  // the element path leaves the weights' chunks past O unwritten
+    for (int st = 0; st < ST; ++st)
+      tma::zero_smem(smem + st * K::STAGE + K::STRIP, WBYTES, threadIdx.x, K::THREADS);
+    mma::fence_proxy_async();
+  }
+  DACLIP_STAMP(threadIdx.x == 0, 0);
+  if (threadIdx.x == 0) {
+    // a stage's full barrier: the TMA bytes' arrival, and the element
+    // path's once its writes are in
+    ring.init(elem ? 2 : 1, 4 * K::WG);
+    tma::mbar_init_fence();
+  }
+  __syncthreads();
+  DACLIP_STAMP(threadIdx.x == 0, 1);
+  // the warp index, uniform across the warp as the compiler sees it
+  const int warp = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
 
-  for (int s = 0; s < steps; ++s) {
-    mma::cp_async_wait<K::STAGES - 2>();
-    mma::fence_proxy_async();  // wgmma reads the stage through the async proxy
-    __syncthreads();           // step s is in; step s - 1's stage is free
-    load_step(s + K::STAGES - 1);
-    const bf16* strip = strip_of(s % K::STAGES);
-    const bf16* ws = ws_of(s % K::STAGES);
-    // per 16 channels of the slice: this warp's A fragments of the nine taps,
-    // then the warpgroup's nine products
-#pragma unroll
-    for (int kc = 0; kc < K::BK; kc += 16) {
-      uint32_t a[9][4];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap)
-        mma::ldsm_x4(a[tap], strip + arow + ((tap / 3) * sw + tap % 3) * K::LDS + kc);
-      mma::wgmma_fence();
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap)
-        mma::wgmma_m64n64(acc, a[tap],
-                          mma::wgmma_desc_b128(ws + (tap * K::BK + kc) * BN, 8 * BN * 2));
-      mma::wgmma_commit();
-      mma::wgmma_wait<0>();
+  if (warp >= 4 * K::WG) {  // the producer warps: thread 0 issues the TMA loads
+    const int t = threadIdx.x - K::CONSUMERS;
+    if (t == 0) {
+      if (g.tma_x) tma::prefetch_map(&tx);
+      if (g.tma_w) tma::prefetch_map(&tw);
     }
-    if (gridDim.z == 1 && s % nsl == nsl - 1) {
-      // the tile is done: round once and store from the accumulators
-      const Tile t = tile_at(g, blockIdx.x + (s / nsl) * gridDim.x);
+    if (elem || t == 0) {
+      const uint32_t strip_bytes = (g.tr + 2) * (g.tc + 2) * RB;
+      int it = 0;
+      for (int i = 0; i < mine; ++i) {
+        const Tile tl = tile_at(g, (int)blockIdx.x + i * (int)gridDim.x);
+        for (int sl = s0; sl < s1; ++sl, ++it) {
+          const int st = it % ST, c0 = sl * BK;
+          ring.wait_empty(it);
+          DACLIP_STAMP(t == 0 && it == 0, 2);
+          const uint32_t bytes = (g.tma_x ? strip_bytes : 0) + (g.tma_w ? WBYTES : 0);
+          const uint32_t full = ring.full(st), dst = base + st * K::STAGE;
+          if (t == 0) {  // the copies first: they run under the element path's loads
+            tma::mbar_expect_tx(full, bytes);
+            // the strip's box at (c0, w0 − 1, h0 − 1, b): the image's border
+            // and the channels past C come as zeros
+            if (g.tma_x) tma::load_4d(dst, &tx, c0, tl.w0 - 1, tl.h0 - 1, tl.b, full);
+            if (g.tma_w) tma::load_3d(dst + K::STRIP, &tw, o0, c0, 0, full);
+          }
+          if (elem) {  // the element writes reach wgmma's proxy before their arrival
+            fill_stage<K>(smem + st * K::STAGE, x, !g.tma_x, smem + st * K::STAGE + K::STRIP, w,
+                          !g.tma_w, g, tl, c0, o0, t);
+            DACLIP_STAMP(t == 0 && it == 0, 9);
+            mma::fence_proxy_async();
+            DACLIP_STAMP(t == 0 && it == 0, 10);
+            tma::named_sync(1, 32 * K::PW);
+            if (t == 0) tma::mbar_arrive(full);
+          }
+          DACLIP_STAMP(t == 0 && it == 0, 3);
+        }
+      }
+      DACLIP_STAMP(t == 0, 4);
+    }
+  } else {  // the consumer warpgroups: warp w owns the tile's pixels 16w .. 16w + 15
+    const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+    const int sw = g.tc + 2, m0 = 16 * warp, r0 = m0 / g.tc;
+    // this lane's ldmatrix row at tap (0, 0): a strip pixel (a 16-pixel run
+    // never crosses a tile row), and its 8-channel chunk in a k16 step
+    const int pix0 = r0 * sw + (m0 - r0 * g.tc) + (lane & 15), half = lane >> 4;
+    float acc[BN / 8][4];    // this warp's 16 pixels × 64 outputs, as n8 tiles
+    uint32_t a[2][K::TG][4];  // A fragments of two product groups
+    int it = 0;
+    // One slice from step it's stage: for each of its two k16 steps, 9 / TG
+    // product groups of TG taps, each tap's A fragment from the strip by
+    // ldmatrix. Two groups stay in flight; a group's fragments are reused
+    // two groups later, once wgmma_wait<1> says it is done.
+    auto stage = [&](auto first_c, int sl) {
+      constexpr bool first = decltype(first_c)::value;
+      constexpr int PER_K = 9 / K::TG;  // groups a k16 step
+      const bool low_only = g.C - sl * BK <= 16;  // the slice's second k16 step is all past C
+      const int st = it % ST;
+      ring.wait_full(it);
+      DACLIP_STAMP(threadIdx.x == 0 && it == 0, 5);
+      const uint32_t strip = base + st * K::STAGE, ws = strip + K::STRIP;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + gq + 8 * half;
+      for (int q = 0; q < 2 * PER_K; ++q) {
+        const int kk = q / PER_K, t0 = (q % PER_K) * K::TG, b = q & 1;
+        mma::wgmma_wait<1>();
+        mma::fence_regs(a[b]);
+        if (!first && q == 1) ring.release(it - 1);  // the previous slice's groups are done
+        if (kk == 1 && low_only) continue;
+#pragma unroll
+        for (int j = 0; j < K::TG; ++j) {
+          const int tap = t0 + j, p = pix0 + (tap / 3) * sw + tap % 3, c = 2 * kk + half;
+          mma::ldsm_x4(a[b][j], strip + p * RB + ((c ^ ((p >> 1) & 3)) << 4));
+        }
+        mma::fence_regs(acc);
+        mma::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < K::TG; ++j)
+          mma::wgmma_rs<BN, 1>(acc, a[b][j],
+                               mma::wgmma_desc_sw<128>(ws + ((t0 + j) * BK + 16 * kk) * 128),
+                               (first && q == 0 && j == 0) ? 0 : 1);
+        mma::wgmma_commit();
+      }
+      ++it;
+    };
+    for (int i = 0; i < mine; ++i) {
+      // a tile's first slice is peeled, so that every loop header sees the
+      // same number of groups in flight (else ptxas waits for all of them)
+      stage(std::true_type{}, s0);
+      for (int sl = s0 + 1; sl < s1; ++sl) stage(std::false_type{}, sl);
+      mma::wgmma_wait<0>();
+      mma::fence_regs(acc);
+      mma::fence_regs(a[0]);
+      mma::fence_regs(a[1]);
+      ring.release(it - 1);
+      DACLIP_STAMP(threadIdx.x == 0 && i == mine - 1, 6);
+      if (split) break;
+      // the tile is done: round once and store from the accumulators
+      const Tile t = tile_at(g, (int)blockIdx.x + i * (int)gridDim.x);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + gq + 8 * h;
         const int hh = t.h0 + m / g.tc, ww = t.w0 + m % g.tc;
         if (hh >= g.H || ww >= g.W) continue;
         bf16* row = y + (((size_t)t.b * g.H + hh) * g.W + ww) * g.O;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int o = o0 + 8 * j + 2 * tq;
-          const float v0 = acc[j][2 * half], v1 = acc[j][2 * half + 1];
+          const float v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
           if (g.vec_y) {  // O even: both or neither in range
             if (o < g.O) *reinterpret_cast<uint32_t*>(row + o) = mma::pack_bf16(v0, v1);
           } else {
@@ -261,45 +368,53 @@ conv_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* 
           }
         }
       }
+    }
+    DACLIP_STAMP(threadIdx.x == 0, 7);
+    if (split) {  // this CTA's f32 partial, over the ring once every warpgroup is done
+      tma::named_sync(2, K::CONSUMERS);
+      float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+      for (int j = 0; j < BN / 8; ++j) {
+        float* c = part + (m0 + gq) * K::LDF + 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(c) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(c + 8 * K::LDF) = make_float2(acc[j][2], acc[j][3]);
+      }
     }
   }
-  if (gridDim.z == 1) return;
+  if (!split) return;
 
-  // split: this CTA's f32 partial (the ring is idle), then the cluster's sum:
-  // rank r rounds and stores its share of the tile's rows, reading every
-  // rank's partial in rank order
-  mma::cp_async_wait<0>();
-  __syncthreads();
-  const Tile t = tile_of(g);
-  float* part = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    float* c = part + (m0 + gq) * K::LDF + 8 * j + 2 * tq;
-    *reinterpret_cast<float2*>(c) = make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(c + 8 * K::LDF) = make_float2(acc[j][2], acc[j][3]);
-  }
+  // the cluster's sum: rank r rounds and stores its share of the tile's
+  // pixels, reading every rank's partial in rank order
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const int splits = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int rows = K::TM / splits;
-  for (int e = threadIdx.x; e < rows * K::WCH; e += K::THREADS) {
-    const int m = rank * rows + e / K::WCH, n = (e % K::WCH) * 8;
+  const Tile t = tile_at(g, blockIdx.x);
+  const int S = g.splits, rank = (int)cluster.block_rank(), rows = K::TM / S;
+  constexpr int CH = BN / 8;
+  float* part = reinterpret_cast<float*>(smem);
+  for (int e = threadIdx.x; e < rows * CH; e += K::THREADS) {
+    const int m = rank * rows + e / CH, n = (e % CH) * 8;
     const int hh = t.h0 + m / g.tc, ww = t.w0 + m % g.tc, o = o0 + n;
     if (hh >= g.H || ww >= g.W || o >= g.O) continue;
+    // every rank's eight partial sums first (the remote loads overlap), then
+    // their sum in rank order
+    float4 lo[8], hi[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < S) {
+        const float4* src =
+            reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r) + m * K::LDF + n);
+        lo[r] = src[0];
+        hi[r] = src[1];
+      }
     float v[8] = {};
-    for (int r = 0; r < splits; ++r) {
-      const float4* src =
-          reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r) + m * K::LDF + n);
-      const float4 lo = src[0], hi = src[1];
-      v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
-      v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
-    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < S) {
+        v[0] += lo[r].x; v[1] += lo[r].y; v[2] += lo[r].z; v[3] += lo[r].w;
+        v[4] += hi[r].x; v[5] += hi[r].y; v[6] += hi[r].z; v[7] += hi[r].w;
+      }
     bf16* dst = y + (((size_t)t.b * g.H + hh) * g.W + ww) * g.O + o;
-    if (g.vec_y) {  // O % 8 == 0: all eight are in range
+    if (g.vec_y8) {  // O % 8 == 0: all eight are in range
       *reinterpret_cast<uint4*>(dst) =
           make_uint4(mma::pack_bf16(v[0], v[1]), mma::pack_bf16(v[2], v[3]),
                      mma::pack_bf16(v[4], v[5]), mma::pack_bf16(v[6], v[7]));
@@ -308,10 +423,18 @@ conv_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* 
     }
   }
   cluster.sync();  // no CTA leaves while another reads its partial
+  DACLIP_STAMP(threadIdx.x == 0, 8);
 }
 
-using Large = Cfg<256, 32, 2>;
-using Small = Cfg<128, 32, 3>;
+// The tile shapes the plan (daclip_torch/ops/conv3x3.py `_conv_plan`) picks
+// from, by index: 0 Large, 256 pixels in product groups of a tap row
+// (within its 120 registers a thread); 1 Small, 128 pixels in groups of all
+// nine taps; each with one producer warp, or four where an operand takes
+// the element path.
+using Large = Cfg<4, 1, 3>;
+using LargeE = Cfg<4, 4, 3>;
+using Small = Cfg<2, 1, 9>;
+using SmallE = Cfg<2, 4, 9>;
 
 }  // namespace tc
 
@@ -417,62 +540,90 @@ constexpr int MAX_DEVICES = 64;
 
 __host__ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// Grid and geometry of a launch with tiles of `tm` pixels (rows of 64, or of
-// 32 when W ≤ 32) and `bn` outputs; false if the grid is too large.
-__host__ inline bool plan(int B, int H, int W, int C, int O, int tm, int bn, int v,
-                          const void* x, const void* w, const void* y, Geom& g, dim3& grid) {
-  const int tcol = W <= 32 ? 32 : 64, trow = tm / tcol;
+// The f32 kernel's grid and geometry: tiles of TM pixels (rows of 64, or of
+// 32 when W ≤ 32) and BN outputs; false if the grid is too large.
+__host__ inline bool plan_f32(int B, int H, int W, int C, int O, const void* x, const void* w,
+                              const void* y, Geom& g, dim3& grid) {
+  const int tcol = W <= 32 ? 32 : 64, trow = TM / tcol;
   const long tiles_w = (W + tcol - 1) / tcol, tiles_h = (H + trow - 1) / trow;
   const long tiles = (long)B * tiles_h * tiles_w;
-  const long otiles = (O + bn - 1) / bn;
+  const long otiles = (O + BN - 1) / BN;
   if (tiles > INT_MAX || otiles > 65535) return false;
   g = Geom{B, H, W, C, O, trow, tcol, (int)tiles_h, (int)tiles_w,
-           C % v == 0 && aligned16(x), O % v == 0 && aligned16(w), O % v == 0 && aligned16(y)};
+           C % 4 == 0 && aligned16(x), O % 4 == 0 && aligned16(w), O % 4 == 0 && aligned16(y)};
   grid = dim3((unsigned)tiles, (unsigned)otiles);
   return true;
 }
 
-// Launch tile shape K on `sms` SMs: persistent (one wave of CTAs walking the
-// tiles), or, for a grid that fills at most half the card's CTA slots, with
-// the K slices split over clusters of 2, 4 or 8 CTAs (at least 4 slices each).
+// Launch the bf16 kernel with tile shape K as the plan says: tiles of
+// `tcols` columns (16, 32 or 64) and TM / tcols rows, a ring of `stages`,
+// the channel slices split over clusters of `splits` CTAs (1: persistent
+// CTAs, `grid_x` of them along the pixel tiles).
 template <class K>
-int launch_wgmma(const void* x, const void* w, void* y, int B, int H, int W, int C, int O,
-                 int dev, int sms, cudaStream_t st) {
-  Geom g;
-  dim3 grid;
-  if (!plan(B, H, W, C, O, K::TM, tc::BN, 8, x, w, y, g, grid)) return (int)cudaErrorInvalidValue;
-  auto kernel = tc::conv_wgmma_kernel<K>;
-  // the shared-memory opt-in and the CTAs an SM holds, once a device
-  static int resident[MAX_DEVICES] = {};
-  cudaError_t err;
-  if (resident[dev] == 0) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[dev], kernel, K::THREADS,
-                                                        K::SMEM);
-    if (err != cudaSuccess) return (int)err;
+int launch_tc(const void* x, const void* w, void* y, int B, int H, int W, int C, int O,
+              int tcols, int stages, int splits, int grid_x, cudaStream_t st) {
+  if (tcols != 16 && tcols != 32 && tcols != 64) return (int)cudaErrorInvalidValue;
+  const int trows = K::TM / tcols, slices = (C + tc::BK - 1) / tc::BK;
+  const long tiles_w = (W + tcols - 1) / tcols, tiles_h = (H + trows - 1) / trows;
+  const long tiles = (long)B * tiles_h * tiles_w, otiles = (O + tc::BN - 1) / tc::BN;
+  if (tiles > INT_MAX || otiles > 65535 || stages < K::MIN_STAGES || stages > tc::MAX_STAGES ||
+      splits < 1 || splits > 8 || (splits & (splits - 1)) != 0 || splits > slices ||
+      grid_x < 1 || grid_x > tiles || (splits > 1 && grid_x != tiles))
+    return (int)cudaErrorInvalidValue;
+  tc::Geom g;
+  static_cast<Geom&>(g) = Geom{B, H, W, C, O, trows, tcols, (int)tiles_h, (int)tiles_w, false,
+                               false, O % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0};
+  g.slices = slices;
+  g.splits = splits;
+  g.stages = stages;
+  g.tma_x = C % 8 == 0 && aligned16(x);
+  g.tma_w = O % 8 == 0 && aligned16(w);
+  g.vec_y8 = O % 8 == 0 && aligned16(y);
+  CUtensorMap tx{}, tw{};
+  cudaError_t err = cudaSuccess;
+  if (g.tma_x) {  // x as (C, W, H, B), boxes of one slice's halo strip, 64-byte swizzle
+    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                   (cuuint64_t)H * W * C * 2};
+    const cuuint32_t box[4] = {tc::BK, (cuuint32_t)tcols + 2, (cuuint32_t)trows + 2, 1};
+    err = tma::encode_map(&tx, x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
   }
-  const long slots = (long)std::max(resident[dev], 1) * sms;  // CTAs the card holds at once
-  int splits = 1;
-  const int slices = (C + K::BK - 1) / K::BK;
-  while (splits < 8 && (long)grid.x * grid.y * splits * 2 <= slots && slices >= 4 * splits * 2)
-    splits *= 2;
-  if (splits == 1) grid.x = (unsigned)std::min<long>(grid.x, std::max<long>(1, slots / grid.y));
-  grid.z = splits;
+  if (err == cudaSuccess && g.tma_w) {  // w as (O, C, 9), boxes of a slice's nine blocks
+    const cuuint64_t dims[3] = {(cuuint64_t)O, (cuuint64_t)C, 9};
+    const cuuint64_t strides[2] = {(cuuint64_t)O * 2, (cuuint64_t)C * O * 2};
+    const cuuint32_t box[3] = {tc::BN, tc::BK, 9};
+    err = tma::encode_map(&tw, w, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  auto kernel = tc::conv_tma_kernel<K>;
+  static bool opted[MAX_DEVICES] = {};  // the shared-memory opt-in, once a device
+  if (!opted[dev]) {
+    int most = 0;
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = true;
+  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = splits;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
+  cfg.gridDim = dim3(grid_x, (unsigned)otiles, splits);
   cfg.blockDim = dim3(K::THREADS);
-  cfg.dynamicSmemBytes = K::SMEM;
+  cfg.dynamicSmemBytes = K::smem(stages);
   cfg.stream = st;
   cfg.attrs = attr;
+  // a cluster dimension of 1 × 1 × 1 on an unsplit launch too: without it the
+  // kernels ran slower on the H100 (PERF.md)
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-                           (__nv_bfloat16*)y, g);
+  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, (const tc::bf16*)x, (const tc::bf16*)w,
+                           (tc::bf16*)y, g);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -481,40 +632,42 @@ int launch_wgmma(const void* x, const void* w, void* y, int B, int H, int W, int
 
 using namespace daclip::conv3x3;
 
-
 // y (B, H, W, O) = the 3×3 SAME convolution of x (B, H, W, C) with w (3, 3, C,
-// O), all contiguous and of one type (bf16 if is_bf16, else f32).
+// O), all contiguous and of one type (bf16 if is_bf16, else f32). bf16 takes
+// the plan of daclip_torch/ops/conv3x3.py `_conv_plan`: tile shape `cfg` (0
+// Large, 1 Small), tile columns, ring depth, cluster split and grid; f32
+// ignores it.
 extern "C" int daclip_conv3x3(const void* x, const void* w, void* y, int B, int H, int W, int C,
-                              int O, int is_bf16, void* stream) {
+                              int O, int is_bf16, int cfg, int tile_cols, int stages, int splits,
+                              int grid_x, void* stream) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || O < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (!is_bf16) {
     Geom g;
     dim3 grid;
-    if (!plan(B, H, W, C, O, TM, BN, 4, x, w, y, g, grid)) return (int)cudaErrorInvalidValue;
+    if (!plan_f32(B, H, W, C, O, x, w, y, g, grid)) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         conv_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_F32);
     if (err != cudaSuccess) return (int)err;
     conv_kernel_f32<<<grid, NT, SMEM_F32, st>>>((const float*)x, (const float*)w, (float*)y, g);
     return (int)cudaGetLastError();
   }
-  // the tile shape from the grid of 256-pixel tiles (measured on the H100's
-  // 132 SMs: Large loses to Small below a CTA per SM at C < 128, and below
-  // about half a CTA per SM at any C)
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  static int sm_counts[MAX_DEVICES] = {};
-  if (sm_counts[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sm_counts[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int sms = sm_counts[dev];
-  const int tcol = W <= 32 ? 32 : 64, trow = 256 / tcol;
-  const long grid = (long)B * ((H + trow - 1) / trow) * ((W + tcol - 1) / tcol) *
-                    ((O + tc::BN - 1) / tc::BN);
-  if (grid >= sms || (C >= 128 && 2 * grid >= sms - 8))
-    return launch_wgmma<tc::Large>(x, w, y, B, H, W, C, O, dev, sms, st);
-  return launch_wgmma<tc::Small>(x, w, y, B, H, W, C, O, dev, sms, st);
+  // an operand TMA cannot take (C or O not a multiple of 8, a base not
+  // 16-byte aligned) is written element by element by four producer warps
+  const bool tma = C % 8 == 0 && O % 8 == 0 && aligned16(x) && aligned16(w);
+  if (cfg == 0)
+    return tma ? launch_tc<tc::Large>(x, w, y, B, H, W, C, O, tile_cols, stages, splits, grid_x, st)
+               : launch_tc<tc::LargeE>(x, w, y, B, H, W, C, O, tile_cols, stages, splits, grid_x,
+                                       st);
+  if (cfg == 1)
+    return tma ? launch_tc<tc::Small>(x, w, y, B, H, W, C, O, tile_cols, stages, splits, grid_x, st)
+               : launch_tc<tc::SmallE>(x, w, y, B, H, W, C, O, tile_cols, stages, splits, grid_x,
+                                       st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 kernel's dynamic shared memory in bytes: tile shape cfg, a ring of
+// `stages`.
+extern "C" int daclip_conv_smem(int cfg, int stages) {
+  return cfg == 0 ? tc::Large::smem(stages) : tc::Small::smem(stages);
 }

@@ -12,6 +12,7 @@ first time it launches on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -23,6 +24,11 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# the H100 SXM the bf16 kernels' schedules are planned for
+SMS = 132                  # streaming multiprocessors
+SMEM_PER_SM = 233_472      # shared memory an SM holds (228 KB), 1 KB of it reserved a CTA
+SMEM_PER_CTA = 232_448     # the most dynamic shared memory a CTA may opt in to (227 KB)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,10 +59,12 @@ SIGNATURES = {
     "daclip_linattn_fused_v4": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _P],
     # qkv, part_m, part_s, part_ctx, w_attn, out, B, n, rows, tiles, is_bf16, stream
     "daclip_linattn_core": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
-    # x, skip|null, w, y, R, Kx, Ks, O, is_bf16, stream
-    "daclip_dual_conv1x1": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
-    # x, w, y, B, H, W, C, O, is_bf16, stream
-    "daclip_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, skip|null, w, y, R, Kx, Ks, O, is_bf16, the plan (ops/pointwise.py
+    # _dual_plan): cfg, stages, splits, grid_x; stream
+    "daclip_dual_conv1x1": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, y, B, H, W, C, O, is_bf16, the plan (ops/conv3x3.py _conv_plan):
+    # cfg, tile_cols, stages, splits, grid_x; stream
+    "daclip_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, lse|null, B, N, H, D, scale, is_bf16, stream
     "daclip_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, dout, lse, dsum, dq, dk, dv, B, N, H, D, scale, is_bf16, stream
@@ -67,6 +75,10 @@ SIGNATURES = {
     "daclip_wrap_bwd_smem": [_I, _I],
     # the bf16 flash kernels' dynamic shared memory: D; (0 dq | 1 dkv), D
     "daclip_flash_fwd_smem": [_I],
+    # the bf16 dual 1×1's and 3×3 conv's dynamic shared memory: cfg, stages,
+    # resident K slices; cfg, stages
+    "daclip_dual_smem": [_I, _I, _I],
+    "daclip_conv_smem": [_I, _I],
     "daclip_flash_bwd_smem": [_I, _I],
 }
 
@@ -142,6 +154,19 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sms(device) -> int:
+    """The SM count of a CUDA device, asked once a device."""
+    import torch
+    index = torch.device(device).index
+    return _sms_of(index if index is not None else torch.cuda.current_device())
 
 
 def check(err: int, name: str) -> None:

@@ -3,7 +3,8 @@ a CUDA source includes is hashed into the library's name, so an edit to a
 shared header (common.cuh, mma.cuh, tma.cuh, flash_tiles.cuh,
 linattn_tiles.cuh) rebuilds the kernels that include it; every exported
 launcher's C parameters match the ctypes signature `_build.SIGNATURES` binds
-it with."""
+it with; no kernel stages a tile through per-thread `cp.async` any more (the
+bf16 tensor-core kernels load theirs by TMA)."""
 import re
 import shutil
 
@@ -39,6 +40,10 @@ def test_every_quoted_include_is_a_hashed_source():
         assert (src, "tma.cuh") in found, src
     assert ("linattn_tiles.cuh", "mma.cuh") in found
     assert ("linattn_tiles.cuh", "tma.cuh") in found
+    # the dual 1×1 and the 3×3 conv load their tiles by TMA through
+    # mbarriers (tma.cuh) into wgmma (mma.cuh)
+    for src in ("pointwise.cu", "conv3x3.cu"):
+        assert (src, "tma.cuh") in found, src
     for src, name in found:
         assert name in hashed, f"{src} includes {name}, which _build._sources() does not hash"
 
@@ -82,8 +87,10 @@ def test_every_launcher_matches_its_ctypes_signature(src):
     for name, types in found.items():
         assert name in _build.SIGNATURES, f"{src}: {name} has no ctypes signature"
         assert _build.SIGNATURES[name] == types, f"{src}: {name} takes {types}"
-    # the two linear-attention files export exactly these launchers
-    want = {"linear_attention.cu": {"daclip_wrap_stats", "daclip_wrap_combine",
+    # these files export exactly these launchers
+    want = {"pointwise.cu": {"daclip_dual_conv1x1", "daclip_dual_smem"},
+            "conv3x3.cu": {"daclip_conv3x3", "daclip_conv_smem"},
+            "linear_attention.cu": {"daclip_wrap_stats", "daclip_wrap_combine",
                                     "daclip_wrap_apply", "daclip_linattn_fused_v4",
                                     "daclip_linattn_core", "daclip_wrap_smem"},
             "linear_attention_bwd.cu": {"daclip_wrap_bwd1", "daclip_wrap_bwd_mid",
@@ -91,3 +98,10 @@ def test_every_launcher_matches_its_ctypes_signature(src):
                                         "daclip_wrap_bwd_smem"}}
     if src in want:
         assert set(found) == want[src]
+
+
+@pytest.mark.parametrize("src", sorted(p.name for p in _build._sources()))
+def test_no_source_stages_tiles_through_per_thread_cp_async(src):
+    text = (_build.CSRC / src).read_text()
+    # cp.async.bulk is TMA; cp.async.ca / .cg and its groups are the per-thread copies
+    assert not re.search(r"cp\.async\.(ca|cg|commit_group|wait_group)|cp_async", text), src
