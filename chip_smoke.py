@@ -27,8 +27,10 @@ Phases, each printing JSON lines:
              attention is as large as the bias, at each shape), the flash
              forward also at the training step's shapes and at its tile edges
              (N under one box, odd B, H and N, dim_head 64) keeping its lse
-             (held against torch.logsumexp); the wrap and flash called twice (the
-             bytes must repeat);
+             (held against torch.logsumexp), the wrap also at the widths a
+             multiple of 16 past the production UNet's (C = 16 to 80, bf16
+             and f32, untimed); the wrap and flash called twice (the bytes
+             must repeat);
              times (median of CUDA-event timed calls after warm-up, and the
              device time: CUDA events around ten calls queued behind a
              torch.cuda._sleep that outlasts their enqueue, so the span holds
@@ -42,7 +44,7 @@ Phases, each printing JSON lines:
              plain version: linear_attention_fused (v4), attn_wrap_fused (v3,
              with and without prenorm/residual) at the six sites on
              production-like and balanced inputs plus a ragged and an f32
-             case; the attention core linear_attention at the six sites (its
+             case and the widths of phase 2 (untimed); the attention core linear_attention at the six sites (its
              path: one call at each, counted), each linear-attention kernel
              called twice (the bytes must repeat); dual_conv1x1 at the four
              res_conv shapes of the nine sites, both forms, plus ragged and
@@ -60,6 +62,18 @@ Phases, each printing JSON lines:
              device times summed over the 44 sites
   3 fixture  the committed golden fixture replayed through the kernels in f32,
              in the default wiring and in (v4, pointwise) and (v3, pointwise)
+ 3b orbax    daclip_tpu's orbax train dirs (tests/fixtures/orbax, written by
+             its train_restoration and train_daclip CLIs) read with no JAX on
+             the machine: the zstd decoder built with g++ from
+             daclip_torch/native/zstd.cc, every leaf of both latest trees
+             against the SHA-256 daclip_tpu's restore_checkpoint gave, both
+             dirs loaded through DACLIPRestorer.load (host ms), the LQ
+             restored in f32 in the default (v5) wiring through the kernels
+             with daclip_tpu's noise bank, > 40 dB against daclip_tpu's
+             stored restore, exactly T launches of #1 a LinearAttention and
+             of #2 a SpatialTransformer on that path (orbax); the decoder's
+             MB/s (decoded bytes, median of 100) on the fixture's largest
+             chunk
   4 serve    the production restore path at full width (ViT-B-32 DaCLIP, UNet
              nf=64 ch_mult 1,2,4,8, context 512, bf16, 100 posterior steps) on
              seeded random weights: four requests through DACLIPRestorer (the
@@ -117,7 +131,8 @@ Phases, each printing JSON lines:
              the 3×3 convs (torch.profiler)
   6 kernels_bwd  at every shape of the training step (B=16, 256²; the wrap
              also on balanced inputs), one f32 case each with TF32 off, the
-             ragged wrap: the forward as training calls it (keeping the
+             ragged wrap, the wrap's widths of phase 2 (untimed): the forward
+             as training calls it (keeping the
              backward's statistics) against the plain forward, then each
              backward kernel against its plain backward, every gradient
              relative to its own max (dW_qkv per q/k/v block), flash also
@@ -353,6 +368,14 @@ FLASH_EDGE_SHAPES = [(1, 50, 2, 32, torch.bfloat16), (1, 64, 1, 32, torch.bfloat
                      (2, 65, 4, 32, torch.bfloat16), (2, 65, 4, 64, torch.bfloat16),
                      (2, 1000, 4, 64, torch.bfloat16)]
 SHARD_WRAP_SHAPES = [(4, 147456, 64, torch.bfloat16)]
+# widths the wrap kernels take besides the production UNet's (C a multiple of
+# 16): an nf 16 UNet's levels 0 and 1 (the orbax fixture's), nf 48's level 0,
+# C = 80 (a whole 64-column box and one of 16) at a ragged n, and f32 at
+# C = 16 and 48 (where the f32 kernels' last stage of K and of columns is
+# partial); checked forward and backward, untimed
+WRAP_WIDTH_SHAPES = [(2, 1024, 16, torch.bfloat16), (1, 4096, 32, torch.bfloat16),
+                     (2, 1000, 48, torch.bfloat16), (2, 301, 80, torch.bfloat16),
+                     (1, 1024, 16, torch.float32), (2, 301, 48, torch.float32)]
 LIMITS = {("wrap", torch.bfloat16): 0.1, ("wrap", torch.float32): 1e-3,
           # relative to the output's max: the core's output is the attention
           # alone; the 1×1 rounds once to bf16 (half a step is 2^-8 of a value);
@@ -535,21 +558,39 @@ def sleep_cycles_per_ms():
     return _SLEEP_CYCLES_PER_MS[0]
 
 
+PROFILE_PAD_S = 0.005  # host time inside a profiler window, before and after its calls
+
+
+@contextlib.contextmanager
+def profiled(activities, pad_s=PROFILE_PAD_S, **kwargs):
+    """A torch.profiler window that holds `pad_s` of host time before the
+    calls made in it and after them. Unpadded, about one window in a hundred
+    of ten small calls records no kernel at all, on an H100 with torch 2.11
+    (scripts/torch_profiler_window_probe.py); with the pad, none of 800 did."""
+    from torch.profiler import profile
+
+    with profile(activities=activities, **kwargs) as prof:
+        time.sleep(pad_s)
+        yield prof
+        time.sleep(pad_s)
+
+
 def kernel_names(fn, iters=10, split=None):
     """The names of the device kernels that `iters` calls of `fn` launch
-    (torch.profiler); a window that records none is taken again, twice at
-    most (a window can keep none of its kernels, and a window of one call
-    often records none). With `split` (a dict), also each kernel's device ms
-    a call in that window, by name."""
+    (torch.profiler, in a padded window); a window that records none is
+    taken again with a pad 4× as long, three times at most. With `split` (a
+    dict), also each kernel's device ms a call in that window, by name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(4):
+        with profiled([ProfilerActivity.CUDA], PROFILE_PAD_S * 4 ** attempt) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+        if names and attempt:  # say so beside the row that follows
+            emit(phase="kernel_names_retaken", kernels=names[:3], attempts=attempt + 1)
         if names:
             if split is not None:
                 split.update({e.key.split("(")[0][-70:]: e.device_time_total / iters / 1e3
@@ -1056,9 +1097,10 @@ def attention_share(want, x, b_out, g_out):
     return float((want - x - _channel_ln(b_out.expand_as(x), g_out)).abs().mean())
 
 
-def wrap_check(B, n, C, dtype, gen, balanced, phase="kernels", path=None):
+def wrap_check(B, n, C, dtype, gen, balanced, phase="kernels", path=None, timed=True):
     """The wrap forward at one site against its plain version (twice, the
-    bytes must repeat), timed once a shape (unbalanced inputs); its row."""
+    bytes must repeat), timed once a shape (unbalanced inputs) when `timed`;
+    its row."""
     from daclip_torch.ops import linear_attention as la
 
     args = wrap_case(B, n, C, dtype, gen, balanced)
@@ -1076,7 +1118,7 @@ def wrap_check(B, n, C, dtype, gen, balanced, phase="kernels", path=None):
                attention_share=attention_share(want, fargs[0], fargs[4], fargs[5]))
     if path:
         row["path"] = path
-    if not balanced:  # time each shape once
+    if timed and not balanced:  # time each shape once
         esize = args[0].element_size()
         nbytes = (2 * B * n * C + C * 384 + 128 * C + 3 * C) * esize
         bms, by = bound_ms(nbytes, 2 * B * n * (512 * C + 8192), dtype)
@@ -1158,6 +1200,9 @@ def run_kernels():
         rows["flash"].append(flash_check(B, N, H, D, dtype, train, gen))
     for (B, n, C, dtype), balanced in [(s, b) for s in SHARD_WRAP_SHAPES for b in (False, True)]:
         rows["wrap"].append(wrap_check(B, n, C, dtype, gen, balanced, path="shard_tiles"))
+    for (B, n, C, dtype), balanced in [(s, b) for s in WRAP_WIDTH_SHAPES for b in (False, True)]:
+        rows["wrap"].append(wrap_check(B, n, C, dtype, gen, balanced, path="width",
+                                       timed=False))
     for B, N, H, D, dtype in SHARD_FLASH_SHAPES:
         rows["flash"].append(flash_check(B, N, H, D, dtype, False, gen, path="shard_tiles"))
     for B, N, H, D, dtype in FLASH_EDGE_SHAPES:
@@ -1194,7 +1239,9 @@ def run_kernels_alt():
         "wrap_fused": ("attn_wrap_fused", la.attn_wrap_fused, la.attn_wrap_reference, True),
         "wrap_fused_xn": ("attn_wrap_fused", lambda xn, *w: la.attn_wrap_fused(
             xn, None, *w, prenorm_residual=False), la.fused_composition_reference, False)}
-    for (B, n, C, dtype), balanced in [(s, b) for s in WRAP_SHAPES for b in (False, True)]:
+    cases = ([(s, b, not b) for s in WRAP_SHAPES for b in (False, True)]
+             + [(s, b, False) for s in WRAP_WIDTH_SHAPES for b in (False, True)])
+    for (B, n, C, dtype), balanced, timed in cases:
         x, g_pre, *w = wrap_case(B, n, C, dtype, gen, balanced)
         xn = la._channel_ln(x, g_pre)
         for key, (name, kernel, plain, raw) in kernels.items():
@@ -1213,7 +1260,7 @@ def run_kernels_alt():
                        prenorm_residual=raw if name == "attn_wrap_fused" else None,
                        max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
                        limit=limit, repeats_bitwise=repeats, attention_share=share)
-            if not balanced:
+            if timed:
                 bms, by = linattn_bound(B, n, C, x.element_size(), dtype)
                 split = {}
                 row.update(kernel_ms=time_ms(lambda: kernel(*args)),
@@ -1496,6 +1543,111 @@ def run_fixture():
         check(row["psnr_vs_ref_out"] > 40.0, f"fixture replay ({wiring}) below 40 dB vs ref_out")
         check(set(counts) == set(need), f"fixture replay ({wiring}) launched {counts}, "
               f"expected exactly {need}")
+
+
+# -- phase 3b ------------------------------------------------------------------
+ORBAX_FIXTURE = REPO / "tests" / "fixtures" / "orbax"
+
+
+def _orbax_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _orbax_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _orbax_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def run_orbax():
+    """Phase 3b: daclip_tpu's orbax train dirs read and served on the
+    card's machine, where no JAX is installed."""
+    import hashlib
+
+    from daclip_torch.models.unet import CrossAttention, LinearAttention
+    from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
+    from daclip_torch.utils import native_checkpoint as nc
+    from daclip_torch.utils import orbax_reader, zstd
+
+    started = time.perf_counter()
+    blocked = [m for m in ("jax", "orbax", "tensorstore", "zstandard") if m in sys.modules]
+    check(not blocked, f"orbax phase: {blocked} imported")
+    t0 = time.perf_counter()
+    zstd.load()
+    build_s = time.perf_counter() - t0
+    stored = json.loads((ORBAX_FIXTURE / "leaves.json").read_text())
+    leaves = {}
+    for name in ("restoration", "daclip"):
+        t0 = time.perf_counter()
+        tree, step = nc.load_train_tree(str(ORBAX_FIXTURE / name))
+        tree_ms = (time.perf_counter() - t0) * 1e3
+        got = dict(_orbax_leaves(tree))
+        check(set(got) == set(stored[name]), f"orbax {name}: leaves differ from the stored ones")
+        for key, leaf in got.items():
+            want = stored[name][key]
+            if "scalar" in want:
+                check(leaf == want["scalar"], f"orbax {name}: {key} = {leaf!r}")
+                continue
+            raw = leaf.contiguous().view(-1).view(torch.uint8).numpy().tobytes()
+            check(str(leaf.dtype).replace("torch.", "") == want["dtype"]
+                  and list(leaf.shape) == want["shape"]
+                  and hashlib.sha256(raw).hexdigest() == want["sha256"],
+                  f"orbax {name}: {key} is not daclip_tpu's leaf bit for bit")
+        leaves[name] = dict(step=step, leaves=len(got), tree_ms=tree_ms)
+    expected = np.load(ORBAX_FIXTURE / "expected.npz")
+    cfg = RestorerConfig(model_name="daclip_test-tiny", T=int(expected["T"]), dtype="float32")
+    t0 = time.perf_counter()
+    restorer = DACLIPRestorer.load(str(ORBAX_FIXTURE / "restoration"),
+                                   str(ORBAX_FIXTURE / "daclip"), cfg, device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, -3))).cuda()
+    reset_counts()
+    with torch.no_grad():
+        img_ctx, degra_ctx = restorer.contexts(expected["lq"])
+        out = restorer.sde.reverse_posterior(restorer.unet, dev(expected["x_T"]),
+                                             dev(expected["lq"][None]),
+                                             noises=dev(expected["noises"]),
+                                             text_context=degra_ctx, image_context=img_ctx)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ours = out[0].cpu().numpy().transpose(1, 2, 0)
+    db = psnr(ours, expected["ref_out"])
+    check(np.isfinite(ours).all() and ours.shape == (32, 32, 3), "orbax restore: bad output")
+    check(db > 40.0, f"orbax restore {db:.2f} dB against daclip_tpu's stored restore")
+    # one UNet call a step: #1 at each LinearAttention, #2 at each
+    # SpatialTransformer's self-attention, and nothing else
+    modules = dict(restorer.unet.named_modules())
+    sites = {"wrap": sum(isinstance(m, LinearAttention) for m in modules.values()),
+             "flash": sum(isinstance(m, CrossAttention) and k.endswith("attn1")
+                          for k, m in modules.items())}
+    need = {k: int(expected["T"]) * v for k, v in sites.items() if v}
+    check({k: v for k, v in counts.items() if v} == need,
+          f"orbax restore launched {counts}, expected exactly {need}")
+    # the decoder alone on the fixture's largest stored chunk
+    best = None
+    for name in ("restoration", "daclip"):
+        d = ORBAX_FIXTURE / name
+        item = d / str(orbax_reader.latest_step(str(d))) / "default"
+        with orbax_reader.OcdbtStore(str(item)) as store:
+            entries = store.entries()
+            for key, value in entries.items():
+                if key.endswith(b"/.zarray") or not isinstance(value, tuple):
+                    continue
+                if best is None or value[2] > best[1][2]:
+                    meta = json.loads(entries[key.rsplit(b"/", 1)[0] + b"/.zarray"])
+                    best = (f"{name}:{key.decode()}", value, store.read_range(*value), meta)
+    key, value, raw, meta = best
+    nbytes = int(np.prod(meta["chunks"])) * orbax_reader._DTYPES[meta["dtype"]].itemsize
+    dst = torch.empty(nbytes, dtype=torch.uint8)
+    decode_ms = host_ms(lambda: zstd.decompress_into(raw, dst), iters=100)
+    emit(phase="orbax", seconds=time.perf_counter() - started, zstd_build_s=build_s,
+         trees=leaves, load_ms=load_ms, psnr_vs_daclip_tpu=db,
+         launches={k: v for k, v in counts.items() if v},
+         largest_chunk=dict(key=key, stored_bytes=len(raw), decoded_bytes=nbytes,
+                            decode_ms=decode_ms, decode_mb_s=nbytes / decode_ms / 1e3))
+    return counts
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -2078,7 +2230,7 @@ def run_profile(restorer, forwards=5, wiring="v5"):
     B=1, bf16 — host wall time unprofiled, then the device kernels that
     torch.profiler records, summed by name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     x = torch.rand(1, 3, 256, 256, device="cuda")
     c = torch.rand(1, restorer.cfg.context_dim, device="cuda")
@@ -2092,8 +2244,8 @@ def run_profile(restorer, forwards=5, wiring="v5"):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / forwards
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
+        with profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                      record_shapes=True) as prof:
             for _ in range(forwards):
                 step()
             torch.cuda.synchronize()
@@ -2166,10 +2318,10 @@ def wgrad_yardstick(la, B, n, C, dtype, gen):
                 wgrad_library_device_ms=device_ms(library, ""))
 
 
-def wrap_bwd_check(B, n, C, dtype, gen, balanced, phase="kernels_bwd", path=None):
+def wrap_bwd_check(B, n, C, dtype, gen, balanced, phase="kernels_bwd", path=None, timed=True):
     """The wrap's forward as training calls it and its backward at one site
     against the plain versions (each twice, the bytes must repeat), timed
-    with its weight-gradient launch once a shape; its row."""
+    with its weight-gradient launch once a shape when `timed`; its row."""
     from daclip_torch.ops import linear_attention as la
 
     args = wrap_case(B, n, C, dtype, gen, balanced)
@@ -2203,7 +2355,7 @@ def wrap_bwd_check(B, n, C, dtype, gen, balanced, phase="kernels_bwd", path=None
                limit=limit, repeats_bitwise=repeats, attention_share=share)
     if path:
         row["path"] = path
-    if not balanced:
+    if timed and not balanced:
         row.update(wgrad_yardstick(la, B, n, C, dtype, gen))
         esize = args[0].element_size()
         # the forward as training calls it (keeping its statistics), timed
@@ -2304,6 +2456,9 @@ def run_kernels_bwd():
     rows = {"wrap_bwd": [], "flash_bwd": []}
     for (B, n, C, dtype), balanced in [(s, b) for s in WRAP_BWD_SHAPES for b in (False, True)]:
         rows["wrap_bwd"].append(wrap_bwd_check(B, n, C, dtype, gen, balanced))
+    for (B, n, C, dtype), balanced in [(s, b) for s in WRAP_WIDTH_SHAPES for b in (False, True)]:
+        rows["wrap_bwd"].append(wrap_bwd_check(B, n, C, dtype, gen, balanced, path="width",
+                                               timed=False))
     for B, N, H, D, dtype in FLASH_BWD_SHAPES:
         rows["flash_bwd"].append(flash_bwd_check(B, N, H, D, dtype, gen))
     return rows
@@ -2501,9 +2656,9 @@ def profile_one(step, wall_ms, n_top=15):
     time), the event count, the port's kernels by namespace, the top
     names."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
     by_name, launches, ours = {}, 0, {}
@@ -5289,6 +5444,7 @@ def main():
     conv_rows, conv_path = run_kernels_conv()
     rows.update(conv_rows)
     run_fixture()
+    orbax_totals = run_orbax()
     restorer, serve_totals, sds = run_serve()
     run_profile(restorer)
     serve_alt_totals, fwd = run_serve_alt(restorer, sds)
@@ -5338,6 +5494,7 @@ def main():
     tower_phases_s = time.perf_counter() - t0
 
     # launches on each main path, each counted from 0 just before its run:
+    # orbax (the fixture's restore from daclip_tpu's train dirs, T=20),
     # serve (the four requests), serve_alt (two requests per other wiring),
     # train (five timed steps), train_alt (three), ddp_train and fsdp_train
     # (three steps each, through DDP and FSDP2), train_cli (the CLI's two
@@ -5351,6 +5508,7 @@ def main():
     # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
     # and kernels_conv phases, and the conv's in the hooked forward_conv
     paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, gradio=gradio_totals,
+                 orbax=orbax_totals,
                  shard_tiles=shard_totals,
                  train=train_totals, ddp_train=ddp_totals, fsdp_train=fsdp_totals,
                  train_alt=train_alt_totals, train_cli=train_cli_totals,

@@ -5,10 +5,11 @@ Usage:
       --unet pretrained/universal-ir.pth --daclip pretrained/daclip_ViT-B-32.pt
 
 The flags are those of `daclip_tpu.cli.predict`, plus `--device` (default
-CUDA). `--unet` and `--daclip` take reference torch checkpoints or the JAX
-package's flat .npz params; `--checkpoint` takes the port's train dir
-(`cli/train_restoration.py`'s `training_state`, EMA parameters unless
-`--no-ema`, the latest step unless `--step`). PNG is read and written by
+CUDA). `--unet` and `--daclip` take reference torch checkpoints, the JAX
+package's orbax train dirs or its flat .npz params; `--checkpoint` takes a
+train dir: the JAX package's orbax dir (`daclip_tpu.cli.train_restoration`'s
+`training_state`, or one of its step dirs) or the port's (EMA parameters
+unless `--no-ema`, the latest step unless `--step`). PNG is read and written by
 the port's own codec (`data/png.py`); other formats need cv2.
 """
 from __future__ import annotations
@@ -24,13 +25,14 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="DA-CLIP universal image restoration")
     p.add_argument("-i", "--input", required=True, help="image file or folder")
     p.add_argument("-o", "--output", default="results", help="output folder")
-    p.add_argument("--unet", default=None, help="UNet weights: torch .pth or .npz")
+    p.add_argument("--unet", default=None,
+                   help="UNet weights: torch .pth, orbax train dir or .npz")
     p.add_argument("--checkpoint", default=None,
-                   help="the port's train dir (cli/train_restoration.py's "
-                        "training_state); orbax dirs are refused")
+                   help="a train dir (cli/train_restoration.py's training_state): "
+                        "daclip_tpu's orbax dir or one of its step dirs, or the port's")
     p.add_argument("--daclip", default=None,
-                   help="DA-CLIP weights: torch .pt or .npz; omit for "
-                        "context-free UNets")
+                   help="DA-CLIP weights: torch .pt, orbax train dir or .npz; omit "
+                        "for context-free UNets")
     p.add_argument("--no-ema", action="store_true",
                    help="raw (non-EMA) params from a train dir")
     p.add_argument("--step", type=int, default=None,
@@ -54,9 +56,12 @@ def main(argv=None):
     if not unet:
         p.error("--unet or --checkpoint is required")
     from daclip_torch.utils.checkpoint import steps
-    if args.checkpoint and not steps(args.checkpoint):
-        p.error(f"--checkpoint {args.checkpoint!r} holds no <step>.pt files of "
-                "daclip_torch's trainer (orbax train dirs are not ported)")
+    from daclip_torch.utils.native_checkpoint import is_native_checkpoint
+    if args.checkpoint and not (steps(args.checkpoint) or (
+            os.path.isdir(args.checkpoint) and is_native_checkpoint(args.checkpoint))):
+        p.error(f"--checkpoint {args.checkpoint!r} is not a train dir (an orbax dir of "
+                "daclip_tpu's trainer, one of its step dirs, or <step>.pt files of "
+                "daclip_torch's)")
 
     from daclip_torch.data import native_io
     from daclip_torch.data.util import imread_color, is_image_file, save_img

@@ -5,9 +5,10 @@ Counterpart of `daclip_tpu/cli/test_restoration.py`: reads a test YAML
 reports PSNR / SSIM / PSNR_Y / SSIM_Y, LPIPS when `--lpips-weights` gives
 daclip_tpu's LPIPS(alex) `.npz` (`utils/lpips.py`, on the same device), and
 the average time an image.
-`--unet` / `--checkpoint` take a reference torch .pth, a flat .npz or the
-port's train dir (`cli/train_restoration.py`'s `training_state`; EMA
-parameters unless `--no-ema`); `--save-images` writes PNG without cv2.
+`--unet` / `--checkpoint` take a reference torch .pth, a flat .npz, or a
+train dir (`cli/train_restoration.py`'s `training_state`): the JAX
+package's orbax dir or the port's (EMA parameters unless `--no-ema`);
+`--save-images` writes PNG without cv2.
 
 Usage:
   python -m daclip_torch.cli.test_restoration -opt configs/daclip-sde/test.yml \
@@ -48,12 +49,12 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("-opt", required=True, help="path to test yml")
     p.add_argument("--unet", default=None,
-                   help="UNet weights: torch .pth, .npz, or the port's train dir")
+                   help="UNet weights: torch .pth, .npz, or a train dir")
     p.add_argument("--checkpoint", default=None,
-                   help="the port's train dir (cli/train_restoration.py's "
-                        "training_state): a model this package trained, EMA "
-                        "params by default")
-    p.add_argument("--daclip", default=None, help="DA-CLIP weights: torch .pt or .npz")
+                   help="a train dir (cli/train_restoration.py's training_state): "
+                        "daclip_tpu's orbax dir or the port's, EMA params by default")
+    p.add_argument("--daclip", default=None,
+                   help="DA-CLIP weights: torch .pt, orbax train dir or .npz")
     p.add_argument("--no-ema", action="store_true",
                    help="raw (non-EMA) params from a train dir")
     p.add_argument("--step", type=int, default=None,

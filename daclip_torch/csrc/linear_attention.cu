@@ -156,8 +156,9 @@ __device__ void load_tile(const T* __restrict__ xb, int t0, int valid, int C,
 }
 
 // acc[i][j] = Σ_k A[(ty·8+i)·lda + k] · W[k·ldw + tx + 32j] for a 64-row tile,
-// j < ncols/32 (ncols a multiple of 32, ≤ 32·NC). W (global, type T) is staged
-// 32 rows at a time through ws as f32. Thread (ty, tx) = (warp, lane).
+// 32j < ncols ≤ 32·NC (a lane's columns at or past ncols hold garbage, its
+// caller writes none of them). W (global, type T) is staged up to 32 rows at
+// a time through ws as f32 (K a multiple of 16). Thread (ty, tx) = (warp, lane).
 template <typename T, int NC>
 __device__ void gemm_tile(const float* A, int lda, int K, const T* __restrict__ W,
                           int ldw, int ncols, float* ws, float (&acc)[8][NC]) {
@@ -167,13 +168,14 @@ __device__ void gemm_tile(const float* A, int lda, int K, const T* __restrict__ 
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < K; k0 += 32) {
-    for (int e = threadIdx.x; e < 32 * ncols; e += NT) {
+    const int kn = min(32, K - k0);
+    for (int e = threadIdx.x; e < kn * ncols; e += NT) {
       const int kk = e / ncols, c = e - kk * ncols;
       ws[e] = to_f(W[(size_t)(k0 + kk) * ldw + c]);
     }
     __syncthreads();
 #pragma unroll 4
-    for (int kk = 0; kk < 32; ++kk) {
+    for (int kk = 0; kk < kn; ++kk) {
       float a[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) a[i] = A[(ty * 8 + i) * lda + k0 + kk];
@@ -436,7 +438,7 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ g_pre,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (j * 32 < ncols) {
+        if (lane + 32 * j < ncols) {
           const int col = c0 + lane + 32 * j;
           xs[(warp * 8 + i) * C + col] = acc[i][j] + to_f(b_out[col]);
         }
@@ -1024,7 +1026,7 @@ using namespace daclip::wrap;
 extern "C" int daclip_wrap_stats(const void* x, const void* g_pre, const void* w_qkv,
                                  void* part_m, void* part_s, void* part_ctx, int B, int n,
                                  int C, int rows, int is_bf16, void* stream) {
-  if (C % 32 || C > 512 || rows % TILE || n < 1) return (int)cudaErrorInvalidValue;
+  if (C % 16 || C < 16 || C > 512 || rows % TILE || n < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   return is_bf16 ? launch_stats<__nv_bfloat16, RAW_X>(x, g_pre, w_qkv, part_m, part_s,
                                                       part_ctx, B, n, C, rows, st)
@@ -1051,7 +1053,7 @@ extern "C" int daclip_wrap_apply(const void* x, const void* g_pre, const void* w
                                  const void* w_attn, const void* w_out, const void* b_out,
                                  const void* g_out, void* out, int B, int n, int C, int tiles,
                                  int is_bf16, void* stream) {
-  if (C % 32 || C > 512 || n < 1) return (int)cudaErrorInvalidValue;
+  if (C % 16 || C < 16 || C > 512 || n < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   return is_bf16 ? launch_apply<__nv_bfloat16, RAW_X, true>(x, g_pre, w_qkv, w_attn, w_out,
                                                             b_out, g_out, out, B, n, C, tiles, st)
@@ -1065,7 +1067,7 @@ extern "C" int daclip_linattn_fused_v4(const void* xn, const void* w_qkv, const 
                                        void* part_s, void* part_ctx, void* w_attn, void* out,
                                        int B, int n, int C, int rows, int tiles, int is_bf16,
                                        void* stream) {
-  if (C % 32 || C > 512 || rows % TILE || n < 1) return (int)cudaErrorInvalidValue;
+  if (C % 16 || C < 16 || C > 512 || rows % TILE || n < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   return is_bf16 ? launch_forward<__nv_bfloat16, XN, false>(
                        xn, nullptr, w_qkv, w_out, b_out, g_out, part_m, part_s, part_ctx,
@@ -1092,6 +1094,6 @@ extern "C" int daclip_linattn_core(const void* qkv, void* part_m, void* part_s, 
 // The bf16 launches' dynamic shared memory in bytes at C: kernel 0 stats, 1
 // apply, in input form `form` (0 raw x, 1 xn, 2 qkv); 0 if it does not fit.
 extern "C" int daclip_wrap_smem(int kernel, int C, int form) {
-  if (C % 32 || C < 32 || C > 512 || form < 0 || form > 2) return 0;
+  if (C % 16 || C < 16 || C > 512 || form < 0 || form > 2) return 0;
   return kernel == 0 ? tc::stats_layout(C, form).bytes : tc::apply_layout(C, form).bytes;
 }

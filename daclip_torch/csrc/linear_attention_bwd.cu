@@ -150,9 +150,11 @@ __device__ void load_rows(const T* __restrict__ src, int t0, int valid, int C, f
 
 // acc[i][j] = Σ_k A[(warp·RW + i)·lda + k] · W(k, c0 + lane + 32j) for the
 // tile's 8·RW rows, j < NC with 32j < ncols, where W(k, c) = W[k·sk + c·sc]
-// (sk = 1 reads a weight transposed). K is a multiple of 32; W is staged 32
-// rows of k at a time through ws, as f32, in the order that reads the
-// global weights contiguously. Thread (warp, lane) owns rows warp·RW + i.
+// (sk = 1 reads a weight transposed; a lane's columns at or past ncols hold
+// garbage, its caller writes none of them). K is a multiple of 16; W is
+// staged up to 32 rows of k at a time through ws, as f32, in the order that
+// reads the global weights contiguously. Thread (warp, lane) owns rows
+// warp·RW + i.
 template <typename T, int RW, int NC>
 __device__ void gemm_rows(const float* A, int lda, int K, const T* __restrict__ W, int sk,
                           int sc, int c0, int ncols, float* ws, float (&acc)[RW][NC]) {
@@ -162,6 +164,7 @@ __device__ void gemm_rows(const float* A, int lda, int K, const T* __restrict__ 
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < K; k0 += 32) {
+    const int kn = min(32, K - k0);
     for (int e = threadIdx.x; e < 32 * ncols; e += NT) {
       int kk, c;
       if (sc == 1) {
@@ -171,11 +174,11 @@ __device__ void gemm_rows(const float* A, int lda, int K, const T* __restrict__ 
         c = e >> 5;
         kk = e & 31;
       }
-      ws[kk * WLD + c] = to_f(W[(size_t)(k0 + kk) * sk + (size_t)(c0 + c) * sc]);
+      if (kk < kn) ws[kk * WLD + c] = to_f(W[(size_t)(k0 + kk) * sk + (size_t)(c0 + c) * sc]);
     }
     __syncthreads();
 #pragma unroll 4
-    for (int kk = 0; kk < 32; ++kk) {
+    for (int kk = 0; kk < kn; ++kk) {
       float a[RW];
 #pragma unroll
       for (int i = 0; i < RW; ++i) a[i] = A[(warp * RW + i) * lda + k0 + kk];
@@ -298,7 +301,7 @@ pass1_kernel(const T* __restrict__ x, const T* __restrict__ dout, const T* __res
       for (int i = 0; i < RW; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (j * 32 < ncols) {
+          if (lane + 32 * j < ncols) {
             const int col = c0 + lane + 32 * j;
             r1[(warp * RW + i) * C + col] = acc[i][j] + to_f(b_out[col]);
           }
@@ -521,7 +524,7 @@ pass2_kernel(const T* __restrict__ x, const T* __restrict__ dout, const T* __res
       for (int i = 0; i < RW; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (j * 32 < ncols) r1[(warp * RW + i) * C + c0 + lane + 32 * j] = acc[i][j];
+          if (lane + 32 * j < ncols) r1[(warp * RW + i) * C + c0 + lane + 32 * j] = acc[i][j];
     }
     __syncthreads();
     for (int r = warp; r < valid; r += NT / 32) {  // pre-norm LN VJP + residual
@@ -1516,7 +1519,7 @@ extern "C" int daclip_wrap_bwd1(const void* x, const void* dout, const void* g_p
                                 void* attn_spill, void* part_dw, void* part_dgout,
                                 void* part_dbout, int B, int n, int C, int rows, int is_bf16,
                                 void* stream) {
-  if (C % 32 || C > 512 || rows % 64 || n < 1) return (int)cudaErrorInvalidValue;
+  if (C % 16 || C < 16 || C > 512 || rows % 64 || n < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (is_bf16) {
     if (!daclip::linattn::aligned16({x, dout, g_pre, w_qkv, w_out, b_out, g_out, dy_spill, attn_spill}))
@@ -1556,7 +1559,7 @@ extern "C" int daclip_wrap_bwd2(const void* x, const void* dout, const void* g_p
                                 const void* dy_spill, void* dx, void* xn_spill,
                                 void* dqkv_spill, void* part_dgpre, int B, int n, int C,
                                 int rows, int is_bf16, void* stream) {
-  if (C % 32 || C > 512 || rows % 64 || n < 1) return (int)cudaErrorInvalidValue;
+  if (C % 16 || C < 16 || C > 512 || rows % 64 || n < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (is_bf16) {
     if (!daclip::linattn::aligned16({x, dout, g_pre, w_qkv, w_out, dy_spill, dx, xn_spill, dqkv_spill}))
@@ -1592,7 +1595,7 @@ extern "C" int daclip_wrap_wgrad(const void* a, const void* bm, void* part, long
 // The bf16 launches' dynamic shared memory in bytes at C: kernel 0 pass 1,
 // 1 pass 2, 2 the weight gradient dW_qkv, 3 dW_out; 0 if it does not fit.
 extern "C" int daclip_wrap_bwd_smem(int kernel, int C) {
-  if (C % 32 || C < 32 || C > 512) return 0;
+  if (C % 16 || C < 16 || C > 512) return 0;
   if (kernel == 2 && C <= 64) return tc::Wgrad<6>::BYTES;
   if (kernel >= 2) return tc::Wgrad<2>::BYTES;
   return kernel == 0 ? tc::pass1_layout(C).bytes : tc::pass2_layout(C).bytes;

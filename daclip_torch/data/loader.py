@@ -7,8 +7,9 @@ data/__init__.py:8-33, data_sampler.py:31-62):
   * DataLoader — samples fetched by a thread pool, two batches ahead, and
     collated in numpy,
   * to_device — a collated batch's HWC arrays as NCHW tensors on the device
-    (pinned host memory and asynchronous copies on CUDA), in place of the
-    JAX package's `device_prefetch`.
+    (pinned host memory and asynchronous copies on CUDA),
+  * device_prefetch — `to_device` of an iterator's batches, issued `size`
+    batches ahead (daclip_tpu's `device_prefetch` :131).
 
 The loader keeps threads rather than torch's worker processes: a dataset
 holds one `random.Random`, which all samples draw from in the order the
@@ -151,3 +152,28 @@ def to_device(batch: Dict, device, keys=None) -> Dict:
             t = t.pin_memory()
         out[k] = t.to(device, non_blocking=pin)
     return out
+
+
+def device_prefetch(iterator, device, size: int = 2):
+    """The batches of `iterator` with their arrays on `device` as `to_device`
+    puts them (other entries kept as they are), each copy issued `size`
+    batches before the batch is yielded, so that on CUDA the copies overlap
+    the steps that use the batches before it."""
+    queue = collections.deque()
+
+    def put(batch):
+        out = {k: v for k, v in batch.items() if not isinstance(v, np.ndarray)}
+        out.update(to_device(batch, device))
+        return out
+
+    it = iter(iterator)
+    for batch in it:
+        queue.append(put(batch))
+        if len(queue) >= size:
+            break
+    while queue:
+        out = queue.popleft()
+        batch = next(it, None)
+        if batch is not None:
+            queue.append(put(batch))
+        yield out

@@ -77,25 +77,28 @@ def _run(cmd, what: str):
         raise NativeLibraryError(f"{' '.join(cmd)} could not run ({what}): {e}") from e
 
 
-def _library_path() -> str:
-    """The library's path, building it when it is not there. The name hashes
-    the source, the flags and the compiler's version, so a build directory
-    carried to another machine is not taken for its own."""
+def build_library(src_path: str, stem: str, libs: Sequence[str] = ()) -> str:
+    """The path of the shared library g++ builds from `src_path`, building
+    it into the build directory when it is not there. The name hashes the
+    source, the flags and the compiler's version, so a build directory
+    carried to another machine is not taken for its own; the file is
+    published by an atomic rename, so processes building at once do not
+    collide. Raises `NativeLibraryError` when it cannot build."""
     try:
-        with open(_SRC, "rb") as f:
+        with open(src_path, "rb") as f:
             src = f.read()
     except OSError as e:
-        raise NativeLibraryError(f"cannot read the decoder's source {_SRC}: {e}") from e
+        raise NativeLibraryError(f"cannot read the decoder's source {src_path}: {e}") from e
     compiler = _run([_CXX, "--version"], "the compiler's version").stdout
-    tag = hashlib.sha256(src + " ".join(_FLAGS + _LIBS).encode()
+    tag = hashlib.sha256(src + " ".join(_FLAGS + tuple(libs)).encode()
                          + compiler.encode()).hexdigest()[:16]
-    out = os.path.join(_BUILD_DIR, f"libdio_{tag}.so")
+    out = os.path.join(_BUILD_DIR, f"{stem}_{tag}.so")
     if os.path.exists(out):
         return out
     tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
     try:
         os.makedirs(_BUILD_DIR, exist_ok=True)
-        cmd = [_CXX, *_FLAGS, "-o", tmp, _SRC, *_LIBS]
+        cmd = [_CXX, *_FLAGS, "-o", tmp, src_path, *libs]
         res = _run(cmd, "the build")
         if res.returncode != 0:
             raise NativeLibraryError(f"{' '.join(cmd)} failed ({res.returncode}):\n{res.stderr}")
@@ -103,6 +106,11 @@ def _library_path() -> str:
     except OSError as e:
         raise NativeLibraryError(f"cannot build into {_BUILD_DIR}: {e}") from e
     return out
+
+
+def _library_path() -> str:
+    """The decoder library's path, building it when it is not there."""
+    return build_library(_SRC, "libdio", _LIBS)
 
 
 def load(path: Optional[str] = None):

@@ -3,8 +3,8 @@
 Counterpart of `daclip_tpu/eval/__init__.py` (`parse_checkpoint_spec`).
 `load_daclip` and `DaclipEncoders` are the model loading and the batched
 encoders that each of daclip_tpu's eval modules and `tools/encode_folder`
-builds for itself: a DaCLIP from `load_daclip_any` (torch .pt, flat .npz
-or the port's DA-CLIP train dir) on a device, in bf16 as daclip_tpu's
+builds for itself: a DaCLIP from `load_daclip_any` (torch .pt, daclip_tpu's
+orbax train dir or flat .npz, or the port's DA-CLIP train dir) on a device, in bf16 as daclip_tpu's
 `DaCLIP(cfg, dtype=jnp.bfloat16)` unless told otherwise.
 """
 from __future__ import annotations

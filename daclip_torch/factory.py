@@ -14,7 +14,8 @@ the `test-tiny` config), every image tower they name included:
   * `pretrained` is a local file or directory: a full DaCLIP `.pt` (the
     predictor kept only with `use_predictor`), a plain CLIP `.pt` copied
     into the controller as `initial_controller` does (factory.py:236-239),
-    a JAX `.npz` params tree, or the port's DA-CLIP train dir; or a
+    a JAX `.npz` params tree or orbax train dir (`cli/train_daclip`'s, a
+    DaCLIP's or a plain CLIP's), or the port's DA-CLIP train dir; or a
     registry tag (`openai`, `laion2b_s34b_b79k`, …), downloaded into the
     cache by `models/pretrained.py` and loaded as a local file;
   * `create_model_and_transforms` adds the train and val image transforms
@@ -59,15 +60,15 @@ def initial_controller(model: DaCLIP) -> None:
 
 
 def _load_state_dict(path: str, cfg: CLIPCfg, custom_text: bool = False):
-    """A reference-named CLIP or DaCLIP state dict from a local file or the
-    port's DA-CLIP train dir; a ViT's position embedding resized to the
-    config's grid (`patch_size` is None for the other towers, JAX
-    factory.py:599)."""
+    """A reference-named CLIP or DaCLIP state dict from a local file, an
+    orbax train dir of daclip_tpu's or the port's DA-CLIP train dir; a ViT's
+    position embedding resized to the config's grid (`patch_size` is None
+    for the other towers, JAX factory.py:599)."""
     from daclip_torch.convert import clip_state_dict_from_jax, daclip_state_dict_from_jax
     from daclip_torch.utils import native_checkpoint as nc
 
-    if nc.checkpoint_kind(path) == "npz":
-        params = nc.load_params_npz(path)
+    if nc.is_native_checkpoint(path):
+        params = nc.load_jax_params(path)
         return (daclip_state_dict_from_jax(params) if "clip" in params
                 else clip_state_dict_from_jax(params, custom_text=custom_text))
     v = cfg.vision
@@ -185,6 +186,18 @@ def create_model_and_transforms(model_name: str, pretrained: Optional[str] = Non
     mean, std = image_mean or tag.get("mean"), image_std or tag.get("std")
     return (model, image_transform(size, is_train=True, mean=mean, std=std, rng=rng),
             image_transform(size, is_train=False, mean=mean, std=std))
+
+
+def create_model_from_pretrained(model_name: str, pretrained: str, precision: str = "fp32",
+                                 use_predictor: Optional[bool] = None,
+                                 cache_dir: Optional[str] = None, image_mean=None,
+                                 image_std=None, seed: int = 0):
+    """(model, preprocess_val): `create_model_and_transforms` without the
+    train transform (JAX factory.py:229-242; reference factory.py:363-404)."""
+    model, _, pp_val = create_model_and_transforms(
+        model_name, pretrained, precision, use_predictor, cache_dir, image_mean, image_std,
+        seed=seed)
+    return model, pp_val
 
 
 def get_tokenizer(model_name: str = ""):

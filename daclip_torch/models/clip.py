@@ -170,6 +170,17 @@ def _asset_configs() -> Dict[str, Dict]:
             for f in sorted(ASSET_CONFIG_DIR.glob("*.json"))}
 
 
+def add_model_config(path):
+    """Register extra model configs from a JSON file or a directory of them
+    (each file that has embed_dim, vision_cfg and text_cfg, under its stem),
+    as daclip_tpu's `add_model_config`."""
+    path = pathlib.Path(path)
+    for f in [path] if path.is_file() else sorted(path.glob("*.json")):
+        cfg = json.loads(f.read_text())
+        if all(k in cfg for k in ("embed_dim", "vision_cfg", "text_cfg")):
+            _MODEL_CONFIGS[f.stem] = cfg
+
+
 def list_models():
     return sorted(set(_MODEL_CONFIGS) | set(_asset_configs()))
 
@@ -256,12 +267,18 @@ class CLIP(nn.Module):
                 t.width ** -0.5 * torch.randn(t.width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
-    def encode_image(self, image, normalize: bool = False, control=None, train: bool = False,
+    def encode_image(self, image, normalize: bool = False, control=None,
+                     output_hiddens: bool = False, train: bool = False,
                      generator: Optional[torch.Generator] = None):
         """`train` turns the tower's patch dropout on (where the config has
-        one), its noise drawn from `generator`."""
-        return _normalize(self.visual(image, control=control, dtype=self.dtype, train=train,
-                                      generator=generator), normalize)
+        one), its noise drawn from `generator`. With `output_hiddens` (a ViT
+        tower), returns (features, the per-block hiddens a controller
+        gives)."""
+        out = self.visual(image, control=control, output_hiddens=output_hiddens,
+                          dtype=self.dtype, train=train, generator=generator)
+        if output_hiddens:
+            return _normalize(out[0], normalize), out[1]
+        return _normalize(out, normalize)
 
     def encode_text(self, text, normalize: bool = False):
         """text (B, L) token ids → (B, embed_dim): causal stack, ln_final on

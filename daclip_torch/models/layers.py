@@ -14,6 +14,7 @@ identity and the forward is the single-card one.
 """
 from __future__ import annotations
 
+import math
 import sys
 
 import torch
@@ -196,6 +197,45 @@ class MultiheadAttention(nn.Module):
         q = F.linear(x, wq.to(x.dtype), self.in_proj_bias.to(x.dtype).chunk(3)[0])
         k, v = kv if isinstance(kv, tuple) else self.project_kv(kv)
         return self.out_proj(self._attend(q.reshape(B, N, -1, hd), k, v, mask).reshape(B, N, D))
+
+
+class ScaledCosineAttention(nn.Module):
+    """open_clip's custom `Attention` (transformer.py:87-160) under its
+    state-dict names (`in_proj_weight`, `in_proj_bias`, `logit_scale`,
+    `head_scale`, `out_proj`), on (B, N, D) tokens as daclip_tpu's
+    `ScaledCosineAttention` (models/layers.py:82): optional scaled-cosine
+    logits (L2-normalised q and k, a learned per-head temperature clamped at
+    `logit_scale_max`) and optional per-head output scaling; logits and
+    softmax in float32. No shipped config uses it."""
+
+    def __init__(self, width: int, heads: int, scaled_cosine: bool = True,
+                 scale_heads: bool = False, logit_scale_max: float = math.log(1 / 0.01)):
+        super().__init__()
+        self.heads, self.logit_scale_max = heads, logit_scale_max
+        self.head_dim = width // heads
+        self.in_proj_weight = nn.Parameter(torch.randn(3 * width, width) * self.head_dim ** -0.5)
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
+        self.logit_scale = (nn.Parameter(torch.full((heads, 1, 1), math.log(10.0)))
+                            if scaled_cosine else None)
+        self.head_scale = nn.Parameter(torch.ones(heads, 1, 1)) if scale_heads else None
+        self.out_proj = Linear(width, width)
+
+    def forward(self, x, mask=None):
+        B, N, D = x.shape
+        qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
+        q, k, v = (t.reshape(B, N, self.heads, self.head_dim).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+        if self.logit_scale is not None:
+            logits = (F.normalize(q.float(), dim=-1) @ F.normalize(k.float(), dim=-1).mT
+                      * torch.clamp(self.logit_scale, max=self.logit_scale_max).exp())
+        else:
+            logits = (q @ k.mT).float() * self.head_dim ** -0.5
+        if mask is not None:
+            logits = logits + mask.float()
+        out = logits.softmax(dim=-1).to(x.dtype) @ v
+        if self.head_scale is not None:
+            out = out * self.head_scale.to(out.dtype)
+        return self.out_proj(out.transpose(1, 2).reshape(B, N, D))
 
 
 class MLP(nn.Module):

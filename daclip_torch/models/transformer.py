@@ -72,7 +72,8 @@ class Transformer(nn.Module):
     """L residual blocks (open_clip/transformer.py:328-369).
 
     `control`: the controller's hiddens in controller block order; block i
-    adds control[L-1-i] after itself."""
+    adds control[L-1-i] after itself. `output_hiddens` also returns each
+    block's output before that addition (transformer.py:365-366)."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  quick_gelu: bool = False, remat: bool = False,
@@ -87,13 +88,17 @@ class Transformer(nn.Module):
         """One block, recomputed in the backward pass when remat is on."""
         return run_block(block, self.remat, x, mask)
 
-    def forward(self, x, mask=None, control: Optional[List[torch.Tensor]] = None):
+    def forward(self, x, mask=None, control: Optional[List[torch.Tensor]] = None,
+                output_hiddens: bool = False):
         control = None if control is None else list(control)
+        hiddens = []
         for block in self.resblocks:
             x = self.run_block(block, x, mask)
+            if output_hiddens:
+                hiddens.append(x)
             if control is not None:
                 x = x + control.pop().to(x.dtype)
-        return x
+        return (x, hiddens) if output_hiddens else x
 
 
 def causal_mask(n: int, device=None) -> torch.Tensor:
@@ -199,7 +204,8 @@ class VisionTransformer(nn.Module):
                 dtype: torch.dtype = torch.float32, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         """x (B, 3, H, W) → pooled (B, output_dim); with `output_hiddens`
-        (controller only) also the per-block hiddens, with `output_tokens`
+        also the per-block hiddens (a controller's zero-module outputs, else
+        each block's output), with `output_tokens`
         the tokens. `train` turns patch dropout on, its noise drawn from
         `generator`."""
         B = x.shape[0]
@@ -218,6 +224,8 @@ class VisionTransformer(nn.Module):
         hiddens = None
         if isinstance(self.transformer, ControlTransformer):
             h, hiddens = self.transformer(h)
+        elif output_hiddens:
+            h, hiddens = self.transformer(h, control=control, output_hiddens=True)
         else:
             h = self.transformer(h, control=control)
         if self.attn_pool is not None:

@@ -206,8 +206,8 @@ def _check(x, g_pre, w_qkv, w_out, b_out, g_out, name="attn_wrap"):
     B, n, C = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name} takes bfloat16 or float32, got {x.dtype}")
-    if C % 32 or not 32 <= C <= 512 or n < 1 or not 1 <= B <= 65535:
-        raise ValueError(f"{name} kernel takes C a multiple of 32 up to 512, "
+    if C % 16 or not 16 <= C <= 512 or n < 1 or not 1 <= B <= 65535:
+        raise ValueError(f"{name} kernel takes C a multiple of 16 up to 512, "
                          f"n >= 1, 1 <= B <= 65535; got (B, n, C) = {(B, n, C)}")
     want = {"g_pre": (C,), "w_qkv": (C, 3 * HID), "w_out": (HID, C),
             "b_out": (C,), "g_out": (C,)}

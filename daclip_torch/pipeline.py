@@ -28,7 +28,6 @@ import contextlib
 import copy
 import dataclasses
 import math
-import os
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
@@ -41,9 +40,8 @@ from daclip_torch.models.unet import ConditionalUNet
 from daclip_torch.sde.irsde import IRSDE
 from daclip_torch.tokenizer import tokenize
 from daclip_torch.transforms import clip_transform
-from daclip_torch.utils import checkpoint as train_checkpoint
 from daclip_torch.utils.metrics import array2img
-from daclip_torch.utils.native_checkpoint import _ORBAX, load_daclip_any, load_unet_any
+from daclip_torch.utils.native_checkpoint import load_daclip_any, load_unet_any
 
 # 10 distortion types of the universal-ir model (options/train.yml:5)
 DEGRADATION_CLASSES = ["motion-blurry", "hazy", "jpeg-compressed", "low-light",
@@ -180,26 +178,42 @@ class DACLIPRestorer:
         self._tile_unets: Dict[torch.device, ConditionalUNet] = {}
 
     @classmethod
+    def from_torch(cls, unet_path: str, daclip_path: str,
+                   cfg: Optional[RestorerConfig] = None, device=None) -> "DACLIPRestorer":
+        """The reference checkpoints (universal-ir.pth + daclip_ViT-B-32.pt),
+        loaded as predict.py:34-56 does; the UNet architecture is read off
+        its checkpoint and overrides `cfg`."""
+        return cls.load(unet_path, daclip_path, cfg, device=device)
+
+    @classmethod
+    def from_train_dir(cls, train_dir: str, daclip: Optional[str] = None,
+                       cfg: Optional[RestorerConfig] = None, use_ema: bool = True,
+                       step: Optional[int] = None, device=None) -> "DACLIPRestorer":
+        """Serve a trained UNet: `train_dir` is daclip_tpu's orbax dir of
+        `cli/train_restoration` or the port's own train dir (the EMA
+        parameters unless `use_ema=False`, at `step`, default the latest);
+        `daclip` any DA-CLIP checkpoint `load` takes, or None."""
+        return cls.load(train_dir, daclip, cfg, use_ema=use_ema, step=step, device=device)
+
+    @classmethod
     def load(cls, unet: str, daclip: Optional[str] = None,
              cfg: Optional[RestorerConfig] = None, use_ema: bool = True,
              step: Optional[int] = None, device=None) -> "DACLIPRestorer":
         """Build from reference torch checkpoints (universal-ir.pth +
         daclip_ViT-B-32.pt), as predict.py:34-56 does, from the JAX
-        package's flat .npz params (`utils/native_checkpoint.py`), each file
-        either, or with `unet` the port's train dir (its `<step>.pt` files:
-        `step`, default the latest, and the EMA parameters unless
-        `use_ema=False`), as daclip_tpu's `load` takes its orbax dir; with
-        `daclip` an `epoch_<n>.pt` of the port's DA-CLIP trainer or its
-        train dir (the latest epoch). The
-        UNet architecture is inferred from its checkpoint and overrides
-        `cfg`; a torch DA-CLIP's position embeddings are resized to the
-        config's grid. The fork's `predictor.*` is dropped. Without `daclip`
-        both contexts are off (as daclip_tpu's `load`), and a UNet with image
-        context is refused with a ValueError. Orbax dirs are refused."""
-        if (daclip is not None and os.path.isdir(daclip)
-                and not train_checkpoint.steps(daclip, train_checkpoint.EPOCH)):
-            raise NotImplementedError(f"{daclip!r} is a directory: DA-CLIP weights load "
-                                      f"from a file or the port's DA-CLIP train dir; {_ORBAX}")
+        package's orbax train dirs (`unet` one of `cli/train_restoration`,
+        `daclip` one of `cli/train_daclip`, or one of their step dirs) or flat
+        .npz params (`utils/native_checkpoint.py`), each either, or with
+        `unet` the port's train dir (its `<step>.pt` files). For a UNet train
+        dir, `step` (default the latest) and the EMA parameters unless
+        `use_ema=False`; a DA-CLIP train dir gives its latest save, as
+        daclip_tpu's `load`; `daclip` may also be an `epoch_<n>.pt` of the
+        port's DA-CLIP trainer or its train dir (the latest epoch). The UNet
+        architecture is inferred from its checkpoint and overrides `cfg`; a
+        torch DA-CLIP's position embeddings are resized to the config's
+        grid. The fork's `predictor.*` is dropped. Without `daclip` both
+        contexts are off (as daclip_tpu's `load`), and a UNet with image
+        context is refused with a ValueError."""
         cfg = cfg or RestorerConfig()
         unet_sd, arch = load_unet_any(unet, step=step, use_ema=use_ema)
         cfg = dataclasses.replace(
@@ -312,8 +326,16 @@ class DACLIPRestorer:
         return torch.cat([o.to(self.device) for o in outs])
 
     # -- public API --------------------------------------------------------------
-    def contexts(self, images_rgb):
-        """CLIP contexts of a list of LQ images ([0,1] float RGB HWC), batched."""
+    def contexts(self, image_rgb: np.ndarray):
+        """CLIP contexts of one LQ image ([0,1] float RGB HWC): (img_ctx,
+        degra_ctx), each (1, D) float32 or None where its context is off, as
+        daclip_tpu's `contexts`."""
+        degra_ctx, img_ctx = self._contexts_batch([image_rgb])
+        return img_ctx, degra_ctx
+
+    def _contexts_batch(self, images_rgb):
+        """(degra_ctx, img_ctx) of a list of LQ images, in one batched encode:
+        the (text_context, image_context) the UNet takes."""
         if self.daclip is None:
             return None, None
         res = self.daclip.cfg.vision.image_size
@@ -359,7 +381,7 @@ class DACLIPRestorer:
     def restore(self, image_rgb: np.ndarray, seed: int = 0, return_uint8: bool = True):
         """Restore one [0,1] float RGB HWC image of any size."""
         H, W = image_rgb.shape[:2]
-        tctx, ictx = self.contexts([image_rgb])
+        tctx, ictx = self._contexts_batch([image_rgb])
         if max(H, W) > self.cfg.tile_size:
             out = self._restore_tiled(image_rgb, seed, tctx, ictx)
         else:
@@ -394,7 +416,7 @@ class DACLIPRestorer:
                 H, W = img.shape[:2]
                 batch.append(np.pad(img, ((0, bh - H), (0, bw - W), (0, 0)), mode="reflect")
                              if (bh != H or bw != W) else img)
-            tctx, ictx = self.contexts([images_rgb[i] for i in idxs])
+            tctx, ictx = self._contexts_batch([images_rgb[i] for i in idxs])
             # seed with the group ordinal: bucket dims can collide (64·128, 128·64)
             out = self._sample(np.stack(batch), self._generator(seed, gi), tctx, ictx)
             for j, i in enumerate(idxs):

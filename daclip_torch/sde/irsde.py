@@ -130,6 +130,23 @@ class IRSDE:
             self._tables[t.device] = tables
         return tables[name][t]
 
+    # -- schedule lookups (daclip_tpu/sde/irsde.py:147-161) ------------------------
+    def thetas(self, t):
+        return self._at("thetas", t)
+
+    def sigmas(self, t):
+        return self._at("sigmas", t)
+
+    def thetas_cumsum(self, t):
+        return self._at("thetas_cumsum", t)
+
+    def sigma_bar(self, t):
+        return self._at("sigma_bars", t)
+
+    def weights(self, t):
+        """e^{-θ̄_t dt} (sde_utils.py:352-353)."""
+        return self._at("weights", t)
+
     # -- forward-process quantities ---------------------------------------------
     def mu_bar(self, mu, x0, t):
         return mu + (x0 - mu) * self._at("weights", t)

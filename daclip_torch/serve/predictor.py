@@ -23,8 +23,10 @@ class Predictor:
               sample_T: int = -1,
               device=None):
         """predict.py:34-56: build model + DA-CLIP + IR-SDE once, on `device`
-        (None means CUDA). The image decoder is built here, not in the
-        first request."""
+        (None means CUDA). Each path is anything `DACLIPRestorer.load`
+        takes: a reference torch checkpoint, daclip_tpu's orbax train dir or
+        .npz, or the port's train dir. The image decoder is built here, not
+        in the first request."""
         from daclip_torch.data import native_io
         from daclip_torch.pipeline import DACLIPRestorer, RestorerConfig
 

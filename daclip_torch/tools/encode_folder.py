@@ -17,9 +17,9 @@ Layouts:
 
 Writes to --out: all_embeddings.npy (the --features choice), labels.npy,
 filenames.npy, plus both raw dumps (degra_embeddings.npy,
-image_embeddings.npy). Checkpoints may be torch .pt, a flat .npz or the
-port's DA-CLIP train dir; orbax train dirs are refused
-(`utils/native_checkpoint.py`).
+image_embeddings.npy). Checkpoints may be torch .pt, daclip_tpu's orbax
+train dir (`cli/train_daclip`'s) or flat .npz, or the port's DA-CLIP train
+dir (`utils/native_checkpoint.py`).
 """
 from __future__ import annotations
 

@@ -4,13 +4,13 @@ Counterpart of `daclip_tpu/tools/inspect_checkpoint.py` (the reference's
 debug script da-clip/src/test.py:1-11, which torch.loads a checkpoint and
 prints its keys). It reads each kind of `utils/native_checkpoint.
 checkpoint_kind`: a torch `.pt`/`.pth` (its state dict, unwrapped as
-`convert.load_torch_state_dict` does), a flat `.npz`, the port's
-restoration train dir (`<step>.pt`) and its DA-CLIP train dir
-(`epoch_<n>.pt`), each file's whole tree. It prints the top-level layout,
-the flattened keys with shapes and dtypes, and the total count of array
-elements: for the same `.npz`, the same lines as daclip_tpu's. Orbax train
-dirs are refused, with `native_checkpoint`'s message (`orbax.checkpoint`
-imports jax).
+`convert.load_torch_state_dict` does), an orbax train dir of daclip_tpu's
+(either train CLI's) or one of its step dirs (read without JAX by
+`utils/orbax_reader`), a flat `.npz`, the port's restoration train dir
+(`<step>.pt`) and its DA-CLIP train dir (`epoch_<n>.pt`), each file's whole
+tree. It prints the top-level layout, the flattened keys with shapes and
+dtypes, and the total count of array elements: for the same `.npz` or
+orbax dir, the same keys, array lines and counts as daclip_tpu's.
 
   python -m daclip_torch.tools.inspect_checkpoint <ckpt> [--keys-only] [--limit N]
 """
@@ -34,7 +34,7 @@ def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 def _leaf_desc(v: Any) -> str:
     shape = getattr(v, "shape", None)
     if shape is not None:
-        dtype = getattr(v, "dtype", "?")
+        dtype = str(getattr(v, "dtype", "?")).replace("torch.", "")
         return f"{tuple(shape)} {dtype}"
     return repr(v)
 
@@ -46,7 +46,10 @@ def load_tree(path: str, step=None) -> Tuple[Dict, str]:
     from daclip_torch.utils import checkpoint as ckpt
     from daclip_torch.utils import native_checkpoint as nc
 
-    kind = nc._refuse_orbax(path)
+    kind = nc.checkpoint_kind(path)
+    if kind in ("orbax", "orbax_step"):
+        tree, restored = nc.load_train_tree(path, step=step)
+        return tree, f"orbax (step {restored})"
     if kind == "npz":
         return nc.load_params_npz(path), "npz"
     if kind in ("train_dir", "clip_train_dir"):
@@ -82,11 +85,11 @@ def describe(tree: Dict, fmt: str, keys_only: bool = False, limit: int = 0,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkpoint",
-                    help="torch .pt/.pth, .npz, or the port's restoration or "
-                         "DA-CLIP train dir")
+                    help="torch .pt/.pth, orbax train dir, orbax step dir, .npz, "
+                         "or the port's restoration or DA-CLIP train dir")
     ap.add_argument("--step", type=int, default=None,
-                    help="train dir step (epoch for a DA-CLIP train dir) to "
-                         "load (default: latest)")
+                    help="train dir step (epoch for the port's DA-CLIP train dir) "
+                         "to load (default: latest)")
     ap.add_argument("--keys-only", action="store_true",
                     help="print keys without shapes (reference test.py format)")
     ap.add_argument("--limit", type=int, default=0,

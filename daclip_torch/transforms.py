@@ -294,14 +294,38 @@ def _random_resized_crop(img: np.ndarray, size: int, scale=(0.9, 1.0), ratio=(3 
     return _resample_bicubic(img, size, size, (left, top, left + cw, top + ch))
 
 
+def resize_max_size(img, max_size: int = 224, fill_color=0, fn=min) -> np.ndarray:
+    """ResizeMaxSize (open_clip/transform.py:26-49), as daclip_tpu's
+    `resize_max_size`: the image (PIL, uint8 or [0,1] float HWC) scaled by
+    PIL's bicubic so that its longest side is `max_size`, centred on a
+    `fill_color` square; uint8 HWC RGB. `fn` is the reference's argument,
+    unused there too. PIL is imported in the call."""
+    from PIL import Image
+
+    im = (img if isinstance(img, Image.Image) else Image.fromarray(_to_uint8(img)))
+    im = im.convert("RGB")
+    w, h = im.size
+    scale = max_size / float(max(h, w))
+    if scale != 1.0:
+        im = im.resize((max(1, int(round(w * scale))), max(1, int(round(h * scale)))),
+                       Image.BICUBIC)
+    w, h = im.size
+    canvas = Image.new("RGB", (max_size, max_size),
+                       tuple([fill_color] * 3) if np.isscalar(fill_color) else tuple(fill_color))
+    canvas.paste(im, ((max_size - w) // 2, (max_size - h) // 2))
+    return np.asarray(canvas)
+
+
 def image_transform(image_size=224, is_train: bool = False,
                     mean: Optional[Sequence[float]] = None,
                     std: Optional[Sequence[float]] = None,
+                    scale: Tuple[float, float] = (0.9, 1.0), seed: Optional[int] = None,
                     rng: Optional[random.Random] = None, backend: str = "pil"):
     """fn(image) → normalised (size, size, 3) float32 HWC, for a uint8 RGB
-    or [0,1] float RGB HWC image or a `DecodedImage`: the train transform (random resized crop,
-    its draws from `rng`, the `random` module's stream when None, as
-    daclip_tpu's) or the val transform (`clip_transform`).
+    or [0,1] float RGB HWC image or a `DecodedImage`: the train transform (random resized crop
+    of an area share in `scale`, its draws from `rng`, or from
+    `random.Random(seed)` when a `seed` is given, else from the `random`
+    module's stream, as daclip_tpu's) or the val transform (`clip_transform`).
 
     backend "pil" gives PIL's bytes, as the reference's torchvision path
     does. "cv2" is daclip_tpu's opt-in fast path (`--fast-clip-view`): the
@@ -311,14 +335,19 @@ def image_transform(image_size=224, is_train: bool = False,
     std = tuple(std or OPENAI_DATASET_STD)
     if isinstance(image_size, (tuple, list)):
         image_size = image_size[0]
+    if seed is not None:
+        if rng is not None:
+            raise ValueError("image_transform takes a seed or an rng, not both")
+        rng = random.Random(seed)
     if backend == "cv2":
-        return _cv2_transform(image_size, is_train, mean, std, rng)
+        return _cv2_transform(image_size, is_train, mean, std, rng, scale)
     if backend != "pil":
         raise ValueError(f"backend must be 'pil' or 'cv2', got {backend!r}")
 
     def train_fn(img):
         img = img.rgb if isinstance(img, DecodedImage) else _to_uint8(img)
-        return _normalize(_random_resized_crop(img, image_size, rng=rng), mean, std)
+        return _normalize(_random_resized_crop(img, image_size, scale=scale, rng=rng),
+                          mean, std)
 
     def val_fn(img):
         return clip_transform(img, image_size, mean, std)
@@ -344,7 +373,8 @@ def _cv2_resize(arr: np.ndarray, w: int, h: int) -> np.ndarray:
                       else cv2.INTER_CUBIC)
 
 
-def _cv2_transform(size: int, is_train: bool, mean, std, rng: Optional[random.Random]):
+def _cv2_transform(size: int, is_train: bool, mean, std, rng: Optional[random.Random],
+                   scale=(0.9, 1.0)):
     """daclip_tpu/transforms.py:181-222: shorter side to `size` and a center
     crop (no padding), or torchvision's RandomResizedCrop draws with the box
     cropped and then resized (the val view when no draw fits)."""
@@ -368,7 +398,7 @@ def _cv2_transform(size: int, is_train: bool, mean, std, rng: Optional[random.Ra
         area = w * h
         log_ratio = (math.log(3 / 4), math.log(4 / 3))
         for _ in range(10):
-            target_area = area * r.uniform(0.9, 1.0)
+            target_area = area * r.uniform(scale[0], scale[1])
             aspect = math.exp(r.uniform(log_ratio[0], log_ratio[1]))
             cw = int(round(math.sqrt(target_area * aspect)))
             ch = int(round(math.sqrt(target_area / aspect)))

@@ -1,18 +1,22 @@
-"""The JAX package's flat `.npz` params format, read into reference-named
-state dicts.
+"""The JAX package's checkpoints (its orbax train dirs and flat `.npz`
+params), read into reference-named state dicts.
 
 Counterpart of `daclip_tpu/utils/native_checkpoint.py` (`checkpoint_kind`
-:45, `save_params_npz` :128, `load_params_npz` :144,
-`infer_unet_arch_from_params` :161, `load_unet_any` :188, `load_daclip_any`
-:204). An `.npz` holds a flax params tree flattened with '/'-joined keys;
-`save_params_npz` is the bridge from a JAX train dir. The trees are the JAX
-modules' own: the UNet's as `unet_state_dict_from_jax` reads it, DaCLIP's
-with its transformer blocks stacked (L, …) along the first axis as
-`daclip_state_dict_from_jax` reads them. The port's own restoration train
-dir (the `<step>.pt` files of `utils/checkpoint.py`) loads as a UNet, and
-its DA-CLIP train dir (the `epoch_<n>.pt` files) as a DA-CLIP, as the JAX
-package loads its orbax train dirs. Orbax train dirs are refused:
-`orbax.checkpoint` imports jax.
+:45, `is_native_checkpoint` :61, `load_train_tree` :72,
+`load_restoration_params` :88, `load_daclip_train_params` :111,
+`save_params_npz` :128, `load_params_npz` :144,
+`infer_unet_arch_from_params` :161, `load_unet_any` :195, `load_daclip_any`
+:213). An orbax train dir is read by `utils/orbax_reader.py`, with no JAX:
+`cli/train_restoration`'s {params, opt_state, ema, step} (the EMA
+parameters served by default, and only the branch served is decoded) and
+`cli/train_daclip`'s {params: trainable, frozen: {clip}, opt_state, step,
+epoch} (the model is trainable ∪ frozen). An `.npz` holds a flax params tree
+flattened with '/'-joined keys. The trees are the JAX modules' own: the
+UNet's as `unet_state_dict_from_jax` reads it, DaCLIP's with its transformer
+blocks stacked (L, …) along the first axis as `daclip_state_dict_from_jax`
+reads them. The port's own restoration train dir (the `<step>.pt` files of
+`utils/checkpoint.py`) loads as a UNet, and its DA-CLIP train dir (the
+`epoch_<n>.pt` files) as a DA-CLIP.
 """
 from __future__ import annotations
 
@@ -26,9 +30,7 @@ from daclip_torch.convert import (daclip_state_dict_from_jax, infer_unet_arch,
                                   load_torch_state_dict, resize_pos_embed,
                                   unet_state_dict_from_jax)
 from daclip_torch.utils import checkpoint as train_checkpoint
-
-_ORBAX = ("orbax train dirs are not ported (orbax.checkpoint imports jax); "
-          "write the params with daclip_tpu's save_params_npz and pass the .npz")
+from daclip_torch.utils import orbax_reader
 
 
 def _has_orbax_step_dirs(path: str) -> bool:
@@ -56,6 +58,105 @@ def checkpoint_kind(path: str) -> str:
     if str(path).endswith(".npz"):
         return "npz"
     return "torch"
+
+
+def is_native_checkpoint(path: str) -> bool:
+    """Whether `path` is one of the JAX package's own formats: an orbax
+    train dir, one of its step dirs, or an `.npz`."""
+    try:
+        return checkpoint_kind(path) in ("orbax", "orbax_step", "npz")
+    except FileNotFoundError:
+        return False
+
+
+# ---------------------------------------------------------------------------
+# orbax train dirs
+
+
+def _resolve(directory: str, step: Optional[int]) -> Tuple[str, int]:
+    """(train dir, step): a step dir stands for its parent at its step; the
+    latest step by default."""
+    directory = os.path.abspath(directory)
+    if checkpoint_kind(directory) == "orbax_step":
+        step = int(os.path.basename(os.path.normpath(directory)))
+        directory = os.path.dirname(os.path.normpath(directory))
+    if step is None:
+        step = orbax_reader.latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    return directory, int(step)
+
+
+def load_train_tree(directory: str, step: Optional[int] = None,
+                    prefix: str = "") -> Tuple[Dict, int]:
+    """The checkpoint tree (nested dicts, lists for sequences, CPU tensors)
+    and the step restored; only the leaves whose '.'-joined name starts
+    with `prefix` when it is given."""
+    directory, step = _resolve(directory, step)
+    return orbax_reader.restore_checkpoint(directory, step, prefix=prefix), step
+
+
+def _unwrap_flax(params: Dict) -> Dict:
+    """Strip a solitary flax variables wrapper ({'params': tree} → tree)."""
+    while isinstance(params, dict) and set(params) == {"params"}:
+        params = params["params"]
+    return params
+
+
+def load_restoration_params(directory: str, step: Optional[int] = None,
+                            use_ema: bool = True) -> Tuple[Dict, int]:
+    """UNet params from a `cli/train_restoration` checkpoint dir: the EMA
+    shadow (what the reference serves) unless `use_ema=False`. Only that
+    branch is decoded."""
+    directory, step = _resolve(directory, step)
+    top = orbax_reader.top_level_keys(directory, step)
+    if "ema" not in top or "params" not in top:
+        raise ValueError(
+            f"{directory!r} does not look like a restoration train dir "
+            f"(keys: {sorted(top)}); expected {{params, opt_state, ema, step}}")
+    branch = "ema.params." if use_ema else "params."
+    tree = orbax_reader.restore_checkpoint(directory, step, prefix=branch)
+    params = tree["ema"]["params"] if use_ema else tree["params"]
+    return _unwrap_flax(params), step
+
+
+def load_daclip_train_params(directory: str, step: Optional[int] = None
+                             ) -> Tuple[Dict, int]:
+    """Full DaCLIP params (trainable ∪ frozen clip) from a `cli/train_daclip`
+    checkpoint dir; the optimizer state is not decoded."""
+    directory, step = _resolve(directory, step)
+    top = orbax_reader.top_level_keys(directory, step)
+    if "params" not in top:
+        raise ValueError(f"{directory!r} has no 'params' (keys: {sorted(top)})")
+    params = dict(_unwrap_flax(
+        orbax_reader.restore_checkpoint(directory, step, prefix="params.")["params"]))
+    if "frozen" in top:
+        frozen = orbax_reader.restore_checkpoint(directory, step, prefix="frozen.")
+        params.update(_unwrap_flax(frozen.get("frozen") or {}))
+    return params, step
+
+
+def _numpy(tree: Any) -> Any:
+    """A restored tree's tensors as numpy arrays (bfloat16 as float32), as
+    the converters take them."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return (tree.float() if tree.dtype == torch.bfloat16 else tree).numpy()
+    return tree
+
+
+def load_jax_params(path: str, step: Optional[int] = None) -> Dict:
+    """A CLIP or DaCLIP params tree of the JAX package's, as numpy arrays:
+    from a flat .npz, or from a `cli/train_daclip` orbax dir (trainable ∪
+    frozen; `step`, default the latest)."""
+    if checkpoint_kind(path) == "npz":
+        return load_params_npz(path)
+    return _numpy(load_daclip_train_params(path, step)[0])
+
+
+# ---------------------------------------------------------------------------
+# flat npz
 
 
 def save_params_npz(path: str, params: Any) -> str:
@@ -113,21 +214,16 @@ def infer_unet_arch_from_params(p: Dict) -> Dict:
     }
 
 
-def _refuse_orbax(path: str) -> str:
-    kind = checkpoint_kind(path)
-    if kind in ("orbax", "orbax_step"):
-        raise NotImplementedError(f"{path!r}: {_ORBAX}")
-    return kind
-
-
 def load_unet_any(path: str, step: Optional[int] = None,
                   use_ema: bool = True) -> Tuple[Dict[str, torch.Tensor], Dict]:
-    """(reference-named UNet state dict, constructor arguments) from a torch
-    .pth, a flat .npz, or the port's train dir (`step`, default the latest;
-    the EMA parameters unless `use_ema=False`)."""
-    kind = _refuse_orbax(path)
-    if kind == "npz":
-        params = load_params_npz(path)
+    """(reference-named UNet state dict, constructor arguments) from an
+    orbax train dir of daclip_tpu's (or one of its step dirs), a torch
+    .pth, a flat .npz, or the port's train dir (for a train dir `step`,
+    default the latest, and the EMA parameters unless `use_ema=False`)."""
+    kind = checkpoint_kind(path)
+    if kind in ("orbax", "orbax_step", "npz"):
+        params = (load_params_npz(path) if kind == "npz" else
+                  _numpy(load_restoration_params(path, step, use_ema=use_ema)[0]))
         arch = infer_unet_arch_from_params(params)
         return unet_state_dict_from_jax(params, depth=len(arch["ch_mult"])), arch
     if kind == "train_dir":
@@ -138,18 +234,21 @@ def load_unet_any(path: str, step: Optional[int] = None,
 
 
 def load_daclip_any(path: str, image_size: Optional[int] = None,
-                    patch_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Reference-named DaCLIP state dict from a torch .pt, a flat .npz, or
-    the port's DA-CLIP train dir (its latest epoch). A torch checkpoint's
-    ViT position embeddings are resized to the (image_size // patch_size)²
-    grid, as `convert_daclip` does; an .npz is already in the JAX package's
-    layout and is taken as it is."""
-    kind = _refuse_orbax(path)
+                    patch_size: Optional[int] = None,
+                    step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Reference-named DaCLIP state dict from an orbax train dir of
+    daclip_tpu's `cli/train_daclip` (or one of its step dirs; `step`, default
+    the latest), a torch .pt, a flat .npz, or the port's DA-CLIP train dir
+    (its latest epoch). A torch checkpoint's ViT position embeddings are
+    resized to the (image_size // patch_size)² grid, as `convert_daclip`
+    does; an orbax dir or an .npz is already in the JAX package's layout and
+    is taken as it is."""
+    kind = checkpoint_kind(path)
+    if kind in ("orbax", "orbax_step", "npz"):
+        return daclip_state_dict_from_jax(load_jax_params(path, step))
     if kind == "train_dir":
         raise NotImplementedError(f"{path!r} is a restoration train dir (UNet weights), "
                                   "not DA-CLIP weights")
-    if kind == "npz":
-        return daclip_state_dict_from_jax(load_params_npz(path))
     if kind == "clip_train_dir":
         sd = train_checkpoint.load_clip_state_dict(path)
     else:

@@ -1,8 +1,10 @@
 """daclip_torch's checkpoint loading against daclip_tpu's on the CPU: the
 flat `.npz` params that daclip_tpu's `save_params_npz` writes (a tiny UNet,
 a DaCLIP with the fork's predictor), the UNet architecture read off them, a
-restore loaded from them, the ViT position-embedding resize of a torch
-checkpoint, the refusal of train dirs, and the CLI's classification."""
+restore loaded from them, the contexts' order, the ViT position-embedding
+resize of a torch checkpoint, the errors of empty train dirs, and the CLI's
+classification. daclip_tpu's orbax train dirs: tests/test_torch_orbax.py."""
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -100,7 +102,7 @@ def test_restorer_loaded_from_npz_restores_as_jax(npz):
 
     rng = np.random.RandomState(24)
     lq = rng.rand(32, 32, 3).astype(np.float32)
-    tctx, ictx = ours.contexts([lq])
+    ictx, tctx = ours.contexts(lq)
     jictx, jtctx = ref.contexts(lq)
     np.testing.assert_allclose(tctx.numpy(), np.asarray(jtctx), atol=1e-4)
     np.testing.assert_allclose(ictx.numpy(), np.asarray(jictx), atol=1e-4)
@@ -120,6 +122,26 @@ def test_restorer_loaded_from_npz_restores_as_jax(npz):
     assert np.isfinite(got).all()
     assert _psnr(got, np.asarray(want[0])) > 40.0
     assert ours.restore(lq, seed=0).shape == (32, 32, 3)
+
+
+def test_contexts_match_jax_in_signature_and_order(npz):
+    """`contexts(image_rgb)` of one HWC image returns (img_ctx, degra_ctx)
+    in both packages, unpacked in the same order on the same weights."""
+    unet_path, daclip_path, _, _ = npz
+    kw = dict(model_name=NAME, T=4, dtype="float32")
+    ours = tpipe.DACLIPRestorer.load(unet_path, daclip_path, tpipe.RestorerConfig(**kw),
+                                     device="cpu")
+    ref = jpipe.DACLIPRestorer.load(unet_path, daclip_path, jpipe.RestorerConfig(**kw))
+    assert (list(inspect.signature(ours.contexts).parameters)
+            == list(inspect.signature(ref.contexts).parameters) == ["image_rgb"])
+    lq = np.random.RandomState(25).rand(40, 36, 3).astype(np.float32)
+    img_ctx, degra_ctx = ours.contexts(lq)
+    j_img_ctx, j_degra_ctx = ref.contexts(lq)
+    assert img_ctx.shape == tuple(j_img_ctx.shape) == (1, 32)
+    np.testing.assert_allclose(img_ctx.numpy(), np.asarray(j_img_ctx), atol=1e-4)
+    np.testing.assert_allclose(degra_ctx.numpy(), np.asarray(j_degra_ctx), atol=1e-4)
+    # the image and degradation features differ, so a swap would show
+    assert np.abs(np.asarray(j_img_ctx) - np.asarray(j_degra_ctx)).max() > 1e-2
 
 
 @pytest.mark.parametrize("g_old,g_new", [(7, 14), (14, 7), (7, 7), (4, 2)])
@@ -168,13 +190,15 @@ def test_train_dirs_are_refused(tmp_path, npz):
                 tnc.checkpoint_kind(path)
             continue
         assert tnc.checkpoint_kind(path) == want
-    for path in (str(run), str(run / "100")):
-        with pytest.raises(NotImplementedError, match="save_params_npz"):
+    # orbax dirs load (tests/test_torch_orbax.py); an empty one is an error
+    # that names what is missing, a directory of nothing a FileNotFoundError
+    for path, missing in ((str(run), "no checkpoints"), (str(run / "100"), "_METADATA")):
+        with pytest.raises(FileNotFoundError, match=missing):
             tnc.load_unet_any(path)
-        with pytest.raises(NotImplementedError, match="orbax"):
+        with pytest.raises(FileNotFoundError, match=missing):
             tnc.load_daclip_any(path)
     for unet, daclip in ((str(run), None), (npz[0], str(plain))):
-        with pytest.raises(NotImplementedError, match=r"\.npz"):
+        with pytest.raises(FileNotFoundError):
             tpipe.DACLIPRestorer.load(unet, daclip, device="cpu")
 
 

@@ -4,12 +4,14 @@ initialised from a fixed PRNGKey, with and without the level predictor) and
 the same seeded class tree (3 classes × 3 PNGs, <class>/LQ): evaluate_daclip,
 evaluate_numclip and encode_folder, each file they write; parse_checkpoint_
 spec; imagenet_zero_shot.evaluate_with_encoders on the same encoders'
-outputs; inspect_checkpoint on every kind the port reads; orbax refused.
+outputs; inspect_checkpoint on every kind the port reads; empty orbax dirs
+an error (the fixture's orbax dirs: tests/test_torch_orbax.py).
 
 Both packages run DaCLIP in bf16, which rounds differently in each: the
 features are held to FEAT_TOL, and a classification row is held equal only
 where daclip_tpu's top-1 cosine margin exceeds twice that."""
 import os
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +27,6 @@ from daclip_torch.eval import parse_checkpoint_spec
 from daclip_torch.tools import encode_folder as t_encode
 from daclip_torch.tools import inspect_checkpoint as t_inspect
 from daclip_torch.utils import checkpoint as tckpt
-from daclip_torch.utils.native_checkpoint import _ORBAX
 from daclip_tpu.eval import evaluate_daclip as j_daclip
 from daclip_tpu.eval import evaluate_numclip as j_numclip
 from daclip_tpu.eval import imagenet_zero_shot as j_zs
@@ -326,12 +327,24 @@ def test_inspect_checkpoint_reads_each_kind_of_the_port(tmp_path, setup):
 
 
 def test_orbax_dirs_are_refused_by_both_tools(tmp_path, setup):
+    """An orbax dir the tools read (the fixture daclip_tpu's train_daclip
+    wrote) lists as daclip_tpu's tool lists it and encodes; an empty one
+    raises FileNotFoundError in both tools."""
     _, _, tree, _ = setup
+    fixture = pathlib.Path(__file__).parent / "fixtures" / "orbax" / "daclip"
+    lines = {}
+    for pkg, mod in (("jax", j_inspect), ("torch", t_inspect)):
+        lines[pkg] = []
+        lines[pkg].append(mod.describe(*mod.load_tree(str(fixture)), keys_only=True,
+                                       _print=lines[pkg].append))
+    assert lines["torch"] == lines["jax"]
+    out = tmp_path / "enc"
+    assert t_encode.encode_folder(str(fixture), str(tree), str(out), NAME, device="cpu") == 9
+    assert np.load(out / "all_embeddings.npy").shape == (9, 32)
     (tmp_path / "orbax" / "100").mkdir(parents=True)
     for path in (tmp_path / "orbax", tmp_path / "orbax" / "100"):
-        with pytest.raises(NotImplementedError, match="orbax"):
+        with pytest.raises(FileNotFoundError):
             t_inspect.load_tree(str(path))
-        with pytest.raises(NotImplementedError) as err:
+        with pytest.raises(FileNotFoundError):
             t_encode.encode_folder(str(path), str(tree), str(tmp_path / "x"), NAME,
                                    device="cpu")
-        assert _ORBAX in str(err.value)

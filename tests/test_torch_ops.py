@@ -176,9 +176,11 @@ def test_unsupported_devices_shapes_and_dtypes_raise():
     def wrap_args(C, n=128, dtype=torch.float32):
         return [torch.zeros(s, dtype=dtype) for s in
                 [(1, n, C), (C,), (C, 384), (128, C), (C,), (C,)]]
-    for C in (48, 544):  # not a multiple of 32, above 512
+    for C in (8, 40, 544):  # under 16, not a multiple of 16, above 512
         with pytest.raises(ValueError):
             tla._check(*wrap_args(C))
+    for C in (16, 48, 80, 512):  # the kernels take every multiple of 16 up to 512
+        tla._check(*wrap_args(C))
     with pytest.raises(TypeError):
         tla._check(*wrap_args(64, dtype=torch.float16))
     bad = wrap_args(64)

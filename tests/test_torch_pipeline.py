@@ -161,7 +161,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import daclip_torch\n"
         "for m in pkgutil.walk_packages(daclip_torch.__path__, 'daclip_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'daclip_tpu'))]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'orbax', 'tensorstore',\n"
+        "                                                     'zstandard')\n"
+        "       or m.startswith('daclip_tpu')]\n"
         "assert not bad, bad\n"
         "need = ['daclip_torch.train.restoration', 'daclip_torch.train.schedules',\n"
         "        'daclip_torch.losses.matching', 'daclip_torch.utils.ema',\n"
@@ -189,10 +191,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'daclip_torch.models.timm_vit', 'daclip_torch.models.swin',\n"
         "        'daclip_torch.models.eva', 'daclip_torch.models.coca',\n"
         "        'daclip_torch.models.hf_text', 'daclip_torch.tools.push_to_hf_hub',\n"
-        "        'daclip_torch.data.native_io', 'daclip_torch.data.png']\n"
+        "        'daclip_torch.data.native_io', 'daclip_torch.data.png',\n"
+        "        'daclip_torch.utils.orbax_reader', 'daclip_torch.utils.zstd']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "# the native decoder is built at first use, never at import\n"
         "assert sys.modules['daclip_torch.data.native_io']._lib is None\n"
+        "assert sys.modules['daclip_torch.utils.zstd']._lib is None\n"
         "# imported only inside calls: the card's machine is not known to have them\n"
         "absent = [m for m in sys.modules if m.split('.')[0] in ('regex', 'cv2', 'PIL', 'ftfy',\n"
         "                                                        'matplotlib', 'sklearn',\n"
@@ -241,7 +245,7 @@ def test_load_without_daclip_matches_jax_on_a_degradation_context_unet(tmp_path)
     ref = jpipe.DACLIPRestorer.load(path, None, jpipe.RestorerConfig(dtype="float32"))
     flags = lambda cfg: (cfg.use_degra_context, cfg.use_image_context)
     assert flags(ours.cfg) == flags(ref.cfg) == (False, False)
-    assert ours.contexts([np.zeros((32, 32, 3), np.float32)]) == (None, None)
+    assert ours.contexts(np.zeros((32, 32, 3), np.float32)) == (None, None)
     assert not hasattr(ours.unet, "text_mlp")
 
     rng = np.random.RandomState(5)
