@@ -368,14 +368,21 @@ FLASH_EDGE_SHAPES = [(1, 50, 2, 32, torch.bfloat16), (1, 64, 1, 32, torch.bfloat
                      (2, 65, 4, 32, torch.bfloat16), (2, 65, 4, 64, torch.bfloat16),
                      (2, 1000, 4, 64, torch.bfloat16)]
 SHARD_WRAP_SHAPES = [(4, 147456, 64, torch.bfloat16)]
-# widths the wrap kernels take besides the production UNet's (C a multiple of
-# 16): an nf 16 UNet's levels 0 and 1 (the orbax fixture's), nf 48's level 0,
-# C = 80 (a whole 64-column box and one of 16) at a ragged n, and f32 at
-# C = 16 and 48 (where the f32 kernels' last stage of K and of columns is
-# partial); checked forward and backward, untimed
+# widths the wrap kernels take besides the production UNet's (every C from 1
+# to 512): an nf 16 UNet's levels 0 and 1 (the orbax fixture's), nf 48's
+# level 0, C = 80 (a whole 64-column box and one of 16) at a ragged n; nf 8,
+# 12, 24 and 40 UNets' level 0 (C = 12 and the odd 9 not a multiple of 8:
+# rows laid out at the next multiple of 8, the LayerNorms over the true
+# width), ragged n among them; and f32 at C = 12, 16, 24 and 48 (where the
+# f32 kernels' last stage of K and of columns is partial); checked forward,
+# backward, #5 and #6, untimed
 WRAP_WIDTH_SHAPES = [(2, 1024, 16, torch.bfloat16), (1, 4096, 32, torch.bfloat16),
                      (2, 1000, 48, torch.bfloat16), (2, 301, 80, torch.bfloat16),
-                     (1, 1024, 16, torch.float32), (2, 301, 48, torch.float32)]
+                     (2, 1024, 8, torch.bfloat16), (2, 1000, 12, torch.bfloat16),
+                     (1, 4096, 24, torch.bfloat16), (2, 301, 40, torch.bfloat16),
+                     (1, 777, 9, torch.bfloat16),
+                     (1, 1024, 16, torch.float32), (2, 301, 48, torch.float32),
+                     (2, 1000, 12, torch.float32), (1, 301, 24, torch.float32)]
 LIMITS = {("wrap", torch.bfloat16): 0.1, ("wrap", torch.float32): 1e-3,
           # relative to the output's max: the core's output is the attention
           # alone; the 1×1 rounds once to bf16 (half a step is 2^-8 of a value);
@@ -1650,6 +1657,212 @@ def run_orbax():
     return counts
 
 
+# -- phase 3c ------------------------------------------------------------------
+RESUME_STEPS = 2   # steps of the CLI resumed from restoration_full/ (at 1000)
+CLI_TYPES = ["noisy", "rainy"]   # the restoration CLIs' MD tree's degradation types
+_CLI_INPUTS = {}
+
+
+def cli_inputs():
+    """(MD tree, DA-CLIP .pt) that the restoration CLI phases (resume,
+    train_cli) train on, written once a run into a directory that lasts as
+    long as the process: CLI_TYPES × 8 seeded pairs at CLI_MD_SHAPE (half Up,
+    half Paeth rows), and a seeded ViT-B-32 DA-CLIP's state dict."""
+    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
+
+    if not _CLI_INPUTS:
+        work = tempfile.TemporaryDirectory()
+        root = pathlib.Path(work.name)
+        write_md_tree(root / "train", CLI_TYPES, 8, CLI_MD_SHAPE, seed=21)
+        clip_cfg = CLIPCfg.from_dict(get_model_config("daclip_ViT-B-32"))
+        daclip_pt = root / "daclip_ViT-B-32.pt"
+        torch.save({k: v.cpu() for k, v in seeded_state_dict(lambda: DaCLIP(clip_cfg),
+                                                             seed=12).items()}, daclip_pt)
+        _CLI_INPUTS.update(work=work, train=root / "train", daclip=daclip_pt)
+    return _CLI_INPUTS["train"], _CLI_INPUTS["daclip"]
+
+
+def run_resume():
+    """Phase 3c: daclip_tpu's training runs resumed on the card's machine,
+    where no JAX is installed. restoration_full/ (configs/daclip-sde/
+    train.yml's UNet at full width, daclip_tpu's TrainState at step 1000:
+    parameters, AdamW's moments, EMA) restored through
+    `utils/checkpoint.restore_checkpoint` (which reads it with
+    `native_checkpoint.load_restoration_train_state`) on the CPU and on the
+    card, which must agree bit for bit; one f32 update from seeded gradients
+    on the card against the CPU's;
+    `cli.train_restoration -opt` on the production options resumed from it
+    for RESUME_STEPS steps at B = 16, 256², bf16 (validation off), launching
+    #1-#4 exactly as many steps' worth; `cli.train_daclip --resume latest`
+    on daclip_tpu's daclip_test-tiny checkpoints dir for one epoch, launching
+    none of the kernels. Returns (the resumed restoration CLI's launches, its
+    step records)."""
+    import logging
+    import shutil
+
+    import yaml
+
+    from daclip_torch.cli import train_daclip as cli_daclip
+    from daclip_torch.cli import train_restoration as cli_train
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.train import restoration as trest
+    from daclip_torch.utils import checkpoint as tckpt
+    from daclip_torch.utils import orbax_reader
+
+    started = time.perf_counter()
+    blocked = [m for m in ("jax", "orbax", "tensorstore", "zstandard") if m in sys.modules]
+    check(not blocked, f"resume phase: {blocked} imported")
+    full = ORBAX_FIXTURE / "restoration_full"
+    at = orbax_reader.latest_step(str(full))
+    opt = yaml.safe_load((REPO / "configs" / "daclip-sde" / "train.yml").read_text())
+    kw = cli_train.unet_kwargs(opt)
+    cfg = cli_train.train_config(opt["train"], int(opt["train"]["niter"]))
+
+    # the state restored on the CPU and on the card, as the CLI restores it
+    host = ConditionalUNet(**kw)
+    hstate = trest.init_state(host, cfg, device="cpu")
+    t0 = time.perf_counter()
+    tckpt.restore_checkpoint(str(full), host, hstate, cfg=cfg)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    unet = ConditionalUNet(dtype=torch.bfloat16, **kw)
+    state = trest.init_state(unet, cfg, device="cuda")
+    t0 = time.perf_counter()
+    tckpt.restore_checkpoint(str(full), unet, state, cfg=cfg)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    named, hosts = dict(unet.named_parameters()), dict(host.named_parameters())
+    differ = [n for n, p in named.items() if not torch.equal(p.detach().cpu(), hosts[n])]
+    differ += [f"ema {n}" for n, v in hstate.ema.params.items()
+               if not torch.equal(state.ema.params[n].cpu(), v)]
+    same = lambda a, b: (float(a) == float(b) if b.dim() == 0  # AdamW's step
+                         else torch.equal(a.cpu(), b))
+    held = [n for n in named if named[n] in state.optimizer.state]
+    differ += [f"moments {n}" for n in held
+               if hosts[n] not in hstate.optimizer.state
+               or set(state.optimizer.state[named[n]]) != set(hstate.optimizer.state[hosts[n]])
+               or not all(same(v, hstate.optimizer.state[hosts[n]][k])
+                          for k, v in state.optimizer.state[named[n]].items())]
+    check(not differ and len(held) == len(hstate.optimizer.state),
+          f"resume: the card's state differs from the CPU's at {differ[:4]}")
+    check(state.step == state.ema.step == hstate.step == at,
+          f"resume: steps {state.step}, {state.ema.step}, {hstate.step}, dir {at}")
+
+    # one f32 update from seeded gradients, on the card and on the CPU (the
+    # card's UNet computes in bf16; its parameters and optimizer are f32)
+    gen = torch.Generator().manual_seed(7)
+    before = {n: p.detach().clone() for n, p in hosts.items()}
+    for n, hp in trest.trainable(host):  # none where the model gives no gradient
+        g = torch.randn(hp.shape, generator=gen) * 1e-2 if n in held else None
+        hp.grad, named[n].grad = g, None if g is None else g.cuda()
+    schedule = trest.make_schedule(cfg)
+    _, lr_host = trest.apply_gradients(hstate, host, cfg, schedule)
+    _, lr_card = trest.apply_gradients(state, unet, cfg, schedule)
+    after = {n: p.detach() for n, p in hosts.items()}
+    param_err = max(float((named[n].detach().cpu() - p).abs().max()) for n, p in after.items())
+    update_max = max(float((p - before[n]).abs().max()) for n, p in after.items())
+    update_err = max(float(((named[n].detach().cpu() - before[n]) - (p - before[n])).abs().max())
+                     for n, p in after.items())
+    ema_err = max(float((state.ema.params[n].cpu() - v).abs().max())
+                  for n, v in hstate.ema.params.items())
+    update = dict(lr_host=lr_host, lr_card=lr_card, param_max_abs_err=param_err,
+                  update_max=update_max, update_max_abs_err=update_err,
+                  update_rel_err=update_err / update_max, ema_max_abs_err=ema_err)
+    check(lr_host == lr_card and param_err <= 1e-4 and ema_err <= 1e-4
+          and update_max > 0 and update_err <= 1e-2 * update_max,
+          f"resume: the card's f32 update differs from the CPU's: {update}")
+    del unet, state, host, hstate, named, hosts, before, after
+    torch.cuda.empty_cache()
+
+    # the CLIs, each resuming daclip_tpu's dir
+    t0 = time.perf_counter()
+    train_tree, daclip_pt = cli_inputs()
+    inputs_s = time.perf_counter() - t0
+    records = []
+    real_make_step = cli_train.make_step
+    logs = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            logs.append(record.getMessage())
+
+    grab = Grab()
+    with tempfile.TemporaryDirectory() as d:
+        root = pathlib.Path(d)
+        opt["distortion"] = CLI_TYPES
+        opt["datasets"]["train"]["dataroot"] = str(train_tree)
+        del opt["datasets"]["val"]                # validation off
+        opt["path"].update(root=str(root / "out"), daclip=str(daclip_pt))
+        opt["train"].update(val_freq=0)
+        opt["logger"].update(print_freq=1, save_checkpoint_freq=0)
+        yml = root / "train.yml"
+        yml.write_text(yaml.safe_dump(opt))
+        ckpt_dir = root / "out" / "experiments" / opt["name"] / "training_state"
+        shutil.copytree(full, ckpt_dir)
+        for name in ("train", "daclip"):
+            logging.getLogger(name).addHandler(grab)
+            logging.getLogger(name).setLevel(logging.INFO)
+        cli_train.make_step = step_timer(real_make_step, records)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            result = cli_train.main(["-opt", str(yml), "--max-steps", str(at + RESUME_STEPS),
+                                     "--device", "cuda"])
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counts().items() if v}
+            cli_s = time.perf_counter() - t0
+            saved = sorted(os.listdir(ckpt_dir))
+
+            ckpts = root / "logs" / "run" / "checkpoints"
+            shutil.copytree(ORBAX_FIXTURE / "daclip" / "1", ckpts / "1")
+            reset_counts()
+            t0 = time.perf_counter()
+            clip_out = cli_daclip.main([
+                "--dataset-type", "synthetic", "--train-num-samples", "8", "--batch-size", "4",
+                "--epochs", "2", "--warmup", "1", "--model", "daclip_test-tiny", "--logs",
+                str(root / "logs"), "--name", "run", "--precision", "fp32", "--seed", "0",
+                "--workers", "0", "--device", "cuda", "--resume", "latest"])
+            torch.cuda.synchronize()
+            clip_s = time.perf_counter() - t0
+            clip_counts = {k: v for k, v in read_counts().items() if v}
+            clip_saved = torch.load(tckpt.checkpoint_path(str(ckpts), 2, tckpt.EPOCH),
+                                    map_location="cpu", weights_only=False)
+        finally:
+            cli_train.make_step = real_make_step
+            for name in ("train", "daclip"):
+                logging.getLogger(name).removeHandler(grab)
+    want = {"wrap": 12 * RESUME_STEPS, "flash": 6 * RESUME_STEPS,
+            "wrap_bwd": 6 * RESUME_STEPS, "flash_bwd": 3 * RESUME_STEPS}
+    losses = [r["loss"] for r in records]
+    row = dict(phase="resume", seconds=time.perf_counter() - started, step=at,
+               restore_cpu_ms=cpu_ms, restore_card_ms=card_ms, state_bitwise=True,
+               cli_inputs_s=inputs_s,
+               f32_update=update,
+               cli=dict(steps=[r["step"] for r in records], ms_per_step=[r["ms"] for r in records],
+                        loss=losses, seconds=cli_s, final_step=result["final_step"],
+                        checkpoints=saved, launches=counts, want_launches=want),
+               daclip_cli=dict(seconds=clip_s, best_loss=clip_out["best_loss"],
+                               epoch=clip_saved["epoch"], step=clip_saved["step"],
+                               launches=clip_counts))
+    emit(**row)
+    check(f"resumed from step {at}" in logs
+          and any(m.startswith("resumed from daclip_tpu's orbax step dir") for m in logs),
+          f"resume: the CLI did not resume daclip_tpu's step {at}: {logs[:6]}")
+    check([r["step"] for r in records] == list(range(at, at + RESUME_STEPS))
+          and result["final_step"] == at + RESUME_STEPS,
+          f"resume: the CLI ran steps {[r['step'] for r in records]}")
+    check(np.isfinite(losses).all(), f"resume: losses {losses}")
+    check(f"{at + RESUME_STEPS}.pt" in saved, f"resume: the CLI saved {saved}")
+    check(counts == want, f"resume: kernel calls {counts}, expected {want}")
+    check(any("epoch 1 (daclip_tpu's orbax step dir)" in m for m in logs),
+          "resume: cli.train_daclip did not resume daclip_tpu's epoch 1")
+    check((clip_saved["epoch"], clip_saved["step"]) == (2, 4)
+          and np.isfinite(clip_out["best_loss"]),
+          f"resume: cli.train_daclip saved epoch {clip_saved['epoch']} at step "
+          f"{clip_saved['step']}")
+    check(not clip_counts, f"resume: cli.train_daclip launched {clip_counts}")
+    return counts, records
+
+
 # -- phase 4 -------------------------------------------------------------------
 def seeded_state_dict(factory, seed):
     """Reference-named state dict of `factory()` filled from a seed, on the
@@ -2771,7 +2984,8 @@ def step_timer(make_step, records):
             before = state.step
             out = step(state, batch, generator)
             torch.cuda.synchronize()
-            records.append(dict(step=before, start=t0, ms=(time.perf_counter() - t0) * 1e3))
+            records.append(dict(step=before, start=t0, ms=(time.perf_counter() - t0) * 1e3,
+                                loss=float(out[1]["loss"])))
             return out
 
         return timed
@@ -2805,12 +3019,11 @@ def run_train_cli(train_step_ms, lpips_weights):
     from daclip_torch.cli import test_restoration as cli_test
     from daclip_torch.cli import train_restoration as cli_train
     from daclip_torch.data import native_io
-    from daclip_torch.models.clip import CLIPCfg, DaCLIP, get_model_config
     from daclip_torch.tools.create_lmdb import create_lmdb
 
     gc.collect()
     torch.cuda.empty_cache()
-    types = ["noisy", "rainy"]
+    types = CLI_TYPES
     records = []
     real_make_step = cli_train.make_step
     timed_make_step = step_timer(real_make_step, records)
@@ -2818,19 +3031,15 @@ def run_train_cli(train_step_ms, lpips_weights):
     with tempfile.TemporaryDirectory() as d:
         root = pathlib.Path(d)
         t0 = time.perf_counter()
-        write_md_tree(root / "train", types, 8, CLI_MD_SHAPE, seed=21)
+        train_tree, daclip_pt = cli_inputs()
         write_md_tree(root / "val", types, 1, CLI_VAL_SHAPE, seed=22)
         write_md_tree(root / "test_png", ["set"], 2, CLI_TEST_SHAPE, seed=23)
         for sub in ("GT", "LQ"):
             create_lmdb(str(root / "test_png" / "set" / sub), str(root / "lmdb" / sub),
                         verbose=False)
-        clip_cfg = CLIPCfg.from_dict(get_model_config("daclip_ViT-B-32"))
-        daclip_pt = root / "daclip_ViT-B-32.pt"
-        torch.save({k: v.cpu() for k, v in seeded_state_dict(lambda: DaCLIP(clip_cfg),
-                                                             seed=12).items()}, daclip_pt)
         opt = yaml.safe_load((REPO / "configs" / "daclip-sde" / "train.yml").read_text())
         opt["distortion"] = types       # the tree's two types
-        opt["datasets"]["train"]["dataroot"] = str(root / "train")
+        opt["datasets"]["train"]["dataroot"] = str(train_tree)
         opt["datasets"]["val"]["dataroot"] = str(root / "val")
         opt["path"].update(root=str(root / "out"), daclip=str(daclip_pt))
         opt["train"].update(niter=CLI_STEPS, val_freq=CLI_VAL_FREQ)
@@ -5445,6 +5654,7 @@ def main():
     rows.update(conv_rows)
     run_fixture()
     orbax_totals = run_orbax()
+    resume_totals, resume_records = run_resume()
     restorer, serve_totals, sds = run_serve()
     run_profile(restorer)
     serve_alt_totals, fwd = run_serve_alt(restorer, sds)
@@ -5460,6 +5670,11 @@ def main():
     for wiring in TRAIN_KERNELS:
         run_train_check(wiring)
     full_step, train_step_ms, train_totals = run_train()
+    resume_ms = float(np.median([r["ms"] for r in resume_records]))
+    emit(phase="resume_vs_train", resume_median_ms_per_step=resume_ms,
+         train_median_ms_per_step=train_step_ms, over_train=resume_ms / train_step_ms,
+         what="the resumed CLI's steps (hook-timed, each to a synchronize; the first holds "
+              "its warm-up) beside the train phase's")
     run_profile_train(full_step, train_step_ms)
     del full_step
     full_step, step_ms, train_alt_totals = run_train(steps=3, wiring="v4_pointwise")
@@ -5508,7 +5723,7 @@ def main():
     # the 3×3 conv, which no model wiring calls, their paths in the kernels_alt
     # and kernels_conv phases, and the conv's in the hooked forward_conv
     paths = dict(serve=serve_totals, serve_alt=serve_alt_totals, gradio=gradio_totals,
-                 orbax=orbax_totals,
+                 orbax=orbax_totals, resume=resume_totals,
                  shard_tiles=shard_totals,
                  train=train_totals, ddp_train=ddp_totals, fsdp_train=fsdp_totals,
                  train_alt=train_alt_totals, train_cli=train_cli_totals,

@@ -182,8 +182,8 @@ def main(argv=None):
                                                make_accum_train_step, make_train_step,
                                                partition_daclip_params)
     from daclip_torch.train.locking import build_update_mask
-    from daclip_torch.utils.checkpoint import (EPOCH, latest_step, restore_clip_checkpoint,
-                                               save_clip_checkpoint)
+    from daclip_torch.utils.checkpoint import (EPOCH, latest_step, pick_checkpoint,
+                                               restore_clip_checkpoint, save_clip_checkpoint)
     from daclip_torch.utils import file_utils
     from daclip_torch.utils.logging import MetricWriter
 
@@ -293,11 +293,18 @@ def main(argv=None):
                 file_utils.download_remote_dir(remote_ckpts, rdir)
                 log.info("downloaded remote checkpoints from %s", remote_ckpts)
         parallel.barrier()
-        if os.path.isfile(rdir) or latest_step(rdir, EPOCH) is not None:
-            start_epoch = restore_clip_checkpoint(rdir, wrapped, state)
-            log.info("resumed from %s epoch %d", rdir, start_epoch)
-        elif args.resume != "latest":
-            raise FileNotFoundError(args.resume)
+        # the newest of the port's epoch_<n>.pt and daclip_tpu's orbax step
+        # dirs <n>/ (beside its latest/ and best/), or one file or step dir
+        try:
+            kind, n = pick_checkpoint(rdir, None, EPOCH)
+        except FileNotFoundError:
+            if args.resume != "latest":
+                raise FileNotFoundError(args.resume) from None
+            kind = None
+        if kind is not None:
+            start_epoch = restore_clip_checkpoint(rdir, wrapped, state, n, cfg=cfg, log=log)
+            log.info("resumed from %s epoch %d (%s)", rdir, start_epoch,
+                     "daclip_tpu's orbax step dir" if kind == "orbax" else "the port's .pt")
 
     report_to = [r for r in args.report_to.split(",") if r]
     writer = MetricWriter(log_base, use_tensorboard="tensorboard" in report_to) if host0 else None

@@ -224,7 +224,7 @@ def main(argv=None):
     from daclip_torch.models.unet import ConditionalUNet
     from daclip_torch.train.restoration import init_state, make_sampler
     from daclip_torch.utils import metrics
-    from daclip_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from daclip_torch.utils.checkpoint import restore_checkpoint, resume_point, save_checkpoint
 
     rank, world, _, device = parallel.initialize_distributed(
         args.dist_url, args.dist_backend, args.device, not args.no_set_device_rank)
@@ -260,17 +260,24 @@ def main(argv=None):
             log.warning("no daclip checkpoint at %s — training without contexts",
                         (opt["path"] or {}).get("daclip"))
 
-    # init from manual_seed, then resume from the newest checkpoint
+    # init from manual_seed, then resume from the newest checkpoint: the
+    # port's <step>.pt or daclip_tpu's orbax step dir <step>/ (its whole
+    # TrainState: parameters, optimizer moments, EMA, step), the .pt on a tie
     torch.manual_seed(train_opt.get("manual_seed", 0) or 0)
     unet = ConditionalUNet(dtype=torch.bfloat16, **kw)
     wrapped = parallel.parallelize(unet.to(device), mesh, device, static_graph=True)
     state = init_state(unet, cfg, device=device)
     ckpt_dir = opt["path"]["training_state"]
     start_step = 0
-    if ckpt_dir and latest_step(ckpt_dir) is not None:
-        restore_checkpoint(ckpt_dir, wrapped, state)
+    found = resume_point(ckpt_dir) if ckpt_dir else None
+    if found is not None:
+        kind, n = found
+        restore_checkpoint(ckpt_dir, wrapped, state, step=n, cfg=cfg)
         start_step = state.step
         log.info("resumed from step %d", start_step)
+        where = (f"daclip_tpu's orbax step dir {os.path.join(ckpt_dir, str(n))}"
+                 if kind == "orbax" else f"the port's {os.path.join(ckpt_dir, f'{n}.pt')}")
+        log.info("resumed from %s", where)
     step_fn = make_step(wrapped, sde, cfg, device, context_fn)
     log.info("rank %d of %d, mesh %s", rank, world, None if mesh is None else mesh.shape)
 

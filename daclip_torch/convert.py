@@ -267,6 +267,21 @@ def daclip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     clip = params["clip"]
     _clip(w, "clip.", clip)
     _visual(w, "visual", clip["visual"])
+    _daclip_trainable(w, params)
+    return w.sd
+
+
+def daclip_trainable_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The part of `daclip_state_dict_from_jax` that DA-CLIP trains (its
+    controller, `logit_scale`, the predictor), from a tree that holds those
+    alone: daclip_tpu's trainable parameters, or an optimizer's moments of
+    them."""
+    w = _Writer()
+    _daclip_trainable(w, params)
+    return w.sd
+
+
+def _daclip_trainable(w: _Writer, params: Mapping):
     _visual(w, "visual_control", params["visual_control"],
             transformer_sub="transformer.transformer.resblocks",
             zero_prefix="visual_control.transformer.zero_modules")
@@ -279,7 +294,6 @@ def daclip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             w.put(f"{k}.0.bias", p["reg_b1"][i])
             w.put(f"{k}.2.weight", _t(p["reg_w2"][i]))
             w.put(f"{k}.2.bias", p["reg_b2"][i])
-    return w.sd
 
 
 # -- the other image towers (inverses of torch_convert's convert_*_visual) ----

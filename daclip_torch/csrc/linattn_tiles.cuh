@@ -319,13 +319,33 @@ __device__ __forceinline__ void add_col_sums(float* sums, float (&p)[NT][2], int
   }
 }
 
+// The LayerNorms' width cn ≤ C as the kernels take it. Rows laid out at C
+// columns with zeros past cn (ops/linear_attention.py `_pad_operands`) sum
+// to the same over C as over cn: a mean over C is scaled by `ratio` = C / cn;
+// the zeros add (C − cn)·m² to a sum of (v − m)², which the prenorm's
+// variance takes back out (`pad` = C − cn); the sums of y's LayerNorms are
+// shifted by the row's first y, which their zeros would have added too, so
+// at cn < C they are not shifted (`shift` 0, else 1). The three are kernel
+// parameters, read as operands where they are used (each such kernel is at
+// its register cap: a value formed from cn and held, or a sum started from
+// it, spilled), and scale by __fmul_rn, which no FMA contracts; cn = C gives
+// pad 0, ratio 1 and shift 1, which leave every result as it was, bit for
+// bit.
+struct LnWidth {
+  float pad, ratio, shift;
+};
+inline LnWidth ln_width(int C, int cn) {
+  return {(float)(C - cn), (float)C / (float)cn, cn == C ? 1.f : 0.f};
+}
+
 // The warp's rows (lane_row() and + 8, r < valid) of a box tile replaced by
 // ChannelLN(row)·g rounded to bf16, the statistics in f32 over the quad's
 // lanes, the two rows' loads interleaved; each row's mean and 1/std to
-// mean_s / rstd_s when given. Rows past valid and columns past C are left as
-// they are. g is best a copy in shared memory (`load_vec`).
-__device__ __forceinline__ void ln_tile(unsigned char* xs, int C, int valid, const bf16* g,
-                                        float* mean_s, float* rstd_s) {
+// mean_s / rstd_s when given. The LN is over the first cn ≤ C columns
+// (`LnWidth`; x and g are zeros past cn). Rows past valid and columns past C
+// are left as they are. g is best a copy in shared memory (`load_vec`).
+__device__ __forceinline__ void ln_tile(unsigned char* xs, int C, LnWidth lw, int valid,
+                                        const bf16* g, float* mean_s, float* rstd_s) {
   const int r = lane_row(), c0 = lane_col();
   float s0 = 0.f, s1 = 0.f;
 #pragma unroll 8
@@ -335,7 +355,8 @@ __device__ __forceinline__ void ln_tile(unsigned char* xs, int C, int valid, con
     s0 += a.x + a.y;
     s1 += b.x + b.y;
   }
-  const float m0 = quad_sum(s0) / C, m1 = quad_sum(s1) / C;
+  const float m0 = __fmul_rn(quad_sum(s0) / C, lw.ratio);
+  const float m1 = __fmul_rn(quad_sum(s1) / C, lw.ratio);
   float q0 = 0.f, q1 = 0.f;
 #pragma unroll 8
   for (int c = c0; c < C; c += 8) {
@@ -344,8 +365,10 @@ __device__ __forceinline__ void ln_tile(unsigned char* xs, int C, int valid, con
     q0 += (a.x - m0) * (a.x - m0) + (a.y - m0) * (a.y - m0);
     q1 += (b.x - m1) * (b.x - m1) + (b.y - m1) * (b.y - m1);
   }
-  const float rs0 = 1.f / sqrtf(quad_sum(q0) / C + LN_EPS);
-  const float rs1 = 1.f / sqrtf(quad_sum(q1) / C + LN_EPS);
+  const float rs0 =
+      1.f / sqrtf(__fmul_rn((quad_sum(q0) - lw.pad * m0 * m0) / C, lw.ratio) + LN_EPS);
+  const float rs1 =
+      1.f / sqrtf(__fmul_rn((quad_sum(q1) - lw.pad * m1 * m1) / C, lw.ratio) + LN_EPS);
   const bool w0 = r < valid, w1 = r + 8 < valid;
 #pragma unroll 8
   for (int c = c0; c < C; c += 8) {
@@ -597,6 +620,15 @@ inline bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (p != nullptr && ((uintptr_t)p & 15) != 0) return false;
   return true;
+}
+
+// Host side: the widths a launch takes. C is the rows' width (1 to 512; in
+// bf16 a multiple of 8, a row's bytes a multiple of the 16 TMA steps in), cn
+// the LayerNorms' width: C itself, or in bf16 the true width of rows that
+// the caller laid out at the next multiple of 8 with zeros past it.
+inline bool widths_ok(int C, int cn, int is_bf16) {
+  if (C < 1 || C > 512 || cn < 1 || cn > C) return false;
+  return is_bf16 ? C % 8 == 0 && cn > C - 8 : cn == C;
 }
 
 // A kernel's shared memory: `fixed` bytes of its own (tiles, heads, f32

@@ -499,7 +499,7 @@ __global__ void __launch_bounds__(THREADS, 3)
 stats_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                  const bf16* __restrict__ g_pre, float* __restrict__ part_m,
                  float* __restrict__ part_s, float* __restrict__ part_ctx, int n, int C,
-                 int rows, Layout L) {
+                 LnWidth lw, int rows, Layout L) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   constexpr bool PROJ = FORM != QKV;
   unsigned char* smem = aligned(smem_raw);
@@ -593,7 +593,7 @@ stats_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     wait_weights(w);
     if constexpr (PROJ) {
       if (FORM == RAW_X) {
-        ln_tile(xs, C, valid, gs, nullptr, nullptr);
+        ln_tile(xs, C, lw, valid, gs, nullptr, nullptr);
         mma::fence_proxy_async();  // wgmma reads xn through the async proxy
       }
       __syncthreads();  // xn is whole
@@ -702,7 +702,8 @@ apply_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
                  const __grid_constant__ CUtensorMap to, const bf16* __restrict__ x,
                  const bf16* __restrict__ g_pre, const float* __restrict__ w_attn,
                  const bf16* __restrict__ b_out, const bf16* __restrict__ g_out,
-                 bf16* __restrict__ out, int B, int n, int C, int tiles_per_cta, Layout L) {
+                 bf16* __restrict__ out, int B, int n, int C, LnWidth lw, int tiles_per_cta,
+                 Layout L) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   constexpr bool PROJ = FORM != QKV;
   unsigned char* smem = aligned(smem_raw);
@@ -778,7 +779,7 @@ apply_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     wait_weights(w);
     if constexpr (PROJ) {
       if (FORM == RAW_X) {
-        ln_tile(xs, C, valid, gps, nullptr, nullptr);
+        ln_tile(xs, C, lw, valid, gps, nullptr, nullptr);
         mma::fence_proxy_async();
       }
       __syncthreads();  // xn (and W_h) whole
@@ -846,7 +847,8 @@ apply_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     sweep([&](int j, const float (&t)[8][4]) {
       if (j == 0)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) sh[h] = __shfl_sync(0xffffffffu, t[0][2 * h], (tid & 31) & ~3);
+        for (int h = 0; h < 2; ++h)
+          sh[h] = __fmul_rn(__shfl_sync(0xffffffffu, t[0][2 * h], (tid & 31) & ~3), lw.shift);
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
         if (64 * j + 8 * jj + tq < C)
@@ -857,11 +859,14 @@ apply_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
             s2[h] += d0 * d0 + d1 * d1;
           }
     });
+    // over the LN's cn columns (`LnWidth`: y is 0 past cn, as W_out's
+    // columns and b_out are there)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float e1 = quad_sum(s1[h]) / C;  // mean(y − sh)
+      const float e1 = __fmul_rn(quad_sum(s1[h]) / C, lw.ratio);  // mean(y − sh)
       mean[h] = sh[h] + e1;
-      rs[h] = 1.f / sqrtf(fmaxf(quad_sum(s2[h]) / C - e1 * e1, 0.f) + LN_EPS);
+      rs[h] =
+          1.f / sqrtf(fmaxf(__fmul_rn(quad_sum(s2[h]) / C, lw.ratio) - e1 * e1, 0.f) + LN_EPS);
     }
     const bf16* xt = x + ((size_t)b * n + t0) * C;
     bf16* ot = out + ((size_t)b * n + t0) * C;
@@ -918,7 +923,7 @@ cudaError_t smem_opt_in(K kernel, int bytes) {
 
 template <typename T, int FORM>
 int launch_stats(const void* x, const void* g, const void* w, void* pm, void* ps, void* pc,
-                 int B, int n, int C, int rows, cudaStream_t st) {
+                 int B, int n, int C, int cn, int rows, cudaStream_t st) {
   dim3 grid((n + rows - 1) / rows, B);
   if constexpr (IS_BF16<T>) {
     if (!linattn::aligned16({x, g, w})) return (int)cudaErrorMisalignedAddress;
@@ -931,7 +936,8 @@ int launch_stats(const void* x, const void* g, const void* w, void* pm, void* ps
     if (err == cudaSuccess) err = smem_opt_in(kernel, L.bytes);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, linattn::THREADS, L.bytes, st>>>(tx, tw, (const T*)g, (float*)pm, (float*)ps,
-                                                    (float*)pc, n, C, rows, L);
+                                                    (float*)pc, n, C, linattn::ln_width(C, cn),
+                                                    rows, L);
     return (int)cudaGetLastError();
   } else {
     const size_t smem = stats_smem(C, FORM);
@@ -956,7 +962,7 @@ int launch_combine(const void* pm, const void* ps, const void* pc, void* w_attn,
 template <int FORM, bool RESIDUAL, bool KEEP>
 int launch_apply_tma(const void* x, const void* g_pre, const void* w_qkv, const void* w_attn,
                      const void* w_out, const void* b_out, const void* g_out, void* out, int B,
-                     int n, int C, int tiles, cudaStream_t st) {
+                     int n, int C, int cn, int tiles, cudaStream_t st) {
   using linattn::bf16;
   const linattn::Layout L = tc::apply_layout(C, FORM);
   if (L.bytes == 0) return (int)cudaErrorInvalidValue;
@@ -971,22 +977,22 @@ int launch_apply_tma(const void* x, const void* g_pre, const void* w_qkv, const 
   const int total = B * ((n + TILE - 1) / TILE);
   kernel<<<(total + tiles - 1) / tiles, linattn::THREADS, L.bytes, st>>>(
       tx, tw, to, (const bf16*)x, (const bf16*)g_pre, (const float*)w_attn, (const bf16*)b_out,
-      (const bf16*)g_out, (bf16*)out, B, n, C, tiles, L);
+      (const bf16*)g_out, (bf16*)out, B, n, C, linattn::ln_width(C, cn), tiles, L);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int FORM, bool RESIDUAL>
 int launch_apply(const void* x, const void* g_pre, const void* w_qkv, const void* w_attn,
                  const void* w_out, const void* b_out, const void* g_out, void* out, int B,
-                 int n, int C, int tiles, cudaStream_t st) {
+                 int n, int C, int cn, int tiles, cudaStream_t st) {
   if constexpr (IS_BF16<T>) {
     if (!linattn::aligned16({x, g_pre, w_qkv, w_out, b_out, g_out, out}))
       return (int)cudaErrorMisalignedAddress;
     if (tiles < 1) return (int)cudaErrorInvalidValue;
     return C <= 64 ? launch_apply_tma<FORM, RESIDUAL, true>(x, g_pre, w_qkv, w_attn, w_out, b_out,
-                                                           g_out, out, B, n, C, tiles, st)
+                                                           g_out, out, B, n, C, cn, tiles, st)
                    : launch_apply_tma<FORM, RESIDUAL, false>(x, g_pre, w_qkv, w_attn, w_out,
-                                                            b_out, g_out, out, B, n, C, tiles,
+                                                            b_out, g_out, out, B, n, C, cn, tiles,
                                                             st);
   } else {
     dim3 grid((n + TILE - 1) / TILE, B);
@@ -1007,15 +1013,15 @@ int launch_apply(const void* x, const void* g_pre, const void* w_qkv, const void
 template <typename T, int FORM, bool RESIDUAL>
 int launch_forward(const void* x, const void* g_pre, const void* w_qkv, const void* w_out,
                    const void* b_out, const void* g_out, void* pm, void* ps, void* pc,
-                   void* w_attn, void* out, int B, int n, int C, int rows, int tiles,
+                   void* w_attn, void* out, int B, int n, int C, int cn, int rows, int tiles,
                    cudaStream_t st) {
-  int err = launch_stats<T, FORM>(x, g_pre, w_qkv, pm, ps, pc, B, n, C, rows, st);
+  int err = launch_stats<T, FORM>(x, g_pre, w_qkv, pm, ps, pc, B, n, C, cn, rows, st);
   if (err) return err;
   err = launch_combine<T>(pm, ps, pc, w_attn, nullptr, nullptr, nullptr, B,
                           (n + rows - 1) / rows, n, st);
   if (err) return err;
   return launch_apply<T, FORM, RESIDUAL>(x, g_pre, w_qkv, w_attn, w_out, b_out, g_out, out, B,
-                                         n, C, tiles, st);
+                                         n, C, cn, tiles, st);
 }
 
 }  // namespace wrap
@@ -1023,15 +1029,17 @@ int launch_forward(const void* x, const void* g_pre, const void* w_qkv, const vo
 
 using namespace daclip::wrap;
 
+// C: the rows' width, cn: the LayerNorms' (`daclip::linattn::widths_ok`).
 extern "C" int daclip_wrap_stats(const void* x, const void* g_pre, const void* w_qkv,
                                  void* part_m, void* part_s, void* part_ctx, int B, int n,
-                                 int C, int rows, int is_bf16, void* stream) {
-  if (C % 16 || C < 16 || C > 512 || rows % TILE || n < 1) return (int)cudaErrorInvalidValue;
+                                 int C, int cn, int rows, int is_bf16, void* stream) {
+  if (!daclip::linattn::widths_ok(C, cn, is_bf16) || rows % TILE || n < 1)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   return is_bf16 ? launch_stats<__nv_bfloat16, RAW_X>(x, g_pre, w_qkv, part_m, part_s,
-                                                      part_ctx, B, n, C, rows, st)
+                                                      part_ctx, B, n, C, cn, rows, st)
                  : launch_stats<float, RAW_X>(x, g_pre, w_qkv, part_m, part_s, part_ctx, B, n,
-                                              C, rows, st);
+                                              C, cn, rows, st);
 }
 
 extern "C" int daclip_wrap_combine(const void* part_m, const void* part_s,
@@ -1051,30 +1059,32 @@ extern "C" int daclip_wrap_combine(const void* part_m, const void* part_s,
 // kernel takes one a CTA and ignores it).
 extern "C" int daclip_wrap_apply(const void* x, const void* g_pre, const void* w_qkv,
                                  const void* w_attn, const void* w_out, const void* b_out,
-                                 const void* g_out, void* out, int B, int n, int C, int tiles,
-                                 int is_bf16, void* stream) {
-  if (C % 16 || C < 16 || C > 512 || n < 1) return (int)cudaErrorInvalidValue;
+                                 const void* g_out, void* out, int B, int n, int C, int cn,
+                                 int tiles, int is_bf16, void* stream) {
+  if (!daclip::linattn::widths_ok(C, cn, is_bf16) || n < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   return is_bf16 ? launch_apply<__nv_bfloat16, RAW_X, true>(x, g_pre, w_qkv, w_attn, w_out,
-                                                            b_out, g_out, out, B, n, C, tiles, st)
+                                                            b_out, g_out, out, B, n, C, cn, tiles,
+                                                            st)
                  : launch_apply<float, RAW_X, true>(x, g_pre, w_qkv, w_attn, w_out, b_out,
-                                                    g_out, out, B, n, C, tiles, st);
+                                                    g_out, out, B, n, C, cn, tiles, st);
 }
 
 // #5, linear_attention_fused_v4: xn (B, n, C) → ChannelLN(attn(xn)·W_out + b)·g
 extern "C" int daclip_linattn_fused_v4(const void* xn, const void* w_qkv, const void* w_out,
                                        const void* b_out, const void* g_out, void* part_m,
                                        void* part_s, void* part_ctx, void* w_attn, void* out,
-                                       int B, int n, int C, int rows, int tiles, int is_bf16,
-                                       void* stream) {
-  if (C % 16 || C < 16 || C > 512 || rows % TILE || n < 1) return (int)cudaErrorInvalidValue;
+                                       int B, int n, int C, int cn, int rows, int tiles,
+                                       int is_bf16, void* stream) {
+  if (!daclip::linattn::widths_ok(C, cn, is_bf16) || rows % TILE || n < 1)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   return is_bf16 ? launch_forward<__nv_bfloat16, XN, false>(
                        xn, nullptr, w_qkv, w_out, b_out, g_out, part_m, part_s, part_ctx,
-                       w_attn, out, B, n, C, rows, tiles, st)
+                       w_attn, out, B, n, C, cn, rows, tiles, st)
                  : launch_forward<float, XN, false>(xn, nullptr, w_qkv, w_out, b_out, g_out,
                                                     part_m, part_s, part_ctx, w_attn, out, B,
-                                                    n, C, rows, tiles, st);
+                                                    n, C, cn, rows, tiles, st);
 }
 
 // #7, linear_attention_pallas: qkv (B, n, 384) → the attention (B, n, 128)
@@ -1085,15 +1095,15 @@ extern "C" int daclip_linattn_core(const void* qkv, void* part_m, void* part_s, 
   auto st = (cudaStream_t)stream;
   return is_bf16 ? launch_forward<__nv_bfloat16, QKV, false>(
                        qkv, nullptr, nullptr, nullptr, nullptr, nullptr, part_m, part_s,
-                       part_ctx, w_attn, out, B, n, 3 * HID, rows, tiles, st)
+                       part_ctx, w_attn, out, B, n, 3 * HID, 3 * HID, rows, tiles, st)
                  : launch_forward<float, QKV, false>(qkv, nullptr, nullptr, nullptr, nullptr,
                                                      nullptr, part_m, part_s, part_ctx, w_attn,
-                                                     out, B, n, 3 * HID, rows, tiles, st);
+                                                     out, B, n, 3 * HID, 3 * HID, rows, tiles, st);
 }
 
 // The bf16 launches' dynamic shared memory in bytes at C: kernel 0 stats, 1
 // apply, in input form `form` (0 raw x, 1 xn, 2 qkv); 0 if it does not fit.
 extern "C" int daclip_wrap_smem(int kernel, int C, int form) {
-  if (C % 16 || C < 16 || C > 512 || form < 0 || form > 2) return 0;
+  if (!daclip::linattn::widths_ok(C, C, 1) || form < 0 || form > 2) return 0;
   return kernel == 0 ? tc::stats_layout(C, form).bytes : tc::apply_layout(C, form).bytes;
 }

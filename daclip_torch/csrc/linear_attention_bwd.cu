@@ -674,7 +674,8 @@ pass1_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
                  const bf16* __restrict__ b_out, const bf16* __restrict__ g_out,
                  bf16* __restrict__ dy_spill, bf16* __restrict__ attn_spill,
                  float* __restrict__ part_dw, float* __restrict__ part_dgout,
-                 float* __restrict__ part_dbout, int n, int C, int rows, Layout L) {
+                 float* __restrict__ part_dbout, int n, int C, LnWidth lw, int rows,
+                 Layout L) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned(smem_raw);
   const uint32_t base = mma::smem_u32(smem);
@@ -766,7 +767,7 @@ pass1_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     unsigned char* das = own ? smem + 2 * BOX : dos;  // dattn: 2 boxes
     ring.wait(it);
     wait_weights(w);
-    ln_tile(xs, C, valid, gps, nullptr, nullptr);
+    ln_tile(xs, C, lw, valid, gps, nullptr, nullptr);
     mma::fence_proxy_async();
     __syncthreads();  // xn is whole; the last tile's pair products are done with qs, das
     float acc[16][4];
@@ -815,14 +816,18 @@ pass1_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     // the post-norm LN and its VJP over each row's quad, in two sweeps over
     // the row's chunks. The first sums y − sh, (y − sh)², dn = dO·g_out and
     // dn·(y − sh) (sh: the row's y at column 0, so that the sums stay small):
-    // mean and 1/std of y, m1 = mean(dn) and m2 = mean(dn·ny). The second
-    // forms ny, dg_out += dO·ny and db_out += dy per column (rows past valid:
-    // dO, so dy, is 0).
+    // mean and 1/std of y, m1 = mean(dn) and m2 = mean(dn·ny), over the LN's
+    // cn columns (`LnWidth`: past cn y, dO and g_out are 0). The second
+    // forms ny, dg_out +=
+    // dO·ny and db_out += dy per column (rows past valid: dO, so dy, is 0;
+    // columns past cn: dy is not, but meets only W_out's zero columns and
+    // the gradients' columns that the caller cuts off).
     float sh[2], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f}, m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
     sweep([&](int j, const float (&t)[8][4]) {
       if (j == 0)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) sh[h] = __shfl_sync(0xffffffffu, t[0][2 * h], (tid & 31) & ~3);
+        for (int h = 0; h < 2; ++h)
+          sh[h] = __fmul_rn(__shfl_sync(0xffffffffu, t[0][2 * h], (tid & 31) & ~3), lw.shift);
       uint32_t gq[8][2];
       ld_chunk_sw<8>(gq, dos, C, 64 * j);
 #pragma unroll
@@ -846,11 +851,12 @@ pass1_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     float mean[2], rs[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float e1 = quad_sum(s1[h]) / C;  // mean(y − sh)
+      const float e1 = __fmul_rn(quad_sum(s1[h]) / C, lw.ratio);  // mean(y − sh)
       mean[h] = sh[h] + e1;
-      rs[h] = 1.f / sqrtf(fmaxf(quad_sum(s2[h]) / C - e1 * e1, 0.f) + LN_EPS);
-      m1[h] = quad_sum(m1[h]) / C;
-      m2[h] = (quad_sum(m2[h]) / C - e1 * m1[h]) * rs[h];
+      rs[h] =
+          1.f / sqrtf(fmaxf(__fmul_rn(quad_sum(s2[h]) / C, lw.ratio) - e1 * e1, 0.f) + LN_EPS);
+      m1[h] = __fmul_rn(quad_sum(m1[h]) / C, lw.ratio);
+      m2[h] = (__fmul_rn(quad_sum(m2[h]) / C, lw.ratio) - e1 * m1[h]) * rs[h];
     }
     // dy = rs·(dn − m1 − ny·m2), rounded: spilled, and written over dO in
     // the stage (each pair by the lane that read it)
@@ -968,7 +974,7 @@ pass2_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
                  const float* __restrict__ dctx, const float* __restrict__ ds,
                  const float* __restrict__ m, bf16* __restrict__ dx, bf16* __restrict__ xn_spill,
                  bf16* __restrict__ dqkv_spill, float* __restrict__ part_dgpre, int n, int C,
-                 int rows, Layout L) {
+                 LnWidth lw, int rows, Layout L) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned(smem_raw);
   const uint32_t base = mma::smem_u32(smem);
@@ -1092,7 +1098,7 @@ pass2_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     product(acc, 0, st + CB * BOX);  // dattn = dy·W_outᵀ
     uint32_t da[8][4];
     pack_rows<16>(da, acc);  // rounded
-    ln_tile(xs, C, valid, gps, mean_s, rstd_s);
+    ln_tile(xs, C, lw, valid, gps, mean_s, rstd_s);
     mma::fence_proxy_async();
     __syncthreads();  // xn is whole
     for (int e = tid; e < valid * (C / 8); e += THREADS) {  // spill xn
@@ -1251,8 +1257,8 @@ pass2_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     });
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      m1[h] = quad_sum(m1[h]) / C;
-      m2[h] = quad_sum(m2[h]) / C;
+      m1[h] = __fmul_rn(quad_sum(m1[h]) / C, lw.ratio);  // past cn dxn and g_pre are 0
+      m2[h] = __fmul_rn(quad_sum(m2[h]) / C, lw.ratio);
     }
     bf16* dxt = dx + (bn + t0) * C;
     const bf16* gt = dout + (bn + t0) * C;
@@ -1437,7 +1443,7 @@ template <bool KEEP>
 int launch_pass1_tma(const void* x, const void* dout, const void* g_pre, const void* w_qkv,
                      const void* w_attn, const void* w_out, const void* b_out,
                      const void* g_out, void* dy_spill, void* attn_spill, void* part_dw,
-                     void* part_dgout, void* part_dbout, int B, int n, int C, int rows,
+                     void* part_dgout, void* part_dbout, int B, int n, int C, int cn, int rows,
                      cudaStream_t st) {
   using linattn::bf16;
   const linattn::Layout L = tc::pass1_layout(C);
@@ -1453,7 +1459,7 @@ int launch_pass1_tma(const void* x, const void* dout, const void* g_pre, const v
   kernel<<<dim3((n + rows - 1) / rows, B), linattn::THREADS, L.bytes, st>>>(
       tx, tdo, tw, to, (const bf16*)g_pre, (const float*)w_attn, (const bf16*)b_out,
       (const bf16*)g_out, (bf16*)dy_spill, (bf16*)attn_spill, (float*)part_dw,
-      (float*)part_dgout, (float*)part_dbout, n, C, rows, L);
+      (float*)part_dgout, (float*)part_dbout, n, C, linattn::ln_width(C, cn), rows, L);
   return (int)cudaGetLastError();
 }
 
@@ -1461,7 +1467,7 @@ template <bool KEEP>
 int launch_pass2_tma(const void* x, const void* dout, const void* g_pre, const void* w_qkv,
                      const void* w_attn, const void* w_out, const void* dctx, const void* ds,
                      const void* m, const void* dy_spill, void* dx, void* xn_spill,
-                     void* dqkv_spill, void* part_dgpre, int B, int n, int C, int rows,
+                     void* dqkv_spill, void* part_dgpre, int B, int n, int C, int cn, int rows,
                      cudaStream_t st) {
   using linattn::bf16;
   const linattn::Layout L = tc::pass2_layout(C);
@@ -1477,7 +1483,8 @@ int launch_pass2_tma(const void* x, const void* dout, const void* g_pre, const v
   kernel<<<dim3((n + rows - 1) / rows, B), linattn::THREADS, L.bytes, st>>>(
       tx, tdy, tw, to, (const bf16*)x, (const bf16*)dout, (const bf16*)g_pre,
       (const float*)w_attn, (const float*)dctx, (const float*)ds, (const float*)m, (bf16*)dx,
-      (bf16*)xn_spill, (bf16*)dqkv_spill, (float*)part_dgpre, n, C, rows, L);
+      (bf16*)xn_spill, (bf16*)dqkv_spill, (float*)part_dgpre, n, C, linattn::ln_width(C, cn),
+      rows, L);
   return (int)cudaGetLastError();
 }
 
@@ -1517,19 +1524,20 @@ extern "C" int daclip_wrap_bwd1(const void* x, const void* dout, const void* g_p
                                 const void* w_qkv, const void* w_attn, const void* w_out,
                                 const void* b_out, const void* g_out, void* dy_spill,
                                 void* attn_spill, void* part_dw, void* part_dgout,
-                                void* part_dbout, int B, int n, int C, int rows, int is_bf16,
-                                void* stream) {
-  if (C % 16 || C < 16 || C > 512 || rows % 64 || n < 1) return (int)cudaErrorInvalidValue;
+                                void* part_dbout, int B, int n, int C, int cn, int rows,
+                                int is_bf16, void* stream) {
+  if (!daclip::linattn::widths_ok(C, cn, is_bf16) || rows % 64 || n < 1)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (is_bf16) {
     if (!daclip::linattn::aligned16({x, dout, g_pre, w_qkv, w_out, b_out, g_out, dy_spill, attn_spill}))
       return (int)cudaErrorMisalignedAddress;
     return C <= 64 ? launch_pass1_tma<true>(x, dout, g_pre, w_qkv, w_attn, w_out, b_out, g_out,
                                             dy_spill, attn_spill, part_dw, part_dgout,
-                                            part_dbout, B, n, C, rows, st)
+                                            part_dbout, B, n, C, cn, rows, st)
                    : launch_pass1_tma<false>(x, dout, g_pre, w_qkv, w_attn, w_out, b_out, g_out,
                                              dy_spill, attn_spill, part_dw, part_dgout,
-                                             part_dbout, B, n, C, rows, st);
+                                             part_dbout, B, n, C, cn, rows, st);
   }
 #define DACLIP_PASS1(T, RW)                                                                  \
   launch_pass1<T, RW>(x, dout, g_pre, w_qkv, w_attn, w_out, b_out, g_out, dy_spill,         \
@@ -1558,18 +1566,19 @@ extern "C" int daclip_wrap_bwd2(const void* x, const void* dout, const void* g_p
                                 const void* dctx, const void* ds, const void* m,
                                 const void* dy_spill, void* dx, void* xn_spill,
                                 void* dqkv_spill, void* part_dgpre, int B, int n, int C,
-                                int rows, int is_bf16, void* stream) {
-  if (C % 16 || C < 16 || C > 512 || rows % 64 || n < 1) return (int)cudaErrorInvalidValue;
+                                int cn, int rows, int is_bf16, void* stream) {
+  if (!daclip::linattn::widths_ok(C, cn, is_bf16) || rows % 64 || n < 1)
+    return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (is_bf16) {
     if (!daclip::linattn::aligned16({x, dout, g_pre, w_qkv, w_out, dy_spill, dx, xn_spill, dqkv_spill}))
       return (int)cudaErrorMisalignedAddress;
     return C <= 64 ? launch_pass2_tma<true>(x, dout, g_pre, w_qkv, w_attn, w_out, dctx, ds, m,
                                             dy_spill, dx, xn_spill, dqkv_spill, part_dgpre, B,
-                                            n, C, rows, st)
+                                            n, C, cn, rows, st)
                    : launch_pass2_tma<false>(x, dout, g_pre, w_qkv, w_attn, w_out, dctx, ds, m,
                                              dy_spill, dx, xn_spill, dqkv_spill, part_dgpre, B,
-                                             n, C, rows, st);
+                                             n, C, cn, rows, st);
   }
 #define DACLIP_PASS2(T, RW)                                                                  \
   launch_pass2<T, RW>(x, dout, g_pre, w_qkv, w_attn, w_out, dctx, ds, m, dy_spill, dx,      \
@@ -1595,7 +1604,7 @@ extern "C" int daclip_wrap_wgrad(const void* a, const void* bm, void* part, long
 // The bf16 launches' dynamic shared memory in bytes at C: kernel 0 pass 1,
 // 1 pass 2, 2 the weight gradient dW_qkv, 3 dW_out; 0 if it does not fit.
 extern "C" int daclip_wrap_bwd_smem(int kernel, int C) {
-  if (C % 16 || C < 16 || C > 512) return 0;
+  if (!daclip::linattn::widths_ok(C, C, 1)) return 0;
   if (kernel == 2 && C <= 64) return tc::Wgrad<6>::BYTES;
   if (kernel >= 2) return tc::Wgrad<2>::BYTES;
   return kernel == 0 ? tc::pass1_layout(C).bytes : tc::pass2_layout(C).bytes;

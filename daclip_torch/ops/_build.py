@@ -36,27 +36,28 @@ _L = ctypes.c_long
 _F = ctypes.c_float
 # C signatures of the exported launchers; each returns a cudaError_t
 SIGNATURES = {
-    # x, g_pre, w_qkv, part_m, part_s, part_ctx, B, n, C, rows, is_bf16, stream
-    "daclip_wrap_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, g_pre, w_qkv, part_m, part_s, part_ctx, B, n, C, cn, rows, is_bf16, stream
+    # (C the rows' width, cn the LayerNorms': ops/linear_attention.py `_padded`)
+    "daclip_wrap_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # part_m, part_s, part_ctx, w_attn, ctx|null, s|null, m|null, B, n_parts, n,
     # is_bf16, stream
     "daclip_wrap_combine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, g_pre, w_qkv, w_attn, w_out, b_out, g_out, out, B, n, C, tiles, is_bf16,
-    # stream
-    "daclip_wrap_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, g_pre, w_qkv, w_attn, w_out, b_out, g_out, out, B, n, C, cn, tiles,
+    # is_bf16, stream
+    "daclip_wrap_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, dout, g_pre, w_qkv, w_attn, w_out, b_out, g_out, dy_spill, attn_spill,
-    # part_dw, part_dgout, part_dbout, B, n, C, rows, is_bf16, stream
-    "daclip_wrap_bwd1": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
+    # part_dw, part_dgout, part_dbout, B, n, C, cn, rows, is_bf16, stream
+    "daclip_wrap_bwd1": [_P] * 13 + [_I, _I, _I, _I, _I, _I, _P],
     # part_dw, ctx, s, dctx, ds, B, n_parts, n, is_bf16, stream
     "daclip_wrap_bwd_mid": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, dout, g_pre, w_qkv, w_attn, w_out, dctx, ds, m, dy_spill, dx, xn_spill,
-    # dqkv_spill, part_dgpre, B, n, C, rows, is_bf16, stream
-    "daclip_wrap_bwd2": [_P] * 14 + [_I, _I, _I, _I, _I, _P],
+    # dqkv_spill, part_dgpre, B, n, C, cn, rows, is_bf16, stream
+    "daclip_wrap_bwd2": [_P] * 14 + [_I, _I, _I, _I, _I, _I, _P],
     # a, b, part, R, K1, K2, rows_per_split, splits, is_bf16, stream
     "daclip_wrap_wgrad": [_P, _P, _P, _L, _I, _I, _L, _I, _I, _P],
     # xn, w_qkv, w_out, b_out, g_out, part_m, part_s, part_ctx, w_attn, out,
-    # B, n, C, rows, tiles, is_bf16, stream
-    "daclip_linattn_fused_v4": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _P],
+    # B, n, C, cn, rows, tiles, is_bf16, stream
+    "daclip_linattn_fused_v4": [_P] * 10 + [_I, _I, _I, _I, _I, _I, _I, _P],
     # qkv, part_m, part_s, part_ctx, w_attn, out, B, n, rows, tiles, is_bf16, stream
     "daclip_linattn_core": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
     # x, skip|null, w, y, R, Kx, Ks, O, is_bf16, the plan (ops/pointwise.py

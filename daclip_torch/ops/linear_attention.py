@@ -17,6 +17,11 @@ by TMA (`csrc/linattn_tiles.cuh`); their static schedules are chosen here:
 `_rows_per_part` (stats, pass 1, pass 2: one CTA a run of rows of one batch
 element), `_tiles_per_cta` (apply: one CTA a run of the B·⌈n/64⌉ tiles) and
 `_wgrad_split` (the weight gradients: one f32 partial a run of rows).
+They take every C from 1 to 512: a bf16 width that is not a multiple of 8
+is laid out at the next one (`_row_width`, `_pad_operands`: x, dO and the
+weights with zeros past C, so that every row is a whole number of the 16
+bytes TMA steps in), the kernels' LayerNorms told the true width, and the
+results cut back to C.
 
 The UNet's other wirings of the same math (`ConditionalUNet(linear_attention=
 "v4" | "v3")`) and the attention core have their own entry points, each a
@@ -206,9 +211,9 @@ def _check(x, g_pre, w_qkv, w_out, b_out, g_out, name="attn_wrap"):
     B, n, C = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name} takes bfloat16 or float32, got {x.dtype}")
-    if C % 16 or not 16 <= C <= 512 or n < 1 or not 1 <= B <= 65535:
-        raise ValueError(f"{name} kernel takes C a multiple of 16 up to 512, "
-                         f"n >= 1, 1 <= B <= 65535; got (B, n, C) = {(B, n, C)}")
+    if not 1 <= C <= 512 or n < 1 or not 1 <= B <= 65535:
+        raise ValueError(f"{name} kernel takes 1 <= C <= 512, n >= 1, 1 <= B <= 65535; "
+                         f"got (B, n, C) = {(B, n, C)}")
     want = {"g_pre": (C,), "w_qkv": (C, 3 * HID), "w_out": (HID, C),
             "b_out": (C,), "g_out": (C,)}
     operands = dict(zip(want, (g_pre, w_qkv, w_out, b_out, g_out)))
@@ -223,6 +228,25 @@ def _check(x, g_pre, w_qkv, w_out, b_out, g_out, name="attn_wrap"):
             raise ValueError(f"{name}: every operand must share x's device and dtype")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _row_width(x) -> int:
+    """The width of the rows the kernels read: C, or in bf16 the next
+    multiple of 8 (a TMA row's bytes are a multiple of 16)."""
+    C = x.shape[-1]
+    return C if x.dtype != torch.bfloat16 else -(-C // 8) * 8
+
+
+def _pad_operands(width, x, g_pre, w_qkv, w_out, b_out, g_out, dout=None):
+    """The operands laid out at `width` ≥ C channels with zeros past C: x (and
+    dout) and the vectors along their last axis, w_qkv's rows, w_out's
+    columns; g_pre and dout may be None. The kernels' LayerNorms take the
+    true C; every zero they read past it adds nothing to a product."""
+    extra = width - x.shape[-1]
+    pad = (lambda t, *lead: None if t is None else
+           torch.nn.functional.pad(t, (*lead, 0, extra)))
+    return (pad(x), pad(g_pre), pad(w_qkv, 0, 0), pad(w_out), pad(b_out), pad(g_out),
+            pad(dout))
 
 
 def _scratch(x, B, n):
@@ -247,7 +271,11 @@ def _forward_kernel(x, g_pre, w_qkv, w_out, b_out, g_out, keep_stats: bool, wrap
     wrapper = wrapper or attn_wrap
     _check(x, g_pre, w_qkv, w_out, b_out, g_out, name=wrapper.__name__)
     lib = _build.library()
-    B, n, C = x.shape
+    B, n, cn = x.shape
+    C = _row_width(x)
+    if C != cn:
+        x, g_pre, w_qkv, w_out, b_out, g_out, _ = _pad_operands(C, x, g_pre, w_qkv, w_out,
+                                                                b_out, g_out)
     rows, (part_m, part_s, part_ctx, w_attn) = _scratch(x, B, n)
     parts = part_m.shape[1]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -263,7 +291,7 @@ def _forward_kernel(x, g_pre, w_qkv, w_out, b_out, g_out, keep_stats: bool, wrap
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.daclip_wrap_stats(
             x.data_ptr(), g_pre.data_ptr(), w_qkv.data_ptr(), part_m.data_ptr(),
-            part_s.data_ptr(), part_ctx.data_ptr(), B, n, C, rows, bf16, stream),
+            part_s.data_ptr(), part_ctx.data_ptr(), B, n, C, cn, rows, bf16, stream),
             "daclip_wrap_stats")
         _build.check(lib.daclip_wrap_combine(
             part_m.data_ptr(), part_s.data_ptr(), part_ctx.data_ptr(),
@@ -272,9 +300,9 @@ def _forward_kernel(x, g_pre, w_qkv, w_out, b_out, g_out, keep_stats: bool, wrap
         _build.check(lib.daclip_wrap_apply(
             x.data_ptr(), g_pre.data_ptr(), w_qkv.data_ptr(), w_attn.data_ptr(),
             w_out.data_ptr(), b_out.data_ptr(), g_out.data_ptr(), out.data_ptr(),
-            B, n, C, _tiles_per_cta(B, n, C), bf16, stream), "daclip_wrap_apply")
+            B, n, C, cn, _tiles_per_cta(B, n, C), bf16, stream), "daclip_wrap_apply")
     wrapper.launches += 1
-    return out, stats
+    return (out if C == cn else out[..., :cn].contiguous()), stats
 
 
 def _wgrad(lib, a, b, stream):
@@ -307,7 +335,11 @@ def attn_wrap_bwd(x, g_pre, w_qkv, w_out, b_out, g_out, dout, stats=None):
     dout = dout.contiguous()
     w_attn, ctx, s, m = stats
     lib = _build.library()
-    B, n, C = x.shape
+    B, n, cn = x.shape
+    C = _row_width(x)
+    if C != cn:
+        x, g_pre, w_qkv, w_out, b_out, g_out, dout = _pad_operands(C, x, g_pre, w_qkv, w_out,
+                                                                   b_out, g_out, dout)
     rows = _rows_per_part(B, n)
     parts = math.ceil(n / rows)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -329,7 +361,7 @@ def attn_wrap_bwd(x, g_pre, w_qkv, w_out, b_out, g_out, dout, stats=None):
             x.data_ptr(), dout.data_ptr(), g_pre.data_ptr(), w_qkv.data_ptr(),
             w_attn.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), g_out.data_ptr(),
             dy.data_ptr(), attn.data_ptr(), part_dw.data_ptr(), part_dgout.data_ptr(),
-            part_dbout.data_ptr(), B, n, C, rows, bf16, stream), "daclip_wrap_bwd1")
+            part_dbout.data_ptr(), B, n, C, cn, rows, bf16, stream), "daclip_wrap_bwd1")
         _build.check(lib.daclip_wrap_bwd_mid(
             part_dw.data_ptr(), ctx.data_ptr(), s.data_ptr(), dctx.data_ptr(),
             ds.data_ptr(), B, parts, n, bf16, stream), "daclip_wrap_bwd_mid")
@@ -337,11 +369,16 @@ def attn_wrap_bwd(x, g_pre, w_qkv, w_out, b_out, g_out, dout, stats=None):
             x.data_ptr(), dout.data_ptr(), g_pre.data_ptr(), w_qkv.data_ptr(),
             w_attn.data_ptr(), w_out.data_ptr(), dctx.data_ptr(), ds.data_ptr(),
             m.data_ptr(), dy.data_ptr(), dx.data_ptr(), xn.data_ptr(), dqkv.data_ptr(),
-            part_dgpre.data_ptr(), B, n, C, rows, bf16, stream), "daclip_wrap_bwd2")
+            part_dgpre.data_ptr(), B, n, C, cn, rows, bf16, stream), "daclip_wrap_bwd2")
         dw_qkv = _wgrad(lib, xn, dqkv, stream)
         dw_out = _wgrad(lib, attn, dy, stream)
     attn_wrap_bwd.launches += 1
     dt = x.dtype
+    if C != cn:  # the gradients of the true width
+        dx = dx[..., :cn].contiguous()
+        dw_qkv, dw_out = dw_qkv[:cn], dw_out[:, :cn]
+        part_dgpre, part_dbout, part_dgout = (p[..., :cn] for p in
+                                              (part_dgpre, part_dbout, part_dgout))
     return (dx, part_dgpre.sum((0, 1)).to(dt), dw_qkv.to(dt), dw_out.to(dt),
             part_dbout.sum((0, 1)).to(dt), part_dgout.sum((0, 1)).to(dt))
 
@@ -417,18 +454,22 @@ def _fused_v4_kernel(xn, w_qkv, w_out, b_out, g_out, wrapper=None):
     `linear_attention_fused`)."""
     wrapper = wrapper or linear_attention_fused
     _check(xn, None, w_qkv, w_out, b_out, g_out, name=wrapper.__name__)
-    B, n, C = xn.shape
+    B, n, cn = xn.shape
+    C = _row_width(xn)
+    if C != cn:
+        xn, _, w_qkv, w_out, b_out, g_out, _ = _pad_operands(C, xn, None, w_qkv, w_out, b_out,
+                                                             g_out)
     rows, scratch = _scratch(xn, B, n)
     out = torch.empty_like(xn)
     lib = _build.library()
     with torch.cuda.device(xn.device):
         _build.check(lib.daclip_linattn_fused_v4(
-            *_ptrs(xn, w_qkv, w_out, b_out, g_out, *scratch, out), B, n, C, rows,
+            *_ptrs(xn, w_qkv, w_out, b_out, g_out, *scratch, out), B, n, C, cn, rows,
             _tiles_per_cta(B, n, C), int(xn.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream),
             "daclip_linattn_fused_v4")
     wrapper.launches += 1
-    return out
+    return out if C == cn else out[..., :cn].contiguous()
 
 
 def linear_attention_fused(xn, w_qkv, w_out, b_out, g_out):

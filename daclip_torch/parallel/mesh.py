@@ -448,12 +448,13 @@ def model_state(model: nn.Module) -> Dict[str, torch.Tensor]:
     return get_model_state_dict(unwrap(model), options=_full_options(cpu_offload=True))
 
 
-def load_model_state(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
-    """Load a single-card state dict strictly into `model`, each rank keeping
-    its part (`set_model_state_dict`)."""
+def load_model_state(model: nn.Module, sd: Dict[str, torch.Tensor], strict: bool = True) -> None:
+    """Load a single-card state dict into `model`, each rank keeping its part
+    (`set_model_state_dict`); strictly, unless `strict=False` lets `sd` hold
+    part of the model's keys (no key outside them)."""
     from torch.distributed.checkpoint.state_dict import set_model_state_dict
 
-    set_model_state_dict(unwrap(model), dict(sd), options=_full_options())
+    set_model_state_dict(unwrap(model), dict(sd), options=_full_options(strict=strict))
 
 
 def full_tensors(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -492,6 +493,18 @@ def _layout(optimizer) -> List[list]:
                                                           for g in optimizer.param_groups]
 
 
+def optimizer_layout(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """(each parameter's index in `optimizer_state`'s form, by its name in the
+    unwrapped model; that form's param_groups): `make_optimizer`'s groups,
+    with their hyperparameters, the indices running through them in order."""
+    layout = _layout(optimizer)
+    index = {id(p): i for i, p in enumerate(p for ps in layout for p in ps)}
+    hyper = {id(p): {k: v for k, v in g.items() if k != "params"}
+             for g in optimizer.param_groups for p in g["params"]}
+    names = {n: index[id(p)] for n, p in unwrap(model).named_parameters() if id(p) in index}
+    return names, [dict(hyper[id(ps[0])], params=[index[id(p)] for p in ps]) for ps in layout]
+
+
 def optimizer_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> dict:
     """`optimizer.state_dict()` of the single-card run: `make_optimizer`'s
     groups, parameter indices in their order, every state tensor whole on
@@ -500,20 +513,14 @@ def optimizer_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> dict:
     from torch.distributed.checkpoint.state_dict import get_optimizer_state_dict
 
     module = unwrap(model)
-    layout = _layout(optimizer)
-    index = {id(p): i for i, p in enumerate(p for ps in layout for p in ps)}
+    index, groups = optimizer_layout(module, optimizer)
     state = {}
     if optimizer.state:  # (on an empty state DCP would take a step of lr 0 to make one)
-        by_name = {n: p for n, p in module.named_parameters()}
         sd = get_optimizer_state_dict(module, optimizer, options=_full_options(cpu_offload=True))
-        state = {index[id(by_name[n])]: st for n, st in sd.get("state", {}).items()}
+        state = {index[n]: st for n, st in sd.get("state", {}).items()}
     if rank() != 0:
         return {}
-    hyper = {id(p): {k: v for k, v in g.items() if k != "params"}
-             for g in optimizer.param_groups for p in g["params"]}
-    return {"state": dict(sorted(state.items())),
-            "param_groups": [dict(hyper[id(ps[0])], params=[index[id(p)] for p in ps])
-                             for ps in layout]}
+    return {"state": dict(sorted(state.items())), "param_groups": groups}
 
 
 def load_optimizer_state(model: nn.Module, optimizer: torch.optim.Optimizer, sd: dict) -> None:

@@ -22,6 +22,14 @@ load_torch_state_dict` unwraps it; `optimizer` is the trainable parameters'
 AdamW state. The `best/` and `latest/` slots are such directories of one
 file each.
 
+Both trainers also resume daclip_tpu's orbax train dirs (its
+`utils/checkpoint.py`'s step dirs `<dir>/<n>/`, `<n>` the step or, for
+DA-CLIP, the epoch), whose state `utils/native_checkpoint.py` reads into the
+same payload as a `.pt` file's (`load_restoration_train_state`,
+`load_daclip_train_state`): `resume_point` picks the newest of either kind
+under a dir, the `.pt` on a tie, and both kinds reach the model, the
+optimizer and the EMA through `_restore_payload`'s calls.
+
 Under a mesh (`daclip_torch.parallel`) the files are the same: rank 0
 gathers the whole tensors (torch.distributed.checkpoint's full state dicts;
 the other ranks take part only where a tensor is sharded) and writes, the
@@ -32,11 +40,12 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from daclip_torch import parallel
+from daclip_torch.utils import orbax_reader
 
 EPOCH = "epoch_"   # the DA-CLIP trainer's file prefix: epoch_<n>.pt
 
@@ -58,6 +67,51 @@ def steps(directory: str, prefix: str = "") -> List[int]:
 def latest_step(directory: str, prefix: str = "") -> Optional[int]:
     found = steps(directory, prefix)
     return found[-1] if found else None
+
+
+def resume_point(directory: str, prefix: str = "") -> Optional[Tuple[str, int]]:
+    """The newest checkpoint under `directory`: ("pt", n) for the port's
+    `<prefix><n>.pt`, ("orbax", n) for daclip_tpu's step dir `<n>/`; the
+    `.pt` on a tie; None when it holds neither."""
+    pt, orbax = latest_step(directory, prefix), orbax_reader.latest_step(directory)
+    if pt is None and orbax is None:
+        return None
+    return ("pt", pt) if orbax is None or (pt is not None and pt >= orbax) else ("orbax", orbax)
+
+
+def _orbax_step_dir(path: str) -> bool:
+    """One of daclip_tpu's step dirs itself (`<dir>/<n>/`)."""
+    name = os.path.basename(os.path.normpath(path))
+    return name.isdigit() and os.path.isfile(os.path.join(path, "_CHECKPOINT_METADATA"))
+
+
+def pick_checkpoint(path: str, n: Optional[int] = None,
+                    prefix: str = "") -> Tuple[str, Optional[int]]:
+    """(kind, number) of the checkpoint `path` and `n` name: "pt" for a `.pt`
+    file, "orbax" for a step dir of daclip_tpu's (number None for either),
+    or under a dir `n`'s file or step dir (the newest, `resume_point`, when n
+    is None); FileNotFoundError when there is none."""
+    if os.path.isfile(path):
+        return "pt", None
+    if _orbax_step_dir(path):
+        return "orbax", None
+    if n is not None:
+        return ("pt" if os.path.isfile(checkpoint_path(path, n, prefix)) else "orbax"), n
+    found = resume_point(path, prefix)
+    if found is None:
+        raise FileNotFoundError(f"no {prefix}<n>.pt checkpoints and no orbax step dirs under "
+                                f"{path}")
+    return found
+
+
+def _restore_payload(model: torch.nn.Module, optimizer, params: Dict[str, torch.Tensor],
+                     opt_state: Optional[dict], strict: bool = True) -> None:
+    """A payload's model state and optimizer state (None: none) into `model`
+    and `optimizer`, each rank keeping its part under a mesh: one path for
+    the port's files and daclip_tpu's train dirs."""
+    parallel.load_model_state(model, params, strict=strict)
+    if opt_state is not None:
+        parallel.load_optimizer_state(model, optimizer, opt_state)
 
 
 def _save(directory: str, n: int, payload: dict, max_to_keep: Optional[int],
@@ -116,14 +170,23 @@ def load_params(directory: str, step: Optional[int] = None,
 
 
 def restore_checkpoint(directory: str, unet: torch.nn.Module, state,
-                       step: Optional[int] = None):
-    """Load `<directory>/<step>.pt` (the latest when step is None) into the
-    UNet and the TrainState, in place, each rank keeping its part under a
-    mesh; returns the state."""
-    unet = parallel.unwrap(unet)
-    ckpt = torch.load(_file(directory, step), map_location="cpu", weights_only=False)
-    parallel.load_model_state(unet, ckpt["params"])
-    parallel.load_optimizer_state(unet, state.optimizer, ckpt["opt_state"])
+                       step: Optional[int] = None, cfg=None):
+    """Load into the UNet and the TrainState, in place, each rank keeping its
+    part under a mesh: `<directory>/<step>.pt`, or daclip_tpu's step dir
+    `<directory>/<step>/` (its optimizer checked against `cfg`, the
+    restoration options' `RestorationTrainConfig`), the newest of either
+    when step is None (`resume_point`); a `.pt` file or a step dir may be
+    given as `directory`. Returns the state."""
+    kind, step = pick_checkpoint(directory, step)
+    module = parallel.unwrap(unet)
+    if kind == "orbax":
+        from daclip_torch.utils import native_checkpoint
+
+        ckpt = native_checkpoint.load_restoration_train_state(
+            directory, step, cfg=cfg, unet=module, optimizer=state.optimizer)
+    else:
+        ckpt = torch.load(_file(directory, step), map_location="cpu", weights_only=False)
+    _restore_payload(module, state.optimizer, ckpt["params"], ckpt["opt_state"])
     parallel.load_tensors(state.ema.params, ckpt["params_ema"])
     state.ema.step = int(ckpt["ema_step"])
     state.step = int(ckpt["step"])
@@ -152,13 +215,25 @@ def load_clip_state_dict(path: str, epoch: Optional[int] = None) -> Dict[str, to
 
 
 def restore_clip_checkpoint(path: str, model: torch.nn.Module, state,
-                            epoch: Optional[int] = None) -> int:
-    """Load an `epoch_<n>.pt` file, or a train dir's `epoch` (the latest
-    when None), into the model and the ClipTrainState, in place; returns
-    the checkpoint's epoch. Each rank keeps its part under a mesh."""
-    model = parallel.unwrap(model)
-    ckpt = torch.load(_file(path, epoch, EPOCH), map_location="cpu", weights_only=False)
-    parallel.load_model_state(model, ckpt["state_dict"])
-    parallel.load_optimizer_state(model, state.optimizer, ckpt["optimizer"])
-    state.step = int(ckpt["step"])
+                            epoch: Optional[int] = None, cfg=None, log=None) -> int:
+    """Load into the model and the ClipTrainState, in place, each rank
+    keeping its part under a mesh: an `epoch_<n>.pt` file, a train dir's
+    `epoch_<epoch>.pt`, or daclip_tpu's step dir `<path>/<epoch>/` (or one
+    given as `path`; its optimizer checked against `cfg`, the
+    `ClipTrainConfig`; a dir without optimizer state restores the model
+    alone, logged on `log`), the newest of either when epoch is None
+    (`resume_point`). Returns the checkpoint's epoch."""
+    kind, epoch = pick_checkpoint(path, epoch, EPOCH)
+    model_ = parallel.unwrap(model)
+    if kind == "orbax":
+        from daclip_torch.utils import native_checkpoint
+
+        ckpt = native_checkpoint.load_daclip_train_state(
+            path, model_, epoch, cfg=cfg, optimizer=state.optimizer, log=log)
+    else:
+        ckpt = torch.load(_file(path, epoch, EPOCH), map_location="cpu", weights_only=False)
+    _restore_payload(model_, state.optimizer, ckpt["state_dict"], ckpt["optimizer"],
+                     strict=set(ckpt["state_dict"]) >= set(model_.state_dict()))
+    if ckpt["optimizer"] is not None:
+        state.step = int(ckpt["step"])
     return int(ckpt["epoch"])

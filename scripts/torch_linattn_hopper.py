@@ -96,6 +96,7 @@ def forward(lib, takes_tiles, form, args):
     B, n, C = x.shape
     rows, (pm, ps, pc, wa) = la._scratch(x, B, n)
     tiles = [la._tiles_per_cta(B, n, C)] if takes_tiles else []
+    cn = [C] if lib.takes_cn else []
     if not takes_tiles:  # an older build's stats grid: two CTAs an SM
         rows = la._rows_per_part(B, n)
         parts = -(-n // rows)
@@ -110,16 +111,16 @@ def forward(lib, takes_tiles, form, args):
     elif form == "fused_v4":
         out = torch.empty_like(x)
         _build.check(lib.daclip_linattn_fused_v4(*ptrs(*args, pm, ps, pc, wa, out), B, n, C,
-                                                 rows, *tiles, 1, stream()), "fused_v4")
+                                                 *cn, rows, *tiles, 1, stream()), "fused_v4")
     else:
         out = torch.empty_like(x)
         g_pre, w_qkv, w_out, b_out, g_out = args[1:]
-        _build.check(lib.daclip_wrap_stats(*ptrs(x, g_pre, w_qkv, pm, ps, pc), B, n, C, rows, 1,
-                                           stream()), "stats")
+        _build.check(lib.daclip_wrap_stats(*ptrs(x, g_pre, w_qkv, pm, ps, pc), B, n, C, *cn,
+                                           rows, 1, stream()), "stats")
         _build.check(lib.daclip_wrap_combine(*ptrs(pm, ps, pc, wa), None, None, None, B,
                                              pm.shape[1], n, 1, stream()), "combine")
         _build.check(lib.daclip_wrap_apply(*ptrs(x, g_pre, w_qkv, wa, w_out, b_out, g_out, out),
-                                           B, n, C, *tiles, 1, stream()), "apply")
+                                           B, n, C, *cn, *tiles, 1, stream()), "apply")
     return out
 
 
@@ -129,6 +130,7 @@ def backward(lib, args, dout, stats):
     x, g_pre, w_qkv, w_out, b_out, g_out = args
     w_attn, ctx, s, m = stats
     B, n, C = x.shape
+    cn = [C] if lib.takes_cn else []
     rows = la._rows_per_part(B, n)
     parts = -(-n // rows)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -141,12 +143,12 @@ def backward(lib, args, dout, stats):
     ds = torch.empty((B, la.HID), **f32)
     _build.check(lib.daclip_wrap_bwd1(*ptrs(x, dout, g_pre, w_qkv, w_attn, w_out, b_out, g_out,
                                             dy, attn, part_dw, part_dgout, part_dbout),
-                                      B, n, C, rows, 1, stream()), "bwd1")
+                                      B, n, C, *cn, rows, 1, stream()), "bwd1")
     _build.check(lib.daclip_wrap_bwd_mid(*ptrs(part_dw, ctx, s, dctx, ds), B, parts, n, 1,
                                          stream()), "mid")
     _build.check(lib.daclip_wrap_bwd2(*ptrs(x, dout, g_pre, w_qkv, w_attn, w_out, dctx, ds, m,
                                             dy, dx, xn, dqkv, part_dgpre),
-                                      B, n, C, rows, 1, stream()), "bwd2")
+                                      B, n, C, *cn, rows, 1, stream()), "bwd2")
     dw_qkv = la._wgrad(lib, xn, dqkv, stream())
     dw_out = la._wgrad(lib, attn, dy, stream())
     return (dx, part_dgpre.sum((0, 1)), dw_qkv, dw_out, part_dbout.sum((0, 1)),
@@ -235,9 +237,13 @@ def main():
     emit(phase="device", card=card, torch=torch.__version__, cuda=torch.version.cuda)
     lib = build()
     plib, signatures = parent_lib(args.parent)
-    # an older build's apply launchers may take no tile count
-    parent_tiles = len(signatures["daclip_wrap_apply"]) == len(
-        _build.SIGNATURES["daclip_wrap_apply"])
+    # an older build's launchers may take no LayerNorm width (cn), and its
+    # apply launchers no tile count
+    lib.takes_cn = True
+    plib.takes_cn = len(signatures["daclip_wrap_stats"]) == len(
+        _build.SIGNATURES["daclip_wrap_stats"])
+    parent_tiles = len(signatures["daclip_wrap_apply"]) - plib.takes_cn == len(
+        _build.SIGNATURES["daclip_wrap_apply"]) - 1
     emit(phase="parent", root=args.parent, takes_tiles=parent_tiles)
     time_all(lib, plib, parent_tiles, card)
     emit(phase="done")

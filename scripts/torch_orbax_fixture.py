@@ -15,8 +15,21 @@ own training CLIs, and what the port must read from them.
                 `restore_checkpoint` returns it: dtype, shape and the
                 SHA-256 of its bytes (a Python scalar or None: its value)
 
+With --full it writes restoration_full/ alone (and its entry of
+leaves.json): the TrainState of daclip_tpu's `init_state` for
+configs/daclip-sde/train.yml's UNet at full width (nf 64, ch_mult 1,2,4,8,
+context 512, both contexts; 48.4 M parameters a tree), AdamW, at step 1000,
+saved by daclip_tpu's own `save_checkpoint`. Each leaf of the parameters,
+the EMA and the moments is a seeded block of at most BLOCK values, tiled:
+the first values of daclip_tpu's own init of the leaf (the EMA: those plus
+1e-4·N(0, 1); a kernel's copies each times a seeded sign, without which the
+forward overflows), 1e-3·N(0, 1) for mu and its square for nu, and zero moments
+where the model gives no gradient (the one-token cross-attention's to_k and
+norm2), as optax holds them. zstd then stores a tree small. The card's
+machine has no JAX, so its full-width resume reads this dir.
+
 It imports daclip_tpu and runs on the CPU, never on the card.
-Usage: python scripts/torch_orbax_fixture.py [--out tests/fixtures/orbax]
+Usage: python scripts/torch_orbax_fixture.py [--out tests/fixtures/orbax] [--full]
 """
 import argparse
 import hashlib
@@ -35,6 +48,8 @@ sys.path.insert(0, str(REPO))
 
 T = 20           # posterior steps of the stored restore
 MODEL = "daclip_test-tiny"
+BLOCK = 512      # values of a full-width leaf's seeded block
+FULL_STEP = 1000
 
 
 def _jax():
@@ -158,12 +173,100 @@ def expected(out: pathlib.Path):
                         degra_ctx=np.asarray(degra_ctx), T=T)
 
 
+def full_restoration(out: pathlib.Path):
+    """restoration_full/ and its leaves' records in leaves.json."""
+    jax = _jax()
+    import jax.numpy as jnp
+    import yaml
+
+    from daclip_tpu.models.unet import ConditionalUNet
+    from daclip_tpu.train.restoration import RestorationTrainConfig, TrainState, init_state
+    from daclip_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    opt = yaml.safe_load((REPO / "configs" / "daclip-sde" / "train.yml").read_text())
+    net = opt["network_G"]["setting"]
+    unet = ConditionalUNet(nf=net["nf"], ch_mult=tuple(net["ch_mult"]),
+                           context_dim=net["context_dim"],
+                           use_degra_context=net["use_degra_context"],
+                           use_image_context=net["use_image_context"])
+    x = jnp.zeros((1, 32, 32, 3))
+    ctx = jnp.zeros((1, net["context_dim"]))
+    params = unet.init(jax.random.PRNGKey(opt["train"]["manual_seed"]), x, x,
+                       jnp.ones((1,)), ctx, ctx)
+    cfg = RestorationTrainConfig(optimizer=opt["train"]["optimizer"])
+    state = init_state(params, cfg)
+    rng = np.random.RandomState(2026)
+
+    signs = {}
+
+    def tile(block, shape, path=None):
+        """block repeated to fill shape; a kernel's (ndim ≥ 2) copies each
+        times a seeded sign, the same for its parameter, EMA and gradient's
+        moments (its path): copies of one sign add up coherently along the
+        kernel's fan-in, and the UNet's activations then overflowed by its
+        up levels."""
+        block = np.asarray(block, np.float32)
+        out = np.resize(block, int(np.prod(shape)))
+        if path is not None and len(shape) >= 2:  # a sign a BLOCK values (every block divides it)
+            copies = -(-out.size // BLOCK)
+            if path not in signs:
+                signs[path] = np.where(rng.rand(copies) < 0.5, -1.0, 1.0).astype(np.float32)
+            out = out * np.repeat(signs[path], BLOCK)[:out.size]
+        return jnp.asarray(out.reshape(shape))
+
+    def block(size):
+        return rng.randn(min(BLOCK, size)).astype(np.float32)
+
+    def unused(path):
+        name = jax.tree_util.keystr(path)
+        return "attn2" in name and "to_k" in name or "norm2" in name
+
+    leaves = jax.tree_util.tree_leaves_with_path(state.params)
+    firsts = {p: np.asarray(v).ravel()[:BLOCK] for p, v in leaves}
+    new_params = jax.tree_util.tree_map_with_path(lambda p, v: tile(firsts[p], v.shape, p),
+                                                  state.params)
+    ema = jax.tree_util.tree_map_with_path(
+        lambda p, v: tile(firsts[p] + 1e-4 * block(firsts[p].size), v.shape, p), state.params)
+    mus = {p: (np.zeros(1, np.float32) if unused(p) else 1e-3 * block(np.size(v)))
+           for p, v in leaves}
+    mu = jax.tree_util.tree_map_with_path(lambda p, v: tile(mus[p], v.shape, p), state.params)
+    nu = jax.tree_util.tree_map_with_path(lambda p, v: tile(np.square(mus[p]), v.shape),
+                                          state.params)
+    count = jnp.asarray(FULL_STEP, jnp.int32)
+
+    def counted(s):  # an optax state with a count (a NamedTuple; tuples have count())
+        return "count" in getattr(s, "_fields", ())
+
+    def moments(s):
+        if not counted(s):
+            return s
+        return s._replace(count=count, **({"mu": mu, "nu": nu} if "mu" in s._fields else {}))
+    opt_state = jax.tree.map(moments, state.opt_state, is_leaf=counted)
+    state = TrainState(new_params, opt_state, state.ema._replace(params=ema, step=count), count)
+    target = out / "restoration_full"
+    if target.exists():
+        shutil.rmtree(target)
+    save_checkpoint(str(target), FULL_STEP, state)
+    stored = json.loads((out / "leaves.json").read_text())
+    stored["restoration_full"] = {k: leaf_record(v)
+                                  for k, v in flat(restore_checkpoint(str(target)))}
+    (out / "leaves.json").write_text(json.dumps(stored, indent=0, sort_keys=True) + "\n")
+    return target
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--out", default=str(REPO / "tests" / "fixtures" / "orbax"))
+    p.add_argument("--full", action="store_true",
+                   help="write restoration_full/ alone (the other dirs stay)")
     args = p.parse_args(argv)
     _jax()
     out = pathlib.Path(args.out)
+    if args.full:
+        target = full_restoration(out)
+        size = sum(f.stat().st_size for f in target.rglob("*") if f.is_file())
+        print(json.dumps({"out": str(target), "bytes": size}))
+        return
     if out.exists():
         shutil.rmtree(out)
     out.mkdir(parents=True)

@@ -6,10 +6,11 @@ forward kernel bit for bit, on one CUDA card.
   python <this file> compare a.npz b.npz
 
 `dump` imports `daclip_torch` from the current directory, builds its kernels,
-and saves `attn_wrap`'s output and `_forward_kernel`'s output with its kept
-(w_attn, ctx, s, m) on seeded inputs at the UNet's shapes (bf16 and f32,
-serving and training batch sizes, a ragged n). `compare` prints one JSON line
-and exits non-zero unless every array is identical.
+and saves `attn_wrap`'s output, `_forward_kernel`'s output with its kept
+(w_attn, ctx, s, m) and `attn_wrap_bwd`'s six gradients at a seeded dO, on
+seeded inputs at the UNet's shapes (bf16 and f32, serving and training batch
+sizes, a ragged n). `compare` prints one JSON line and exits non-zero unless
+every array is identical.
 """
 import json
 import os
@@ -39,6 +40,9 @@ def dump(path):
         res[f"out_kept{i}"] = out.float().cpu().numpy()
         for j, s in enumerate(stats):
             res[f"stats{i}_{j}"] = s.cpu().numpy()
+        dout = rnd(B, n, C).to(args[0].dtype)
+        for j, g in enumerate(la.attn_wrap_bwd(*args, dout, stats=stats)):
+            res[f"grad{i}_{j}"] = g.float().cpu().numpy()
     np.savez(path, **res)
     print(json.dumps({"dumped": path, "arrays": len(res)}))
 

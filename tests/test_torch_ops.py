@@ -165,6 +165,41 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert tla.attn_wrap.launches == 0 and tfa.flash_self_attention.launches == 0
 
 
+def _kernel_ln(t, cn, shift):
+    """The LayerNorm statistics as the wrap kernels take them over rows laid
+    out wider than the LN's cn columns (zeros past cn; `csrc/linattn_tiles.cuh`
+    `LnWidth`): sums over the whole row, a mean over C scaled by C / cn, the
+    prenorm's variance less the zeros' (C − cn)·m², y's sums unshifted."""
+    C = t.shape[-1]
+    m = t.sum(-1, keepdim=True) / C * (C / cn)
+    if shift:
+        var = (((t - m) ** 2).sum(-1, keepdim=True) - (C - cn) * m ** 2) / C * (C / cn)
+    else:
+        var = (t ** 2).sum(-1, keepdim=True) / C * (C / cn) - m ** 2
+    return (t - m) * torch.rsqrt(var + 1e-5)
+
+
+@pytest.mark.parametrize("C", [1, 9, 12, 24, 40])
+def test_narrow_widths_laid_out_wider_compute_the_wrap(C):
+    """A bf16 width that is not a multiple of 8 reaches the kernels as rows
+    of the next multiple (`_pad_operands`: zeros past C) with the LNs told
+    C: their rule on those rows gives the wrap at C, and zeros past it."""
+    args = _wrap_inputs(2, 50, C, seed=C)
+    # (over one channel every LN is 0 and the attention cannot be balanced)
+    args = [torch.from_numpy(a).double() for a in (args if C == 1 else _balanced(args))]
+    width = tla._row_width(torch.zeros(1, 1, C, dtype=torch.bfloat16))
+    assert width % 8 == 0 and 0 <= width - C < 8
+    assert tla._row_width(torch.zeros(1, 1, C)) == C  # f32 rows are not widened
+    x, g_pre, w_qkv, w_out, b_out, g_out, dout = tla._pad_operands(width, *args, args[0])
+    assert x.shape[-1] == dout.shape[-1] == w_qkv.shape[0] == w_out.shape[1] == width
+    xn = _kernel_ln(x, C, True) * g_pre
+    y = tla.linear_attention_reference(xn @ w_qkv) @ w_out + b_out
+    out = x + _kernel_ln(y, C, False) * g_out
+    want = tla.attn_wrap_reference(*args)
+    torch.testing.assert_close(out[..., :C], want, rtol=0, atol=1e-5)  # f32 reference
+    assert not out[..., C:].any() and not xn[..., C:].any()
+
+
 def test_unsupported_devices_shapes_and_dtypes_raise():
     meta = torch.empty((1, 64, 64), device="meta")
     with pytest.raises(ValueError):
@@ -176,11 +211,14 @@ def test_unsupported_devices_shapes_and_dtypes_raise():
     def wrap_args(C, n=128, dtype=torch.float32):
         return [torch.zeros(s, dtype=dtype) for s in
                 [(1, n, C), (C,), (C, 384), (128, C), (C,), (C,)]]
-    for C in (8, 40, 544):  # under 16, not a multiple of 16, above 512
+    for C in (0, 544):  # no channel, above 512
         with pytest.raises(ValueError):
             tla._check(*wrap_args(C))
-    for C in (16, 48, 80, 512):  # the kernels take every multiple of 16 up to 512
+    # the kernels take every width from 1 to 512: nf 8, 12, 24 and 40 UNets'
+    # levels among them (bf16 rows not a multiple of 8 are laid out wider)
+    for C in (1, 8, 12, 16, 24, 40, 48, 80, 512):
         tla._check(*wrap_args(C))
+        tla._check(*wrap_args(C, dtype=torch.bfloat16))
     with pytest.raises(TypeError):
         tla._check(*wrap_args(64, dtype=torch.float16))
     bad = wrap_args(64)
