@@ -1682,7 +1682,136 @@ def cli_inputs():
     return _CLI_INPUTS["train"], _CLI_INPUTS["daclip"]
 
 
-def run_resume():
+def _same_payload(got, want, skip=()):
+    """The keys of two `.pt`-style payloads (nested dicts of tensors and
+    numbers) that differ, bit for bit; keys in `skip` must be zeros in
+    `got`."""
+    bad = []
+
+    def walk(g, w, path):
+        if isinstance(w, dict):
+            if not isinstance(g, dict) or set(g) != set(w):
+                bad.append(path)
+                return
+            for k in w:
+                walk(g[k], w[k], f"{path}.{k}")
+        elif torch.is_tensor(w):
+            if any(path.endswith(f".{k}") for k in skip):
+                if not (torch.is_tensor(g) and not torch.count_nonzero(g)):
+                    bad.append(path)
+            elif not (torch.is_tensor(g) and g.dtype == w.dtype and torch.equal(g, w)):
+                bad.append(path)
+        elif isinstance(w, list):
+            if not isinstance(g, list) or len(g) != len(w):
+                bad.append(path)
+                return
+            for i, (a, b) in enumerate(zip(g, w)):
+                walk(a, b, f"{path}.{i}")
+        elif g != w:
+            bad.append(path)
+
+    walk(got, want, "")
+    return bad
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+@contextlib.contextmanager
+def recorded_writes(out):
+    """While the block runs, each `orbax_writer.save_checkpoint` appends to
+    `out` {directory, step, wait, call_ms (what it held its caller: the copy
+    to the host when it does not wait), write_ms (its step dir's build and
+    write, in the writer process when it does not wait, timed by the thread
+    that waits for it), bytes}; the last two are filled in on leaving."""
+    from daclip_torch.utils import orbax_writer
+
+    real = (orbax_writer.save_checkpoint, orbax_writer._write_step,
+            orbax_writer._write_step_in_process)
+    calls, writes = [], []
+
+    def save(directory, step, tree, max_to_keep=None, wait=True, build=None):
+        t = time.perf_counter()
+        path = real[0](directory, step, tree, max_to_keep, wait, build)
+        calls.append(dict(directory=os.path.abspath(directory), step=int(step), wait=wait,
+                          call_ms=(time.perf_counter() - t) * 1e3))
+        return path
+
+    def timed(write):
+        def run(directory, step, *rest):
+            t = time.perf_counter()
+            path = write(directory, step, *rest)
+            writes.append((os.path.abspath(directory), step, (time.perf_counter() - t) * 1e3))
+            return path
+        return run
+
+    orbax_writer.save_checkpoint = save
+    orbax_writer._write_step, orbax_writer._write_step_in_process = map(timed, real[1:])
+    try:
+        yield out
+        orbax_writer.wait_all()
+    finally:
+        (orbax_writer.save_checkpoint, orbax_writer._write_step,
+         orbax_writer._write_step_in_process) = real
+    for c in calls:
+        ms = [w[2] for w in writes if w[:2] == (c["directory"], c["step"])]
+        step_dir = pathlib.Path(c["directory"]) / str(c["step"])
+        out.append(dict(c, write_ms=ms[0] if ms else None,
+                        bytes=_dir_bytes(step_dir) if step_dir.is_dir() else None))
+
+
+def _check_resto_step_dir(ckpt_dir, n, cfg, kw, fresh):
+    """The CLI's step dir `n` against its `<n>.pt` (the one-token to_q,
+    which daclip_tpu has not, zeros): read back by the port's reader
+    through the weight map, bit for bit; with `fresh`, instead, a UNet and
+    TrainState restored from each on the CPU (the dir through the same
+    reader), bit for bit. Returns the measurements."""
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.train import restoration as trest
+    from daclip_torch.utils import checkpoint as tckpt
+    from daclip_torch.utils import native_checkpoint as nc
+
+    out = dict(step=n, bytes=_dir_bytes(ckpt_dir / str(n)))
+    if not fresh:
+        pt = torch.load(tckpt.checkpoint_path(str(ckpt_dir), n), map_location="cpu",
+                        weights_only=False)
+        t0 = time.perf_counter()
+        back = nc.load_restoration_train_state(str(ckpt_dir), n, cfg=cfg)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        to_q = {k for k in pt["params"] if k.endswith("attn2.to_q.weight")}
+        # the optimizer's hyperparameters are the options', not the dir's
+        back["opt_state"]["param_groups"] = pt["opt_state"]["param_groups"]
+        differ = _same_payload(back, pt, skip=to_q)
+        check(not differ, f"resume: step dir {n} read back differs from {n}.pt at {differ[:4]}")
+        out.update(read_ms=read_ms, leaves_bitwise=True, to_q_zero=len(to_q))
+    else:
+        states = []
+        for path in (ckpt_dir / str(n), pathlib.Path(tckpt.checkpoint_path(str(ckpt_dir), n))):
+            unet = ConditionalUNet(**kw)
+            state = trest.init_state(unet, cfg, device="cpu")
+            t0 = time.perf_counter()
+            tckpt.restore_checkpoint(str(path), unet, state, cfg=cfg)
+            states.append(((time.perf_counter() - t0) * 1e3, unet, state))
+        (ms_dir, u0, s0), (ms_pt, u1, s1) = states
+        p0, p1 = dict(u0.named_parameters()), dict(u1.named_parameters())
+        to_q = {k for k in p1 if k.endswith("attn2.to_q.weight")}
+        differ = [k for k, v in p1.items() if not torch.equal(p0[k], 0 * v if k in to_q else v)]
+        differ += [f"ema {k}" for k, v in s1.ema.params.items()
+                   if not torch.equal(s0.ema.params[k], 0 * v if k in to_q else v)]
+        st0, st1 = s0.optimizer.state, s1.optimizer.state
+        differ += [f"moments {k}" for k, v in p1.items()
+                   if (v in st1) != (p0[k] in st0) or v in st1 and _same_payload(
+                       dict(st0[p0[k]]), dict(st1[v]))]
+        differ += [f"step {a} {b}" for a, b in ((s0.step, s1.step), (s0.ema.step, s1.ema.step))
+                   if a != b]
+        check(not differ, f"resume: the state restored from step dir {n} differs from "
+                          f"{n}.pt's at {differ[:4]}")
+        out.update(restore_from_dir_ms=ms_dir, restore_from_pt_ms=ms_pt, state_bitwise=True)
+    return out
+
+
+def run_resume(smi=None):
     """Phase 3c: daclip_tpu's training runs resumed on the card's machine,
     where no JAX is installed. restoration_full/ (configs/daclip-sde/
     train.yml's UNet at full width, daclip_tpu's TrainState at step 1000:
@@ -1693,10 +1822,16 @@ def run_resume():
     on the card against the CPU's;
     `cli.train_restoration -opt` on the production options resumed from it
     for RESUME_STEPS steps at B = 16, 256², bf16 (validation off), launching
-    #1-#4 exactly as many steps' worth; `cli.train_daclip --resume latest`
-    on daclip_tpu's daclip_test-tiny checkpoints dir for one epoch, launching
-    none of the kernels. Returns (the resumed restoration CLI's launches, its
-    step records)."""
+    #1-#4 exactly as many steps' worth, saving at the first step in the
+    loop (its step dir in the background) and at the end: each save's `.pt`
+    and daclip_tpu's step dir, the dirs read back by the port's reader and
+    held bit for bit to the `.pt` of their step through the weight map, a
+    fresh state restored from the last dir bit for bit the one restored from
+    its `.pt`, the writes' ms and bytes beside the card's name and power
+    limit (`smi`); `cli.train_daclip --resume latest` on daclip_tpu's
+    daclip_test-tiny checkpoints dir for one epoch, launching none of the
+    kernels, its step dir `2/` held to `epoch_2.pt` alike. Returns (the
+    resumed restoration CLI's launches, its step records)."""
     import logging
     import shutil
 
@@ -1704,10 +1839,18 @@ def run_resume():
 
     from daclip_torch.cli import train_daclip as cli_daclip
     from daclip_torch.cli import train_restoration as cli_train
+    from daclip_torch.factory import create_model
     from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.train import clip_train as tclip
     from daclip_torch.train import restoration as trest
     from daclip_torch.utils import checkpoint as tckpt
+    from daclip_torch.utils import native_checkpoint as nc
     from daclip_torch.utils import orbax_reader
+
+    if smi is None:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[0]
 
     started = time.perf_counter()
     blocked = [m for m in ("jax", "orbax", "tensorstore", "zstandard") if m in sys.modules]
@@ -1793,7 +1936,8 @@ def run_resume():
         del opt["datasets"]["val"]                # validation off
         opt["path"].update(root=str(root / "out"), daclip=str(daclip_pt))
         opt["train"].update(val_freq=0)
-        opt["logger"].update(print_freq=1, save_checkpoint_freq=0)
+        # one save in the loop (at + 1: its step dir in the background), one at the end
+        opt["logger"].update(print_freq=1, save_checkpoint_freq=at + 1)
         yml = root / "train.yml"
         yml.write_text(yaml.safe_dump(opt))
         ckpt_dir = root / "out" / "experiments" / opt["name"] / "training_state"
@@ -1802,32 +1946,78 @@ def run_resume():
             logging.getLogger(name).addHandler(grab)
             logging.getLogger(name).setLevel(logging.INFO)
         cli_train.make_step = step_timer(real_make_step, records)
+        real_save, saves = tckpt.save_checkpoint, []
+
+        def timed_save(*a, **k):  # what a save holds the training loop for
+            t = time.perf_counter()
+            out = real_save(*a, **k)
+            saves.append(dict(wait=k.get("wait", True), call_ms=(time.perf_counter() - t) * 1e3))
+            return out
+
+        tckpt.save_checkpoint = timed_save
+        writes, clip_writes = [], []
         reset_counts()
         t0 = time.perf_counter()
         try:
-            result = cli_train.main(["-opt", str(yml), "--max-steps", str(at + RESUME_STEPS),
-                                     "--device", "cuda"])
+            with recorded_writes(writes):
+                result = cli_train.main(["-opt", str(yml), "--max-steps",
+                                         str(at + RESUME_STEPS), "--device", "cuda"])
             torch.cuda.synchronize()
             counts = {k: v for k, v in read_counts().items() if v}
             cli_s = time.perf_counter() - t0
             saved = sorted(os.listdir(ckpt_dir))
+            tckpt.save_checkpoint = real_save
+            writes = [dict(w, directory=None) for w in writes
+                      if w["directory"] == str(ckpt_dir)]
+            t0 = time.perf_counter()
+            dirs = [_check_resto_step_dir(ckpt_dir, n, cfg, kw, fresh=n == at + RESUME_STEPS)
+                    for n in (at + 1, at + RESUME_STEPS)]
+            dirs_check_s = time.perf_counter() - t0
 
             ckpts = root / "logs" / "run" / "checkpoints"
             shutil.copytree(ORBAX_FIXTURE / "daclip" / "1", ckpts / "1")
             reset_counts()
             t0 = time.perf_counter()
-            clip_out = cli_daclip.main([
-                "--dataset-type", "synthetic", "--train-num-samples", "8", "--batch-size", "4",
-                "--epochs", "2", "--warmup", "1", "--model", "daclip_test-tiny", "--logs",
-                str(root / "logs"), "--name", "run", "--precision", "fp32", "--seed", "0",
-                "--workers", "0", "--device", "cuda", "--resume", "latest"])
+            with recorded_writes(clip_writes):
+                clip_out = cli_daclip.main([
+                    "--dataset-type", "synthetic", "--train-num-samples", "8", "--batch-size",
+                    "4", "--epochs", "2", "--warmup", "1", "--model", "daclip_test-tiny",
+                    "--logs", str(root / "logs"), "--name", "run", "--precision", "fp32",
+                    "--seed", "0", "--workers", "0", "--device", "cuda", "--resume", "latest"])
             torch.cuda.synchronize()
             clip_s = time.perf_counter() - t0
             clip_counts = {k: v for k, v in read_counts().items() if v}
             clip_saved = torch.load(tckpt.checkpoint_path(str(ckpts), 2, tckpt.EPOCH),
                                     map_location="cpu", weights_only=False)
+            # its step dir 2/ (and best/2/) against epoch_2.pt: read back, and restored
+            clip_dirs = sorted(os.listdir(ckpts))
+            t0 = time.perf_counter()
+            clip_back = []
+            for path in (ckpts, ckpts / "best"):
+                model = create_model("daclip_test-tiny", use_predictor=True)
+                back = nc.load_daclip_train_state(str(path), model, 2,
+                                                  cfg=tclip.ClipTrainConfig())
+                pt = torch.load(tckpt.checkpoint_path(str(path), 2, tckpt.EPOCH),
+                                map_location="cpu", weights_only=False)
+                back["name"] = pt["name"]  # the run's name: not in the dir
+                back["optimizer"]["param_groups"] = pt["optimizer"]["param_groups"]
+                clip_back.append(_same_payload(back, pt))
+            models = []
+            for path in (ckpts / "2", pathlib.Path(tckpt.checkpoint_path(str(ckpts), 2,
+                                                                         tckpt.EPOCH))):
+                model = create_model("daclip_test-tiny", use_predictor=True, seed=9)
+                cstate = tclip.init_state(model, tclip.ClipTrainConfig(), device="cpu")
+                tckpt.restore_clip_checkpoint(str(path), model, cstate,
+                                              cfg=tclip.ClipTrainConfig())
+                models.append((model.state_dict(), cstate.step))
+            clip_fresh = [k for k, v in models[1][0].items() if not torch.equal(models[0][0][k], v)]
+            clip_fresh += [] if models[0][1] == models[1][1] else ["step"]
+            clip_check_s = time.perf_counter() - t0
+            clip_writes = [dict(w, directory=os.path.relpath(w["directory"], ckpts))
+                           for w in clip_writes]
         finally:
             cli_train.make_step = real_make_step
+            tckpt.save_checkpoint = real_save
             for name in ("train", "daclip"):
                 logging.getLogger(name).removeHandler(grab)
     want = {"wrap": 12 * RESUME_STEPS, "flash": 6 * RESUME_STEPS,
@@ -1842,8 +2032,21 @@ def run_resume():
                         checkpoints=saved, launches=counts, want_launches=want),
                daclip_cli=dict(seconds=clip_s, best_loss=clip_out["best_loss"],
                                epoch=clip_saved["epoch"], step=clip_saved["step"],
-                               launches=clip_counts))
+                               launches=clip_counts, checkpoints=clip_dirs,
+                               step_dirs_bitwise=not any(clip_back) and not clip_fresh,
+                               writes=clip_writes, check_s=clip_check_s),
+               orbax_write=dict(card=smi, saves=saves, writes=writes, dirs=dirs,
+                                check_s=dirs_check_s))
     emit(**row)
+    check(len(saves) == 2 and [s_["wait"] for s_ in saves] == [False, True]
+          and [w["step"] for w in writes] == [at + 1, at + RESUME_STEPS]
+          and all(w["bytes"] for w in writes),
+          f"resume: the CLI's saves {saves}, step dir writes {writes}")
+    check(str(at + 1) in saved and str(at + RESUME_STEPS) in saved,
+          f"resume: the CLI wrote no step dirs: {saved}")
+    check(not any(clip_back) and not clip_fresh and {"2", "epoch_2.pt"} <= set(clip_dirs),
+          f"resume: cli.train_daclip's step dir 2/ differs from epoch_2.pt at "
+          f"{clip_back} {clip_fresh[:4]} ({clip_dirs})")
     check(f"resumed from step {at}" in logs
           and any(m.startswith("resumed from daclip_tpu's orbax step dir") for m in logs),
           f"resume: the CLI did not resume daclip_tpu's step {at}: {logs[:6]}")
@@ -5166,6 +5369,20 @@ def torchrun(module, args, cwd, timeout=900):
     return seconds, tail
 
 
+def file_listing(root):
+    """Every file under `root`, relative to it, sorted; an orbax data file's
+    random name (`d/<32 hex>`) as `d/*`."""
+    return sorted(re.sub(r"/d/[0-9a-f]{32}$", "/d/*", str(p.relative_to(root)))
+                  for p in root.rglob("*") if p.is_file())
+
+
+def step_dir_files(step):
+    """The files of one step dir that `orbax_writer` writes."""
+    return [f"{step}/{f}" for f in ("_CHECKPOINT_METADATA", "default/_METADATA",
+                                     "default/_sharding", "default/array_metadatas/process_0",
+                                     "default/d/*", "default/manifest.ocdbt")]
+
+
 def run_torchrun_cli():
     """Both train CLIs launched by torchrun (one process, `--mesh 1`, NCCL):
     `cli.train_daclip` for one epoch over train_daclip_cli's seeded CSV tree
@@ -5197,8 +5414,10 @@ def run_torchrun_cli():
             "--precision", "amp", "--batch-size", str(CLIP_CLI_B), "--workers",
             str(CLIP_CLI_WORKERS), "--name", "run", "--lr", "2e-5", "--epochs", "1"], root)
         ckpts = root / "logs" / "run" / "checkpoints"
-        files = sorted(str(p.relative_to(ckpts)) for p in ckpts.rglob("*") if p.is_file())
-        check(files == ["best/epoch_1.pt", "epoch_1.pt"], f"torchrun train_daclip wrote {files}")
+        files = file_listing(ckpts)
+        want = sorted(f"{sub}{f}" for sub in ("", "best/")
+                      for f in ["epoch_1.pt"] + step_dir_files(1))
+        check(files == want, f"torchrun train_daclip wrote {files}")
         clip_cfg = CLIPCfg.from_dict(get_model_config(DACLIP_MODEL))
         ck = torch.load(ckpts / "epoch_1.pt", map_location="cpu", weights_only=False)
         DaCLIP(clip_cfg, use_predictor=True).load_state_dict(ck["state_dict"], strict=True)
@@ -5222,8 +5441,9 @@ def run_torchrun_cli():
         resto_s, resto_log = torchrun("daclip_torch.cli.train_restoration", [
             "-opt", str(train_yml), "--mesh", "1", "--val-sample-T", str(CLI_VAL_T)], root)
         state_dir = root / "out" / "experiments" / opt["name"] / "training_state"
-        resto_files = sorted(p.name for p in state_dir.iterdir())
-        check(resto_files == ["2.pt"], f"torchrun train_restoration wrote {resto_files}")
+        resto_files = file_listing(state_dir)
+        check(resto_files == sorted(["2.pt"] + step_dir_files(2)),
+              f"torchrun train_restoration wrote {resto_files}")
         net_opt = opt["network_G"]["setting"]
         unet = ConditionalUNet(nf=net_opt["nf"], ch_mult=tuple(net_opt["ch_mult"]),
                                context_dim=net_opt["context_dim"],
@@ -5654,7 +5874,7 @@ def main():
     rows.update(conv_rows)
     run_fixture()
     orbax_totals = run_orbax()
-    resume_totals, resume_records = run_resume()
+    resume_totals, resume_records = run_resume(smi)
     restorer, serve_totals, sds = run_serve()
     run_profile(restorer)
     serve_alt_totals, fwd = run_serve_alt(restorer, sds)

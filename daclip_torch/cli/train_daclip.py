@@ -12,7 +12,12 @@ moments, step and epoch), `results.jsonl`, validation through
 `epoch_<n>.pt` checkpoints every `--save-frequency` epochs (the last three
 kept, one with `--delete-previous-checkpoint`), in `latest/` between them
 with `--save-most-recent`, and the best epoch by mean train loss in `best/`
-(main.py:426-459). The log line and the jsonl keys are the JAX CLI's.
+(main.py:426-459), each with daclip_tpu's orbax step dir `<epoch>/` beside
+it (`native_checkpoint.save_daclip_train_state`, written in the background
+and joined before the run ends), so that daclip_tpu's CLI resumes the run (a
+chain neither package maps, `--accum-freq` > 1 or `--skip-scheduler`,
+writes the `.pt` files alone and says so). The log line and the jsonl keys
+are the JAX CLI's.
 
 Usage (da-clip/src/single_train.sh):
   python -m daclip_torch.cli.train_daclip --train-data data/train.csv --da \\
@@ -183,7 +188,9 @@ def main(argv=None):
                                                partition_daclip_params)
     from daclip_torch.train.locking import build_update_mask
     from daclip_torch.utils.checkpoint import (EPOCH, latest_step, pick_checkpoint,
-                                               restore_clip_checkpoint, save_clip_checkpoint)
+                                               restore_clip_checkpoint, save_clip_checkpoint,
+                                               start_writer, wait_all)
+    from daclip_torch.utils.native_checkpoint import clip_chain_refusal
     from daclip_torch.utils import file_utils
     from daclip_torch.utils.logging import MetricWriter
 
@@ -351,6 +358,13 @@ def main(argv=None):
         log.info("zero-shot: %s", {k: round(v, 4) for k, v in metrics.items()})
         return metrics
 
+    # every epoch_<n>.pt has daclip_tpu's step dir <n>/ beside it, unless the
+    # options make an optax chain that the port neither reads nor writes
+    why = clip_chain_refusal(cfg)
+    if why is not None:
+        log.warning("no orbax step dirs are written beside the .pt files: %s", why)
+    elif host0 and start_epoch < args.epochs:  # their writer process, started ahead
+        start_writer(("daclip_torch.utils.native_checkpoint",))
     max_to_keep = 1 if args.delete_previous_checkpoint else 3
     best_loss = float("inf")
     global_step = start_epoch * steps_per_epoch
@@ -397,8 +411,9 @@ def main(argv=None):
             parallel.barrier()
         if evals:
             writer.write(global_step, evals, prefix="val/")
+        # the step dirs are written in the background; wait_all() joins them
         save = partial(save_clip_checkpoint, model=wrapped, state=state, epoch=epoch + 1,
-                       name=args.name)
+                       name=args.name, cfg=None if why else cfg, wait=False)
         if (epoch + 1) % args.save_frequency == 0:
             save(ckpt_dir, max_to_keep=max_to_keep)
         elif args.save_most_recent:  # epoch_latest (main.py:448-457)
@@ -409,6 +424,7 @@ def main(argv=None):
     log.info("training complete; best epoch loss %.4f", best_loss)
     if writer is not None:
         writer.close()
+    wait_all()  # every step dir whole before the last sync (daclip_tpu :470-473)
     if sync_thread is not None:
         sync_thread.stop(final_sync=True)
     return {"best_loss": best_loss}

@@ -5,8 +5,11 @@ Counterpart of `daclip_tpu/cli/train_restoration.py`: the options file's
 datasets, UNet, IR-SDE and `train:` keys; the frozen DA-CLIP's contexts of
 each batch under `no_grad` (or cached once per sample with
 `cache_clip_contexts`); the step of `train/restoration.py` (bf16 UNet,
-remat at patch ≥ 256, AdamW/Lion, EMA); `<step>.pt` checkpoints (the last
-five kept) with resume from the newest; validation every `val_freq` steps,
+remat at patch ≥ 256, AdamW/Lion, EMA); `<step>.pt` checkpoints, each with
+daclip_tpu's orbax step dir `<step>/` beside it (the whole TrainState, which
+daclip_tpu's CLI resumes; written in the background inside the loop, as
+daclip_tpu's is; the last five of each kept), with resume from the newest
+of either; validation every `val_freq` steps,
 the EMA UNet sampling up to 8 images, with the best PSNR tracked.
 
 Usage:
@@ -224,7 +227,8 @@ def main(argv=None):
     from daclip_torch.models.unet import ConditionalUNet
     from daclip_torch.train.restoration import init_state, make_sampler
     from daclip_torch.utils import metrics
-    from daclip_torch.utils.checkpoint import restore_checkpoint, resume_point, save_checkpoint
+    from daclip_torch.utils.checkpoint import (checkpoint_path, restore_checkpoint, resume_point,
+                                               save_checkpoint, start_writer)
 
     rank, world, _, device = parallel.initialize_distributed(
         args.dist_url, args.dist_backend, args.device, not args.no_set_device_rank)
@@ -322,6 +326,9 @@ def main(argv=None):
         log.info("# val step %d: psnr %.4f (best %.4f @ %d)", step, psnr, best_psnr, best_step)
         parallel.barrier()
 
+    if host0 and ckpt_dir and save_freq and start_step < niter:
+        # the in-loop saves' step dirs are written by the writer process
+        start_writer(("daclip_torch.utils.native_checkpoint",))
     log.info("training from step %d to %d", start_step, niter)
     step = start_step
     t0 = time.time()
@@ -339,13 +346,17 @@ def main(argv=None):
             if val_freq and step % val_freq == 0:
                 run_val(step)
             if ckpt_dir and save_freq and step % save_freq == 0:
-                save_checkpoint(ckpt_dir, wrapped, state, max_to_keep=5)
-                log.info("saving checkpoint @ %d", step)
+                # <step>.pt, and daclip_tpu's <step>/ written in the background
+                save_checkpoint(ckpt_dir, wrapped, state, max_to_keep=5, cfg=cfg, wait=False)
+                log.info("saving checkpoint @ %d (async): %s and %s", step,
+                         checkpoint_path(ckpt_dir, step), os.path.join(ckpt_dir, str(step)))
             if step >= niter:
                 break
         epoch += 1
     if ckpt_dir:
-        save_checkpoint(ckpt_dir, wrapped, state, max_to_keep=5)
+        save_checkpoint(ckpt_dir, wrapped, state, max_to_keep=5, cfg=cfg)
+        log.info("saved checkpoint @ %d: %s and %s", step, checkpoint_path(ckpt_dir, step),
+                 os.path.join(ckpt_dir, str(step)))
     run_val(step)
     log.info("done: best psnr %.4f @ step %d", best_psnr, best_step)
     return {"best_psnr": best_psnr, "best_step": best_step, "final_step": step}

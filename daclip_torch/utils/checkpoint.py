@@ -30,6 +30,18 @@ same payload as a `.pt` file's (`load_restoration_train_state`,
 under a dir, the `.pt` on a tie, and both kinds reach the model, the
 optimizer and the EMA through `_restore_payload`'s calls.
 
+Given the run's options (`cfg`), each save also writes daclip_tpu's orbax
+step dir beside the file (`<dir>/<step>/`, or `<dir>/<epoch>/` for
+DA-CLIP), from the same gathered payload
+(`native_checkpoint.save_restoration_train_state`,
+`save_daclip_train_state`, through `utils/orbax_writer.py`), which
+daclip_tpu's train CLIs resume: a run trained here continues on the TPU at
+the step where it stopped. `wait=False` writes the step dir in the
+background, in `orbax_writer`'s writer process (the payload copied to the
+host first); `wait_all` joins those writes, and a write that failed raises
+there or at the next save; `start_writer` starts the writer process ahead
+of the first such save.
+
 Under a mesh (`daclip_torch.parallel`) the files are the same: rank 0
 gathers the whole tensors (torch.distributed.checkpoint's full state dicts;
 the other ranks take part only where a tensor is sharded) and writes, the
@@ -46,6 +58,7 @@ import torch
 
 from daclip_torch import parallel
 from daclip_torch.utils import orbax_reader
+from daclip_torch.utils.orbax_writer import start_writer, wait_all  # noqa: F401  (re-exported)
 
 EPOCH = "epoch_"   # the DA-CLIP trainer's file prefix: epoch_<n>.pt
 
@@ -115,11 +128,11 @@ def _restore_payload(model: torch.nn.Module, optimizer, params: Dict[str, torch.
 
 
 def _save(directory: str, n: int, payload: dict, max_to_keep: Optional[int],
-          prefix: str = "") -> str:
+          prefix: str = "", step_dir=None) -> str:
     """On rank 0, write `payload` to a temporary name and rename it to
     `<directory>/<prefix><n>.pt`, then keep only the newest `max_to_keep`
-    such files (all when None); every rank returns the path once it is
-    written."""
+    such files (all when None), then call `step_dir(payload)` when given;
+    every rank returns the path once it is written."""
     path = checkpoint_path(directory, n, prefix)
     if parallel.rank() == 0:
         os.makedirs(directory, exist_ok=True)
@@ -129,6 +142,8 @@ def _save(directory: str, n: int, payload: dict, max_to_keep: Optional[int],
         if max_to_keep is not None:
             for old in steps(directory, prefix)[:-max_to_keep]:
                 os.remove(checkpoint_path(directory, old, prefix))
+        if step_dir is not None:
+            step_dir(payload)
     parallel.barrier()
     return path
 
@@ -145,18 +160,27 @@ def _file(path: str, n: Optional[int], prefix: str = "") -> str:
 
 
 def save_checkpoint(directory: str, unet: torch.nn.Module, state,
-                    max_to_keep: Optional[int] = None) -> str:
+                    max_to_keep: Optional[int] = None, cfg=None, wait: bool = True) -> str:
     """Save the UNet's parameters and the TrainState (optimizer, EMA, step)
     as `<directory>/<state.step>.pt`, then keep only the newest
-    `max_to_keep` step files (all when None); returns the path. `unet` may
+    `max_to_keep` step files (all when None); returns the path. With `cfg`
+    (the run's `RestorationTrainConfig`), daclip_tpu's step dir
+    `<directory>/<state.step>/` is written too, with the same `max_to_keep`
+    over the step dirs, in the background when `wait` is False. `unet` may
     be wrapped by `parallel.parallelize` (every rank calls this then)."""
     unet = parallel.unwrap(unet)
+    step_dir = None
+    if cfg is not None:
+        from daclip_torch.utils import native_checkpoint
+
+        step_dir = lambda payload: native_checkpoint.save_restoration_train_state(  # noqa: E731
+            directory, payload, cfg, unet, state.optimizer, max_to_keep, wait)
     return _save(directory, state.step,
                  {"params": parallel.model_state(unet),
                   "opt_state": parallel.optimizer_state(unet, state.optimizer),
                   "params_ema": parallel.full_tensors(state.ema.params),
                   "ema_step": state.ema.step,
-                  "step": state.step}, max_to_keep)
+                  "step": state.step}, max_to_keep, step_dir=step_dir)
 
 
 def load_params(directory: str, step: Optional[int] = None,
@@ -194,17 +218,27 @@ def restore_checkpoint(directory: str, unet: torch.nn.Module, state,
 
 
 def save_clip_checkpoint(directory: str, model: torch.nn.Module, state, epoch: int,
-                         name: Optional[str] = None, max_to_keep: Optional[int] = None) -> str:
+                         name: Optional[str] = None, max_to_keep: Optional[int] = None,
+                         cfg=None, wait: bool = True) -> str:
     """Save the model's state dict and the ClipTrainState (optimizer, step)
     as `<directory>/epoch_<epoch>.pt`, then keep only the newest
-    `max_to_keep` epoch files (all when None); returns the path. `model`
-    may be wrapped by `parallel.parallelize` (every rank calls this then)."""
+    `max_to_keep` epoch files (all when None); returns the path. With `cfg`
+    (the run's `ClipTrainConfig`), daclip_tpu's step dir
+    `<directory>/<epoch>/` is written too, with the same `max_to_keep` over
+    the step dirs, in the background when `wait` is False. `model` may be
+    wrapped by `parallel.parallelize` (every rank calls this then)."""
     model = parallel.unwrap(model)
+    step_dir = None
+    if cfg is not None:
+        from daclip_torch.utils import native_checkpoint
+
+        step_dir = lambda payload: native_checkpoint.save_daclip_train_state(  # noqa: E731
+            directory, payload, model, cfg, state.optimizer, max_to_keep, wait)
     return _save(directory, epoch,
                  {"epoch": int(epoch), "name": name, "step": state.step,
                   "state_dict": parallel.model_state(model),
                   "optimizer": parallel.optimizer_state(model, state.optimizer)},
-                 max_to_keep, EPOCH)
+                 max_to_keep, EPOCH, step_dir=step_dir)
 
 
 def load_clip_state_dict(path: str, epoch: Optional[int] = None) -> Dict[str, torch.Tensor]:

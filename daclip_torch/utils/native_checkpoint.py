@@ -26,20 +26,30 @@ step and the epoch, as the payload of a `.pt` file of `utils/checkpoint.py`
 weight map, which must only move values (`_computed_leaves`); the
 cross-attention parameters the port's UNet gives no gradient keep no state,
 as the port's optimizer keeps none for them.
+
+`save_restoration_train_state` and `save_daclip_train_state` are their
+inverses: a `.pt` payload as the orbax step dir that daclip_tpu's
+`restore_checkpoint(target=…)` restores (`utils/orbax_writer.py`), its
+parameters, optax chain, EMA, step, epoch and frozen tree in daclip_tpu's
+layout, through the same weight maps walked backwards (`convert.*_to_jax`).
+What the readers refuse by name, the writers refuse by name.
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from daclip_torch.convert import (daclip_state_dict_from_jax, infer_unet_arch,
-                                  load_torch_state_dict, resize_pos_embed,
-                                  unet_state_dict_from_jax)
+from daclip_torch.convert import (clip_state_dict_from_jax, clip_state_dict_to_jax,
+                                  daclip_state_dict_from_jax, daclip_state_dict_to_jax,
+                                  daclip_trainable_state_dict_to_jax,
+                                  infer_unet_arch, load_torch_state_dict, resize_pos_embed,
+                                  unet_state_dict_from_jax, unet_state_dict_to_jax)
 from daclip_torch.utils import checkpoint as train_checkpoint
-from daclip_torch.utils import orbax_reader
+from daclip_torch.utils import orbax_reader, orbax_writer
 
 
 def _has_orbax_step_dirs(path: str) -> bool:
@@ -392,11 +402,14 @@ def load_daclip_train_state(directory: str, model, step: Optional[int] = None, c
     state_dict, optimizer}, what daclip_tpu's resume restores
     (`cli/train_daclip.py:300-343`) after the name map.
 
-    `model` is a DaCLIP (daclip_tpu's plain CLIP runs are refused by name).
-    The model is trainable ∪ frozen through `daclip_state_dict_from_jax` (a
-    dir without the frozen CLIP gives the trainable part alone); the
-    trainable parameters' moments through the same map (the stacked (L, …)
-    blocks split per layer) into AdamW's state, keyed by the parameter
+    `model` is a DaCLIP or, for daclip_tpu's plain-CLIP runs (the whole
+    CLIP in `params`, `frozen` empty), a CLIP; any other model is refused
+    by name. A DaCLIP is trainable ∪ frozen through
+    `daclip_state_dict_from_jax` (a dir without the frozen CLIP gives the
+    trainable part alone), a CLIP its params through
+    `clip_state_dict_from_jax`; the trainable parameters' moments go
+    through the same map (the stacked (L, …) blocks split per layer) into
+    AdamW's state, keyed by the parameter
     `named_parameters()` gives (once each: the `visual.*` aliases hold no
     state), in `optimizer`'s layout (else that of
     `train.clip_train.make_optimizer` with `cfg`, no LiT mask). The
@@ -408,27 +421,31 @@ def load_daclip_train_state(directory: str, model, step: Optional[int] = None, c
     parameters alone, as daclip_tpu's CLI does, and says so on `log`;
     `optimizer` is then None."""
     from daclip_torch import parallel
-    from daclip_torch.convert import daclip_trainable_state_dict_from_jax as convert
-    from daclip_torch.models.clip import DaCLIP
     from daclip_torch.train import clip_train
 
     directory, step = _resolve(directory, step)
     where = os.path.join(directory, str(step))
     module = parallel.unwrap(model)
-    if not isinstance(module, DaCLIP):
-        raise ValueError(f"{where}: resuming daclip_tpu's plain CLIP runs is not mapped; the "
-                         f"model is a {type(module).__name__}, not a DaCLIP")
+    daclip = _clip_kind(module, where)
     top = set(orbax_reader.top_level_keys(directory, step))
     if "params" not in top:
         raise ValueError(f"{where} holds {sorted(top)}, no 'params'")
     tree = orbax_reader.restore_checkpoint(directory, step)
     trainable = _numpy(_unwrap_flax(tree["params"]))
     frozen = _numpy(_unwrap_flax(tree.get("frozen") or {}))
-    if "visual_control" not in trainable:
-        raise ValueError(f"{where}: the params tree is not a DA-CLIP's (no visual_control)")
-    sd = (daclip_state_dict_from_jax({**trainable, **frozen}) if "clip" in frozen
-          else convert(trainable))
-    _check_model(sd, module, where, partial="clip" not in frozen)
+    if daclip != ("visual_control" in trainable):
+        raise ValueError(f"{where}: the params tree is {'not ' * daclip}a DA-CLIP's "
+                         f"({'no ' * daclip}visual_control), the model a "
+                         f"{type(module).__name__}")
+    convert = _clip_map(module)
+    if daclip:
+        sd = (daclip_state_dict_from_jax({**trainable, **frozen}) if "clip" in frozen
+              else convert(trainable))
+    else:
+        if frozen:
+            raise ValueError(f"{where}: a plain-CLIP dir with a frozen tree {sorted(frozen)}")
+        sd = convert(trainable)
+    _check_model(sd, module, where, partial=daclip and "clip" not in frozen)
     epoch = int(tree["epoch"]) if "epoch" in tree else step
     payload = {"epoch": epoch, "name": None, "step": int(tree.get("step", 0)), "state_dict": sd,
                "optimizer": None}
@@ -443,7 +460,8 @@ def load_daclip_train_state(directory: str, model, step: Optional[int] = None, c
     _check_optimizer(opt, "adam", True, clip, "AdamW with daclip_tpu's decay mask" + (
         f", grad_clip_norm {cfg.grad_clip_norm}" if cfg is not None else ""), where)
     if optimizer is None:
-        named = [(n, p) for n, p in module.named_parameters() if not n.startswith("clip.")]
+        named = [(n, p) for n, p in module.named_parameters()
+                 if not (daclip and n.startswith("clip."))]
         optimizer = clip_train.make_optimizer(named, cfg or clip_train.ClipTrainConfig())
     index, groups = parallel.optimizer_layout(module, optimizer)
     moments = opt["moments"]
@@ -456,6 +474,264 @@ def load_daclip_train_state(directory: str, model, step: Optional[int] = None, c
                                                     index, set(), where),
                             "param_groups": groups}
     return payload
+
+
+def _clip_kind(module, where: str) -> bool:
+    """True for a DaCLIP, False for a CLIP (daclip_tpu's plain-CLIP runs);
+    any other model (CoCa, say) is refused by name."""
+    from daclip_torch.models.clip import CLIP, DaCLIP
+
+    if isinstance(module, DaCLIP):
+        return True
+    if type(module) is CLIP:
+        return False
+    raise ValueError(f"{where}: daclip_tpu's DA-CLIP train dirs are mapped for a DaCLIP or a "
+                     f"CLIP; the model is a {type(module).__name__}")
+
+
+def _clip_map(module):
+    """The weight map (JAX tree → state dict) of a DaCLIP's trainable part
+    or of a whole CLIP."""
+    from daclip_torch.convert import daclip_trainable_state_dict_from_jax
+    from daclip_torch.models.clip import DaCLIP
+
+    if isinstance(module, DaCLIP):
+        return daclip_trainable_state_dict_from_jax
+    return lambda t: clip_state_dict_from_jax(t, custom_text=module.custom_text)
+
+
+# ---------------------------------------------------------------------------
+# writing daclip_tpu's train dirs: the inverses of the two loaders above
+
+
+def _tensors(tree: Any) -> Any:
+    """A rebuilt JAX tree's numpy arrays as CPU tensors (no copy)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(tree)
+
+
+def _count(n: int) -> torch.Tensor:
+    """A step or count as daclip_tpu keeps it: a 0-d int32 array."""
+    return torch.tensor(int(n), dtype=torch.int32)
+
+
+def _chain(kind: str, count: int, mu: Dict, nu: Optional[Dict], decay: list,
+           clip: bool) -> list:
+    """daclip_tpu's optax chain state, the inverse of `_optax_state`:
+    [clip_by_global_norm's EmptyState (None)] → scale_by_adam's (count, mu,
+    nu) or scale_by_lion's (count, mu) → add_decayed_weights' state, `decay`
+    ([] without one, [None], or [{"inner_state": None}] under optax.masked)
+    → the schedule's count."""
+    moments = {"count": _count(count), "mu": mu}
+    if kind == "adam":
+        moments["nu"] = nu
+    chain = [moments, *decay, {"count": _count(count)}]
+    return [None, chain] if clip else chain
+
+
+def _moments_back(params: Dict[str, torch.Tensor], opt_state: Dict, index: Dict[str, int],
+                  kind: str, step: int, no_state: set, where: str
+                  ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
+    """The inverse of `_moments_state`: (mu, nu) state dicts over the keys of
+    `params` from torch's per-parameter state (AdamW's exp_avg and
+    exp_avg_sq, Lion's exp_avg; nu None for Lion). A key with no state
+    takes zero moments, as daclip_tpu keeps them, only where no state is
+    right: a buffer (no parameter of the optimizer), a parameter in
+    `no_state`, or any before the first step; else it is refused by name."""
+    state = opt_state.get("state", {}) if opt_state else {}
+    mu, nu = {}, {}
+    for name, p in params.items():
+        st = state.get(index[name]) if name in index else None
+        if st is None:
+            if name in index and name not in no_state and step != 0:
+                raise ValueError(f"{where}: {name} holds no optimizer state at step {step}, so "
+                                 "its moments cannot be written")
+            mu[name] = nu[name] = torch.zeros(p.shape, dtype=torch.float32)
+            continue
+        if "step" in st and int(st["step"]) != step:
+            raise ValueError(f"{where}: {name}'s optimizer step {int(st['step'])} is not the "
+                             f"run's step {step}; daclip_tpu advances them together")
+        mu[name] = st["exp_avg"].float()
+        if kind == "adam":
+            nu[name] = st["exp_avg_sq"].float()
+    return mu, (nu if kind == "adam" else None)
+
+
+def _restoration_chain(cfg) -> Tuple[str, bool, bool]:
+    """(moments kind, decay, clip) of daclip_tpu's `train/restoration.py`
+    `make_optimizer` (:71-88) for `cfg`."""
+    name = cfg.optimizer.lower()
+    if name not in ("adam", "adamw", "lion"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    return ("lion" if name == "lion" else "adam",
+            name in ("adamw", "lion") or bool(cfg.weight_decay_G), bool(cfg.grad_clip))
+
+
+def _restoration_index(sd: Dict, cfg, unet=None, optimizer=None) -> Dict[str, int]:
+    """Each parameter's index in `parallel.optimizer_state`'s form:
+    `optimizer`'s layout, else `make_optimizer(cfg)`'s over `unet`, else over
+    a UNet built on the meta device from the state dict."""
+    from daclip_torch import parallel
+    from daclip_torch.models.unet import ConditionalUNet
+    from daclip_torch.train import restoration as trest
+
+    if unet is None:
+        with torch.device("meta"):
+            unet = ConditionalUNet(**infer_unet_arch(sd))
+    if optimizer is None:
+        optimizer = trest.make_optimizer([p for _, p in trest.trainable(parallel.unwrap(unet))],
+                                         cfg)
+    return parallel.optimizer_layout(unet, optimizer)[0]
+
+
+def _restoration_tree(payload: Dict, cfg, index: Dict[str, int], where: str) -> Dict:
+    kind, decay, clip = _restoration_chain(cfg)
+    sd, step = payload["params"], int(payload["step"])
+    dropped: set = set()
+    params = unet_state_dict_to_jax(sd, dropped=dropped)
+    no_state = _unet_no_grad(dropped, index, where)
+    mu, nu = _moments_back(sd, payload["opt_state"], index, kind, step, no_state, where)
+    wrap = lambda t: {"params": _tensors(unet_state_dict_to_jax(t))}  # noqa: E731
+    return {"params": {"params": _tensors(params)},
+            "opt_state": _chain(kind, step, wrap(mu), wrap(nu) if nu is not None else None,
+                                [None] if decay else [], clip),
+            "ema": {"params": wrap(payload["params_ema"]), "step": _count(payload["ema_step"])},
+            "step": _count(step)}
+
+
+def restoration_train_tree(payload: Dict, cfg, unet=None, optimizer=None,
+                           where: str = "the restoration state") -> Dict:
+    """The inverse of `load_restoration_train_state`: a `.pt` payload of
+    `utils/checkpoint.save_checkpoint` ({params, opt_state, params_ema,
+    ema_step, step}) as daclip_tpu's TrainState tree
+    (`train/restoration.py:29-33`): {params: {params}, opt_state, ema:
+    {params: {params}, step}, step}, the parameters, EMA and moments through
+    `unet_state_dict_to_jax` (the one-token `to_q` dropped), the optax chain
+    that daclip_tpu's `make_optimizer` (:71-88) builds from `cfg` (the
+    restoration options' `RestorationTrainConfig`), the counts and steps
+    int32. The parameters the port's UNet gives no gradient (a one-token
+    cross-attention's to_k and norm2) take the zero moments daclip_tpu keeps.
+    The state is indexed as `parallel.optimizer_state` indexes it
+    (`_restoration_index` of `unet` and `optimizer`)."""
+    return _restoration_tree(payload, cfg,
+                             _restoration_index(payload["params"], cfg, unet, optimizer), where)
+
+
+def save_restoration_train_state(directory: str, payload: Dict, cfg, unet=None,
+                                 optimizer=None, max_to_keep: Optional[int] = None,
+                                 wait: bool = True) -> str:
+    """Write `payload` (a `.pt` payload of `utils/checkpoint.save_checkpoint`)
+    as daclip_tpu's orbax step dir `<directory>/<step>/`
+    (`restoration_train_tree`, `orbax_writer.save_checkpoint`), which its
+    `cli/train_restoration` resumes; returns the step dir. The chain and the
+    optimizer's layout are read at once; with `wait=False` the payload is
+    copied to the host, and mapped and written by `orbax_writer`'s writer
+    process."""
+    _restoration_chain(cfg)
+    step = int(payload["step"])
+    where = os.path.join(directory, str(step))
+    index = _restoration_index(payload["params"], cfg, unet, optimizer)
+    return orbax_writer.save_checkpoint(
+        directory, step, payload, max_to_keep=max_to_keep, wait=wait,
+        build=functools.partial(_restoration_tree, cfg=cfg, index=index, where=where))
+
+
+def clip_chain_refusal(cfg) -> Optional[str]:
+    """Why the optax chain that daclip_tpu's `train/clip_train.py`
+    `make_optimizer` builds from `cfg` is not mapped (the reader refuses it
+    too), or None when it is."""
+    if cfg.accum_freq > 1:
+        return (f"accum_freq {cfg.accum_freq} makes daclip_tpu's optimizer optax.MultiSteps, "
+                "whose state the port does not map")
+    if cfg.skip_scheduler:
+        return ("skip_scheduler makes daclip_tpu's chain end in a constant scale with no "
+                "schedule count, a chain the port does not map")
+    return None
+
+
+def _check_clip_chain(cfg, where: str) -> None:
+    why = clip_chain_refusal(cfg)
+    if why is not None:
+        raise ValueError(f"{where}: {why}")
+
+
+def _clip_layout(module, cfg, optimizer, where: str) -> Tuple[bool, bool, Dict[str, int]]:
+    """(DaCLIP or CLIP, the CLIP's custom_text, each trainable parameter's
+    index in `optimizer`'s layout, else in `clip_train.make_optimizer`'s)."""
+    from daclip_torch import parallel
+    from daclip_torch.train import clip_train
+
+    daclip = _clip_kind(module, where)
+    if optimizer is None:
+        named = [(n, p) for n, p in module.named_parameters()
+                 if not (daclip and n.startswith("clip."))]
+        optimizer = clip_train.make_optimizer(named, cfg)
+    return (daclip, bool(getattr(module, "custom_text", False)),
+            parallel.optimizer_layout(module, optimizer)[0])
+
+
+def _daclip_tree(payload: Dict, cfg, layout, where: str) -> Dict:
+    daclip, custom_text, index = layout
+    sd, step = payload["state_dict"], int(payload["step"])
+    if daclip:
+        full = daclip_state_dict_to_jax(sd)
+        params = {k: v for k, v in full.items() if k != "clip"}
+        frozen = {"clip": _tensors(full["clip"])}
+        trainable = {k: v for k, v in sd.items() if not k.startswith(("clip.", "visual."))}
+        to_jax = lambda t: _tensors(daclip_trainable_state_dict_to_jax(t))  # noqa: E731
+    else:
+        params = clip_state_dict_to_jax(sd, custom_text=custom_text)
+        frozen, trainable = {}, sd
+        to_jax = lambda t: _tensors(  # noqa: E731
+            clip_state_dict_to_jax(t, custom_text=custom_text))
+    mu, nu = _moments_back(trainable, payload["optimizer"], index, "adam", step, set(), where)
+    return {"params": _tensors(params),
+            "opt_state": _chain("adam", step, to_jax(mu), to_jax(nu), [{"inner_state": None}],
+                                bool(cfg.grad_clip_norm)),
+            "step": _count(step), "frozen": frozen, "epoch": int(payload["epoch"])}
+
+
+def daclip_train_tree(payload: Dict, model, cfg, optimizer=None,
+                      where: str = "the DA-CLIP state") -> Dict:
+    """The inverse of `load_daclip_train_state`: a `.pt` payload of
+    `utils/checkpoint.save_clip_checkpoint` ({epoch, name, step, state_dict,
+    optimizer}) as the tree daclip_tpu's `cli/train_daclip` saves
+    (:452-454): {params, opt_state, step, frozen, epoch}. A DaCLIP's params
+    are its trainable part and `frozen` its CLIP ({"clip": …}), through
+    `daclip_state_dict_to_jax`; a CLIP's params are the whole CLIP and
+    `frozen` is empty, through `clip_state_dict_to_jax`. The chain is the
+    one daclip_tpu's `train/clip_train.py` `make_optimizer` (:79-103) builds
+    from `cfg` (the `ClipTrainConfig`): [clip_by_global_norm] → adamw with
+    its ndim ≥ 2 decay mask → the schedule's count. MultiSteps
+    (`accum_freq` > 1) and a constant learning rate (`skip_scheduler`), which
+    the reader does not map either, are refused by name, as is any model
+    but a DaCLIP or a CLIP."""
+    from daclip_torch import parallel
+
+    _check_clip_chain(cfg, where)
+    return _daclip_tree(payload, cfg, _clip_layout(parallel.unwrap(model), cfg, optimizer, where),
+                        where)
+
+
+def save_daclip_train_state(directory: str, payload: Dict, model, cfg, optimizer=None,
+                            max_to_keep: Optional[int] = None, wait: bool = True) -> str:
+    """Write `payload` (a `.pt` payload of `utils/checkpoint.
+    save_clip_checkpoint`) as daclip_tpu's orbax step dir
+    `<directory>/<epoch>/` (`daclip_train_tree`), which its `cli/train_daclip`
+    resumes with the exact target it builds (:322-325); returns the step
+    dir. What is refused is refused at once; with `wait=False` the payload
+    is copied to the host, and mapped and written by `orbax_writer`'s
+    writer process."""
+    from daclip_torch import parallel
+
+    epoch = int(payload["epoch"])
+    where = os.path.join(directory, str(epoch))
+    _check_clip_chain(cfg, where)
+    layout = _clip_layout(parallel.unwrap(model), cfg, optimizer, where)
+    return orbax_writer.save_checkpoint(
+        directory, epoch, payload, max_to_keep=max_to_keep, wait=wait,
+        build=functools.partial(_daclip_tree, cfg=cfg, layout=layout, where=where))
 
 
 def _numpy(tree: Any) -> Any:

@@ -44,13 +44,11 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
-from daclip_torch.utils import zstd
+from daclip_torch.utils import HOST_THREADS, zstd
 
 _MANIFEST_MAGIC = 0x0CDB3A2A
 _NODE_MAGIC = 0x0CDB20DE
 _NO_OFFSET = (1 << 64) - 1
-# the threads that decode a tree's arrays (zstd releases the GIL)
-_THREADS = min(8, os.cpu_count() or 1)
 # "<f8" is how orbax stores a Python float leaf
 _DTYPES = {"<f4": torch.float32, "<f2": torch.float16, "bfloat16": torch.bfloat16,
            "<f8": torch.float64, "<i4": torch.int32, "<i8": torch.int64, "|u1": torch.uint8,
@@ -237,7 +235,7 @@ class OcdbtStore:
         except OSError as e:
             raise CheckpointFormatError(f"cannot read {path}: {e}") from e
 
-    def read_range(self, rel: str, offset: int, length: int) -> bytes:
+    def _fd(self, rel: str) -> int:
         with self._lock:
             f = self._files.get(rel)
             if f is None:
@@ -248,11 +246,25 @@ class OcdbtStore:
                     f = self._files[rel] = open(path, "rb")
                 except OSError as e:
                     raise CheckpointFormatError(f"cannot open {path}: {e}") from e
-        data = os.pread(f.fileno(), length, offset)
+        return f.fileno()
+
+    def read_range(self, rel: str, offset: int, length: int) -> bytes:
+        data = os.pread(self._fd(rel), length, offset)
         if len(data) != length:
             raise CheckpointFormatError(
                 f"{self.root}/{rel}: {length} bytes at {offset} past the file's end")
         return data
+
+    def read_range_into(self, rel: str, offset: int, dst: torch.Tensor) -> None:
+        """`dst.numel()` bytes at `offset` of data file `rel`, read straight
+        into the contiguous uint8 tensor `dst` (no copy on the way)."""
+        fd, view, done = self._fd(rel), memoryview(dst.numpy()), 0
+        while done < len(view):
+            n = os.preadv(fd, [view[done:]], offset + done)
+            if n <= 0:
+                raise CheckpointFormatError(
+                    f"{self.root}/{rel}: {len(view)} bytes at {offset} past the file's end")
+            done += n
 
     def entries(self, prefix: bytes = b"") -> Dict[bytes, Any]:
         """Every key starting with `prefix`, mapped to its value: bytes when
@@ -314,6 +326,21 @@ class _OcdbtKeys:
         if v is None or isinstance(v, bytes):
             return v
         return self.store.read_range(*v)
+
+    def read_into(self, key: str, dst: torch.Tensor) -> bool:
+        """An uncompressed chunk read straight into the uint8 tensor `dst`;
+        False when the key is missing."""
+        v = self.entries.get(key.encode())
+        if v is None:
+            return False
+        size = len(v) if isinstance(v, bytes) else v[2]
+        if size != dst.numel():
+            raise CheckpointFormatError(f"{key}: chunk of {size} bytes, {dst.numel()} expected")
+        if isinstance(v, bytes):
+            dst.copy_(torch.frombuffer(bytearray(v), dtype=torch.uint8))
+        else:
+            self.store.read_range_into(v[0], v[1], dst)
+        return True
 
 
 class _FileKeys:
@@ -392,8 +419,8 @@ def read_array(keys, name: str) -> torch.Tensor:
     """A zarr v2 array as a CPU tensor, every chunk assembled (edge chunks
     cut to the shape, missing ones at `fill_value`). A chunk that is a whole
     contiguous slab of the array (the array itself, or rows of it spanning
-    every other axis) decodes straight into it; others through one chunk
-    buffer."""
+    every other axis) decodes straight into it (stored without a
+    compressor, it is read into it); others through one chunk buffer."""
     meta = _array_meta(keys, name)
     dtype, shape, chunks = _DTYPES[meta["dtype"]], list(meta["shape"]), list(meta["chunks"])
     sep = meta.get("dimension_separator", ".")
@@ -406,11 +433,15 @@ def read_array(keys, name: str) -> torch.Tensor:
     while True:
         key = f"{name}/{sep.join(map(str, index)) if shape else '0'}"
         region = tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(index, chunks, shape))
-        raw = keys.get(key)
-        if raw is None:
+        slab = chunks == shape or (chunks[1:] == shape[1:]
+                                   and region[0].stop - region[0].start == chunks[0])
+        if slab and meta.get("compressor") is None and isinstance(keys, _OcdbtKeys):
+            # stored bytes of a whole slab: read straight into the array
+            if not keys.read_into(key, out[region].view(-1).view(torch.uint8)):
+                out[region] = _fill(meta, dtype)
+        elif (raw := keys.get(key)) is None:
             out[region] = _fill(meta, dtype)
-        elif chunks == shape or (chunks[1:] == shape[1:]
-                                 and region[0].stop - region[0].start == chunks[0]):
+        elif slab:
             _decode_chunk(raw, meta, out[region], key)
         else:
             if scratch is None:
@@ -501,7 +532,7 @@ def restore_item(item_dir: str, prefix: str = "") -> Dict:
     store = OcdbtStore(item_dir) if meta.get("use_ocdbt", True) else None
     try:
         keys = _OcdbtKeys(store, prefix) if store is not None else _FileKeys(item_dir)
-        with ThreadPoolExecutor(_THREADS) as pool:
+        with ThreadPoolExecutor(HOST_THREADS) as pool:
             arrays = list(pool.map(lambda w: read_array(keys, w[1]), wanted))
     finally:
         if store is not None:

@@ -151,7 +151,8 @@ def test_train_cli_trains_saves_and_resumes(trained):
     assert first["best_step"] == 4 and second["best_step"] == 6
     assert "training from step 0 to 4" in log1
     assert "resumed from step 4" in log2 and "training from step 4 to 6" in log2
-    assert sorted(os.listdir(ckpt_dir)) == ["4.pt", "6.pt"]
+    # each save writes <step>.pt and daclip_tpu's orbax step dir <step>/
+    assert sorted(os.listdir(ckpt_dir)) == ["4", "4.pt", "6", "6.pt"]
     assert torch.load(ckpt_dir / "6.pt", weights_only=False)["step"] == 6
     assert sum(m.startswith("step ") and " loss " in m for m in log1) == 2  # print_freq 2
 

@@ -53,7 +53,7 @@ def test_daclip_cli_over_two_ranks_trains_one_run(daclip_run):
     # rank 0 alone writes, and only its files exist
     ckpts = os.path.join(root, "logs", "run", "checkpoints")
     assert ranks[1]["saved"] == [] and ranks[0]["saved"]
-    assert sorted(os.listdir(ckpts)) == ["best", "epoch_1.pt"]
+    assert sorted(os.listdir(ckpts)) == ["1", "best", "epoch_1.pt"]  # with its orbax step dir
     assert all(s.startswith(str(root)) for s in ranks[0]["saved"])
 
 
@@ -114,7 +114,7 @@ def test_restoration_cli_over_two_ranks_trains_one_run(resto_run):
     assert [r["order"][0] for r in ranks] == [one[0::2], one[1::2]]
     assert ranks[1]["saved"] == [] and len(ranks[0]["saved"]) == 2  # at 4 and at the end
     ckpt_dir = os.path.dirname(ranks[0]["saved"][0])
-    assert ckpt_dir.startswith(str(root / "out")) and os.listdir(ckpt_dir) == ["4.pt"]
+    assert ckpt_dir.startswith(str(root / "out")) and sorted(os.listdir(ckpt_dir)) == ["4", "4.pt"]
 
 
 def test_restoration_cli_checkpoint_of_two_ranks_loads_in_one_process(resto_run):

@@ -327,7 +327,8 @@ def test_a_daclip_dir_without_optimizer_state_restores_the_parameters_alone(tmp_
         if sub == "b":
             for k, v in clip_before.items():
                 assert torch.equal(sd[k], v), k
-    with pytest.raises(ValueError, match="plain CLIP runs is not mapped"):
+    with pytest.raises(ValueError, match="mapped for a DaCLIP or a CLIP; the model is a "
+                                         "ConditionalUNet"):
         nc.load_daclip_train_state(str(tmp_path / "a"), TorchUNet(**KW))
 
 

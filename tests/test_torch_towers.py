@@ -14,7 +14,7 @@ import torch
 
 import daclip_torch.factory as tfactory
 import daclip_tpu.factory as jfactory
-from daclip_torch.convert import clip_state_dict_from_jax
+from daclip_torch.convert import clip_state_dict_from_jax, clip_state_dict_to_jax
 from daclip_torch.models import clip as tclip
 from daclip_torch.models import convnext as tconvnext
 from daclip_torch.models import eva as teva
@@ -206,6 +206,23 @@ def test_state_dict_round_trips_through_torch_convert(name):
                     sd[f"visual.transformer.resblocks.{i}.ls_{j}.gamma"], blocks[f"ls_{j}"][i])
         want = _without_layer_scale(want)
     _assert_tree_equal(back, want)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_state_dict_round_trips_through_the_reversed_map(name):
+    """`convert.clip_state_dict_to_jax` (the port's map walked back) gives
+    the JAX tree the state dict came from, bit for bit, LayerScale
+    included; BatchNorm's `num_batches_tracked`, which the forward map
+    fills, is dropped."""
+    _, jparams, tmodel = _pair(name)
+    sd = tmodel.state_dict()
+    dropped = set()
+    _assert_tree_equal(clip_state_dict_to_jax(sd, dropped=dropped),
+                       jax.tree.map(np.asarray, jparams))
+    assert all(k.endswith("num_batches_tracked") for k in dropped)
+    assert bool(dropped) == (name == "tt-RN")
+    back = clip_state_dict_from_jax(clip_state_dict_to_jax(sd), custom_text=_is_custom(name))
+    assert set(back) == set(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
 
 
 def test_swin_classic_patch_merging_layout_loads():

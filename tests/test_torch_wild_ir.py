@@ -210,7 +210,8 @@ def test_cli_trains_resumes_and_tests_wild_ir_shaped_options(tree):
     assert "training from step 0 to 3" in logs[:n_first]
     assert "resumed from step 3" in logs[n_first:]
     ckpt_dir = tree / "out" / "experiments" / "wild-ir" / "training_state"
-    assert sorted(p.name for p in ckpt_dir.iterdir()) == ["3.pt", "4.pt"]
+    # each save writes <step>.pt and daclip_tpu's orbax step dir <step>/
+    assert sorted(p.name for p in ckpt_dir.iterdir()) == ["3", "3.pt", "4", "4.pt"]
 
     out = t_test.main(["-opt", str(tree / "test.yml"), "--checkpoint", str(ckpt_dir),
                        "--device", "cpu"])["test1"]
